@@ -8,3 +8,8 @@ assert "--xla_force_host_platform_device_count" not in os.environ.get("XLA_FLAGS
 import jax
 
 jax.config.update("jax_platform_name", "cpu")
+
+
+def pytest_configure(config):
+    config.addinivalue_line(
+        "markers", "cuda: needs a Hopper (sm_90) CUDA card; skips elsewhere")
