@@ -7,18 +7,30 @@ Phases, each of which fails the run when it fails:
   1. build the Hopper kernels from src/repro_torch/kernels/csrc (nvcc,
      one process per source, all started together) and time the build;
   2. kernels: hold each kernel against its plain PyTorch version at the
-     main path's full-width shapes, in float32 and bfloat16, and time
+     main path's full-width shapes, in float32 and bfloat16 (quantized
+     paged attention over int8 and fp8 pages, awq_matmul at the four
+     W4A16 shapes of a decode step with groups 64 and 128 and at prefill
+     row counts), and time
      kernel, plain version and a PyTorch library yardstick the port never
-     calls (F.rms_norm, F.scaled_dot_product_attention), each launch with
-     a cold L2;
-  3. reference: a small float32 model served on the card (kernels) and on
-     the CPU (plain versions) with the same weights gives identical greedy
-     streams, through generate() and through the paged batcher;
+     calls (F.rms_norm, F.scaled_dot_product_attention, and for the
+     W4A16 product torch's int4 tinygemm, _weight_int4pack_mm, on the
+     same codes; torch.matmul against the dequantized bf16 weight is
+     printed beside it as a dense reference), each launch with a cold L2;
+  3. reference: small float32 models served on the card (kernels) and on
+     the CPU (plain versions) with the same weights give identical greedy
+     streams, through generate() and through the paged batcher: dense with
+     unquantized pages, and W4A16 (group 64) over int8 and fp8 pages;
   4. main path: build_system on the card with the HPC tier at the full
      width of minitron-8b (bf16, 32 layers, random weights from seed 0),
      four concurrent encrypted stream-hpc requests and one stream-auto
      request through the OpenAI gateway; every kernel's launch counter,
-     zeroed just before, must grow.
+     zeroed just before, must grow; then a breakdown of the engine alone
+     and of one B=8 decode step;
+  5. quantized main path: once the dense system is freed, the same with
+     int8 KV pages and W4A16 weights (the paper's AWQ HPC tier); the
+     counters of awq_matmul, quantized paged attention and rmsnorm,
+     zeroed just before, must grow; then its breakdown, and the two
+     paths' figures side by side.
 The line before the last is the kernels JSON; the last line is
 {"ok": true, "device": {...}}. Exits nonzero with no result line when
 no CUDA device is present or the port's sources are missing.
@@ -26,6 +38,7 @@ no CUDA device is present or the port's sources are missing.
 
 from __future__ import annotations
 
+import gc
 import json
 import math
 import subprocess
@@ -43,6 +56,25 @@ FULL = dict(n_layers=32, d_model=4096, n_heads=32, n_kv_heads=8, head_dim=128,
             compute_dtype="bfloat16")
 B, HQ, HKV, D, PAGE, MAX_SEQ = 8, 32, 8, 128, 16, 256
 N_TIMED = 100
+# W4A16 shapes of one decode step's layer (M = B rows): w1 and w3, w2, wo
+AWQ_SHAPES = {"w1/w3": (B, 4096, 16384), "w2": (B, 16384, 4096), "wo": (B, 4096, 4096)}
+# a PyTorch yardstick may take its inputs in lower precision (bf16 scales
+# for the int4 product): it is held to the plain version within this share
+# of the largest |output|, enough to show it computes the same function
+YARDSTICK_REL = 2e-2
+# kernel -> (source in the repo, the TPU kernel it replaces)
+KERNELS = {
+    "rmsnorm": ("src/repro_torch/kernels/csrc/rmsnorm.cu",
+                "src/repro/kernels/rmsnorm.py:26"),
+    "paged_attention": ("src/repro_torch/kernels/csrc/attention.cu",
+                        "src/repro/kernels/paged_attention.py:91"),
+    "paged_attention_quant": ("src/repro_torch/kernels/csrc/attention.cu",
+                              "src/repro/kernels/paged_attention.py:85"),
+    "decode_attention": ("src/repro_torch/kernels/csrc/attention.cu",
+                         "src/repro/kernels/decode_attention.py:65"),
+    "awq_matmul": ("src/repro_torch/kernels/csrc/awq_matmul.cu",
+                   "src/repro/kernels/awq_matmul.py:52"),
+}
 
 
 def log(*a):
@@ -82,6 +114,19 @@ def check_close(name, got, want, dtype):
     return err.max().item()
 
 
+def int4pack_mm(torch, x, qw, sc, zr, gs):
+    """PyTorch's own grouped int4 product (tinygemm) on the same codes,
+    as a closure over its packed inputs (the conversion is not timed).
+    Its dequantization is (q - 8) * s + zero with bf16 scales and zeros,
+    so AWQ's (q - z) * s has zero = (8 - z) * s."""
+    from repro_torch.kernels import ref
+    q = ref.awq_unpack(qw).t().contiguous()                  # (N, K) codes
+    wp = torch.ops.aten._convert_weight_to_int4pack(
+        (q[:, ::2] << 4 | q[:, 1::2]).to(torch.uint8), 8)
+    sz = torch.stack((sc, (8 - zr) * sc), -1).to(torch.bfloat16).contiguous()
+    return lambda: torch.ops.aten._weight_int4pack_mm(x, wp, gs, sz)
+
+
 def bound_ms(nbytes, flops, dtype):
     t_bytes = nbytes / HBM_BYTES_PER_S
     t_ops = flops / PEAK_FLOPS[dtype]
@@ -91,6 +136,7 @@ def bound_ms(nbytes, flops, dtype):
 # ---------------------------------------------------------------- kernels
 def kernel_phase(torch, timer):
     import torch.nn.functional as F
+    from repro_torch.kernels import awq_matmul as awq_k
     from repro_torch.kernels import decode_attention as dec_k
     from repro_torch.kernels import paged_attention as pa_k
     from repro_torch.kernels import ref
@@ -174,6 +220,104 @@ def kernel_phase(torch, timer):
             rows["paged_attention"] = dict(ms=t_k, plain_ms=t_p, library_ms=t_l,
                                            bound_ms=bms, bound_by=by)
 
+    # ---- quantized paged attention: int8 / fp8 pages, the same tables;
+    # saturated codes in the trash page, and scales of 1e6 in the trash
+    # page and in every page no slot reads live
+    live_pages = {bt_host[b][j] for b in range(B) for j in range(live[b])}
+    dead = torch.tensor(sorted(set(range(P)) - live_pages), device="cuda")
+    n_distinct_pos = len({(bt_host[b][j // PAGE], j % PAGE)
+                          for b in range(B) for j in range(n_live[b])})
+    for kv in ("int8", "float8_e4m3fn"):
+        kdt = getattr(torch, kv)
+        kq, ks = ref.quantize_kv(randn(P, HKV, PAGE, D, dtype=torch.float32), kdt)
+        vq, vs = ref.quantize_kv(randn(P, HKV, PAGE, D, dtype=torch.float32), kdt)
+        top = 127 if kv == "int8" else 448
+        kq[0] = torch.tensor(float(top), device="cuda").to(kdt)    # saturated codes
+        vq[0] = torch.tensor(float(-top), device="cuda").to(kdt)
+        for sc in (ks, vs):
+            sc[dead] = 1e6
+        qkw = dict(block_tables=bt, kv_len=kv_len, pos_offset=poff,
+                   k_scales=ks, v_scales=vs)
+        for dname in ("float32", "bfloat16"):
+            q = randn(B, HQ, 1, D, dtype=getattr(torch, dname))
+            for cap in (0.0, 30.0):
+                err = check_close(
+                    f"paged_attention_quant {kv} cap={cap}",
+                    pa_k.paged_attention(q, kq, vq, logit_soft_cap=cap, **qkw),
+                    pa_k.plain(q, kq, vq, logit_soft_cap=cap, **qkw), dname)
+                rows.setdefault(("paged_attention_quant", dname), []).append(err)
+            if dname == "bfloat16" and kv == "int8":     # the main path's pool
+                t_k = timer.ms(lambda: pa_k.paged_attention(q, kq, vq, **qkw))
+                t_p = timer.ms(lambda: pa_k.plain(q, kq, vq, **qkw))
+                gk = ref.gather_dequant_kv_pages(kq, ks, bt).to(q.dtype).repeat_interleave(
+                    HQ // HKV, dim=1)
+                gv = ref.gather_dequant_kv_pages(vq, vs, bt).to(q.dtype).repeat_interleave(
+                    HQ // HKV, dim=1)
+                mask = (torch.arange(n_pages * PAGE, device="cuda")[None, :]
+                        < (kv_len - poff)[:, None])[:, None, None, :]
+                t_l = timer.ms(lambda: F.scaled_dot_product_attention(
+                    q, gk, gv, attn_mask=mask))
+                elt = q.element_size()
+                # codes (1 byte) and their f32 scale, each distinct position once
+                nbytes = (2 * q.numel() * elt + 2 * n_distinct_pos * HKV * (D + 4)
+                          + 4 * (sum(live) + 2 * B))
+                bms, by = bound_ms(nbytes, 4 * D * HQ * n_live_keys, dname)
+                rows["paged_attention_quant"] = dict(ms=t_k, plain_ms=t_p, library_ms=t_l,
+                                                     bound_ms=bms, bound_by=by)
+
+    # ---- awq_matmul: a decode step's four W4A16 shapes per layer
+    for (wname, (M, K, N)) in AWQ_SHAPES.items():
+        for gs in (64, 128):
+            qw = ref.awq_pack(torch.randint(0, 16, (K, N), generator=g, device="cuda"))
+            sc = 0.002 * torch.rand((K // gs, N), generator=g, device="cuda")
+            zr = torch.randint(0, 16, (K // gs, N), generator=g, device="cuda").float()
+            for dname in ("float32", "bfloat16"):
+                x = randn(M, K, dtype=getattr(torch, dname))
+                want = awq_k.plain(x, qw, sc, zr, group_size=gs)
+                err = check_close(f"awq_matmul {wname} ({M}, {K}, {N}) group {gs}",
+                                  awq_k.awq_matmul(x, qw, sc, zr, group_size=gs),
+                                  want, dname)
+                rows.setdefault(("awq_matmul", dname), []).append(err)
+                if dname != "bfloat16" or gs != 64:       # the main path's: bf16, group 64
+                    continue
+                t_k = timer.ms(lambda: awq_k.awq_matmul(x, qw, sc, zr, group_size=gs))
+                t_p = timer.ms(lambda: awq_k.plain(x, qw, sc, zr, group_size=gs), n=20)
+                grp = torch.arange(K, device="cuda") // gs
+                wd = ((ref.awq_unpack(qw).float() - zr[grp]) * sc[grp]).to(x.dtype)
+                t_d = timer.ms(lambda: torch.matmul(x, wd))
+                del wd
+                lib = int4pack_mm(torch, x, qw, sc, zr, gs)
+                lib_err = (lib().float() - want.float()).abs().max().item()
+                if not lib_err <= YARDSTICK_REL * want.float().abs().max().item():
+                    raise AssertionError(f"_weight_int4pack_mm at ({M}, {K}, {N}) is "
+                                         f"{lib_err:.3e} from the plain version")
+                t_l = timer.ms(lib)
+                del lib
+                nbytes = (qw.numel() * 4 + 2 * sc.numel() * 4
+                          + x.numel() * x.element_size() + M * N * x.element_size())
+                bms, by = bound_ms(nbytes, 2 * M * K * N, dname)
+                log(f"time awq_matmul {wname:6s} ({M}, {K}, {N}) bf16 group 64: kernel "
+                    f"{t_k:.4f} ms  plain {t_p:.4f} ms  library (_weight_int4pack_mm, "
+                    f"max_abs_err {lib_err:.3e}) {t_l:.4f} ms  bound {bms:.5f} ms ({by}); "
+                    f"K split {awq_k.splits(M, K, N, gs, x.device)} ways; dense "
+                    f"reference (torch.matmul, dequantized bf16 weight) {t_d:.4f} ms")
+                if wname == "w1/w3":
+                    rows["awq_matmul"] = dict(ms=t_k, plain_ms=t_p, library_ms=t_l,
+                                              bound_ms=bms, bound_by=by)
+
+    # prefill chunks reach awq_matmul with M = 16 (a page) down to 1
+    K, N = AWQ_SHAPES["w1/w3"][1:]
+    qw = ref.awq_pack(torch.randint(0, 16, (K, N), generator=g, device="cuda"))
+    sc = 0.002 * torch.rand((K // 64, N), generator=g, device="cuda")
+    zr = torch.randint(0, 16, (K // 64, N), generator=g, device="cuda").float()
+    for M in (1, 3, 16):
+        for dname in ("float32", "bfloat16"):
+            x = randn(M, K, dtype=getattr(torch, dname))
+            err = check_close(f"awq_matmul prefill ({M}, {K}, {N}) group 64",
+                              awq_k.awq_matmul(x, qw, sc, zr, group_size=64),
+                              awq_k.plain(x, qw, sc, zr, group_size=64), dname)
+            rows.setdefault(("awq_matmul", dname), []).append(err)
+
     # ---- contiguous decode attention: warmup/generate() run it at B=1,
     # S=max_seq; B=8 ragged is checked too
     for dname in ("float32", "bfloat16"):
@@ -203,12 +347,12 @@ def kernel_phase(torch, timer):
                                                 bound_ms=bms, bound_by=by)
     for (name, dname), errs in sorted((k, v) for k, v in rows.items()
                                       if isinstance(k, tuple)):
-        log(f"kernel {name:17s} {dname:9s} max_abs_err {max(errs):.3e} "
+        log(f"kernel {name:21s} {dname:9s} max_abs_err {max(errs):.3e} "
             f"(tolerance atol {TOL[dname][0]} + rtol {TOL[dname][1]})")
-    for name in ("rmsnorm", "paged_attention", "decode_attention"):
+    for name in KERNELS:
         r = rows[name]
         r["max_abs_err"] = max(rows[(name, "float32")] + rows[(name, "bfloat16")])
-        log(f"time {name:17s} bf16 kernel {r['ms']:.4f} ms  plain {r['plain_ms']:.4f} ms"
+        log(f"time {name:21s} bf16 kernel {r['ms']:.4f} ms  plain {r['plain_ms']:.4f} ms"
             f"  library {r['library_ms']:.4f} ms  bound {r['bound_ms']:.5f} ms "
             f"({r['bound_by']})")
     return rows
@@ -217,54 +361,83 @@ def kernel_phase(torch, timer):
 # ---------------------------------------------------------------- reference
 def reference_phase(torch):
     """The same small float32 model on the card and on the CPU: greedy
-    streams must agree token for token."""
+    streams must agree token for token. Dense weights over unquantized
+    pages, then W4A16 weights (group 64) over int8 and over fp8 pages."""
     from repro_torch.configs import get_smoke_config
     from repro_torch.models.common import tree_map
     from repro_torch.serving import ServingEngine
+    from repro_torch.serving.quantize import quantize_mlp_tree
 
     cfg = get_smoke_config("minitron-8b").replace(vocab_size=300, vocab_pad_to=64,
                                                   compute_dtype="float32")
-    gpu = ServingEngine(cfg, max_seq=96, device="cuda")
-    cpu = ServingEngine(cfg, max_seq=96, device="cpu",
-                        params=tree_map(lambda t: t.cpu(), gpu.params))
     prompts = ["hello world", "a prompt longer than one sixteen-token page, twice over",
                "x"]
-    for p in prompts:
-        a, c = gpu.generate(p, max_new_tokens=12).tokens, cpu.generate(p, max_new_tokens=12).tokens
-        if a != c:
-            raise AssertionError(f"generate() differs card vs CPU: {a} vs {c}")
-    hg = [gpu.submit(p, max_new_tokens=12) for p in prompts]
-    hc = [cpu.submit(p, max_new_tokens=12) for p in prompts]
-    for a, c in zip(hg, hc):
-        ta, tc = a.result(timeout=300).tokens, c.result(timeout=300).tokens
-        if ta != tc:
-            raise AssertionError(f"batcher stream differs card vs CPU: {ta} vs {tc}")
-    gpu.shutdown()
-    cpu.shutdown()
-    log(f"reference: {len(prompts)} prompts token-identical card vs CPU "
-        "(generate and paged batcher, float32)")
+    dense = ServingEngine(cfg, max_seq=96, device="cuda").params
+    for kv_dtype, params in (("fp32", dense),
+                             ("int8", quantize_mlp_tree(dense, group_size=64)),
+                             ("fp8_e4m3", quantize_mlp_tree(dense, group_size=64))):
+        gpu = ServingEngine(cfg, max_seq=96, device="cuda", params=params,
+                            kv_dtype=kv_dtype)
+        cpu = ServingEngine(cfg, max_seq=96, device="cpu", kv_dtype=kv_dtype,
+                            params=tree_map(lambda t: t.cpu(), params))
+        for p in prompts:
+            a, c = gpu.generate(p, max_new_tokens=12).tokens, cpu.generate(p, max_new_tokens=12).tokens
+            if a != c:
+                raise AssertionError(f"{kv_dtype}: generate() differs card vs CPU: {a} vs {c}")
+        hg = [gpu.submit(p, max_new_tokens=12) for p in prompts]
+        hc = [cpu.submit(p, max_new_tokens=12) for p in prompts]
+        for a, c in zip(hg, hc):
+            ta, tc = a.result(timeout=300).tokens, c.result(timeout=300).tokens
+            if ta != tc:
+                raise AssertionError(f"{kv_dtype}: batcher stream differs card vs CPU: "
+                                     f"{ta} vs {tc}")
+        gpu.shutdown()
+        cpu.shutdown()
+        log(f"reference: {len(prompts)} prompts token-identical card vs CPU "
+            f"(generate and paged batcher, float32, "
+            f"{'dense weights' if kv_dtype == 'fp32' else 'W4A16 group 64'}, "
+            f"{kv_dtype} pages)")
 
 
 # ---------------------------------------------------------------- main path
-def main_path_phase(torch):
+def counters():
+    """kernel -> (module, counter attribute) of its wrapper's launch count."""
+    from repro_torch.kernels import awq_matmul, decode_attention, paged_attention, rmsnorm
+    return {"rmsnorm": (rmsnorm, "launches"),
+            "paged_attention": (paged_attention, "launches"),
+            "paged_attention_quant": (paged_attention, "launches_quant"),
+            "decode_attention": (decode_attention, "launches"),
+            "awq_matmul": (awq_matmul, "launches")}
+
+
+def main_path_phase(torch, label, must_launch, **system_kw):
+    """build_system on the card with the full-width HPC tier, then four
+    concurrent stream-hpc requests and one stream-auto request through
+    the gateway. Every kernel of ``must_launch``, its counter zeroed
+    just before the path, must have launched."""
     from repro_torch.core import build_system
     from repro_torch.core.sse import parse_sse
-    from repro_torch.kernels import decode_attention, paged_attention, rmsnorm
     from repro_torch.models.common import flatten
+    from repro_torch.serving.quantize import weight_bytes
 
-    kernels = {"rmsnorm": rmsnorm, "paged_attention": paged_attention,
-               "decode_attention": decode_attention}
-    for k in kernels.values():
-        k.launches = 0
     torch.cuda.reset_peak_memory_stats()
     t0 = time.perf_counter()
+    for mod, attr in counters().values():
+        setattr(mod, attr, 0)
     sys_ = build_system(device="cuda", local_arch="minitron-8b", max_seq=MAX_SEQ,
-                        hpc_overrides=FULL, dispatch_latency_s=0.05)
+                        hpc_overrides=FULL, dispatch_latency_s=0.05, **system_kw)
     torch.cuda.synchronize()
     build_s = time.perf_counter() - t0
-    n_params = sum(t.numel() for _, t in flatten(sys_.engines["hpc"].params))
-    log(f"main path: build_system {build_s:.1f} s, HPC tier {n_params / 1e9:.2f} B params "
-        f"(bf16), {torch.cuda.memory_allocated() / 2**30:.2f} GiB allocated")
+    build_peak = torch.cuda.max_memory_allocated()
+    hpc = sys_.engines["hpc"]
+    n_params = sum(t.numel() for _, t in flatten(hpc.params))
+    wb = weight_bytes(hpc.params)
+    log(f"{label}: build_system {build_s:.1f} s (peak {build_peak / 2**30:.2f} GiB), "
+        f"HPC tier {n_params / 1e9:.2f} B stored values, weight_bytes "
+        f"{wb['total'] / 1e9:.3f} GB (quantized {wb['quantized'] / 1e9:.3f} GB standing "
+        f"for {wb['dense_equivalent'] / 1e9:.3f} GB at f32, dense {wb['dense'] / 1e9:.3f} GB), "
+        f"{torch.cuda.memory_allocated() / 2**30:.2f} GiB allocated")
+    torch.cuda.reset_peak_memory_stats()
 
     n_tok = 32
     token = sys_.globus.issue_token("chip-smoke@uic.edu")
@@ -301,8 +474,9 @@ def main_path_phase(torch):
     wall = time.perf_counter() - t_wall
     one("stream-auto", "What is the capital of France?", results, 4)
     torch.cuda.synchronize()
-    launches = {name: k.launches for name, k in kernels.items()}
+    launches = {name: getattr(mod, attr) for name, (mod, attr) in counters().items()}
     peak = torch.cuda.max_memory_allocated()
+    pool_bytes = hpc.scheduler.batcher.pool.pool_bytes
 
     ttfts, rates, total_tokens = [], [], 0
     for i, r in enumerate(results):
@@ -328,21 +502,25 @@ def main_path_phase(torch):
             ttfts.append(r["stamps"][1] - r["t_sub"])
             if n > 1:
                 rates.append((n - 1) / (r["stamps"][n] - r["stamps"][1]))
-        log(f"{alias}: tier {tier}, {n} tokens, finish "
+        log(f"{label} {alias}: tier {tier}, {n} tokens, finish "
             f"{[c for c in chunks if c.get('choices')][-1]['choices'][0]['finish_reason']}")
-    for name, n in launches.items():
-        if n <= 0:
-            raise AssertionError(f"kernel {name} was not launched on the main path")
-    log(f"main path launches: {json.dumps(launches)}")
+    for name in must_launch:
+        if launches[name] <= 0:
+            raise AssertionError(f"{label}: kernel {name} was not launched on the path")
+    log(f"{label} launches: {json.dumps(launches)}")
     ttfts.sort()
-    log(f"main path: TTFT median {ttfts[len(ttfts) // 2] * 1e3:.1f} ms "
-        f"(max {ttfts[-1] * 1e3:.1f} ms) over 4 concurrent stream-hpc requests; "
-        f"decode {sum(rates) / len(rates):.1f} tok/s per session, "
-        f"{total_tokens / wall:.1f} tok/s over all 4 sessions (wall {wall:.2f} s); "
-        f"peak device memory {peak / 2**30:.2f} GiB")
+    stats = dict(ttft_median_ms=ttfts[len(ttfts) // 2] * 1e3, ttft_max_ms=ttfts[-1] * 1e3,
+                 tok_s_session=sum(rates) / len(rates), tok_s_all=total_tokens / wall,
+                 wall_s=wall, peak_gib=peak / 2**30, build_peak_gib=build_peak / 2**30,
+                 weight_gb=wb["total"] / 1e9, pool_bytes=pool_bytes)
+    log(f"{label}: TTFT median {stats['ttft_median_ms']:.1f} ms "
+        f"(max {stats['ttft_max_ms']:.1f} ms) over 4 concurrent stream-hpc requests; "
+        f"decode {stats['tok_s_session']:.1f} tok/s per session, "
+        f"{stats['tok_s_all']:.1f} tok/s over all 4 sessions (wall {wall:.2f} s); "
+        f"peak device memory while serving {stats['peak_gib']:.2f} GiB; "
+        f"HPC page pool {pool_bytes / 2**20:.1f} MiB")
 
     # full-width logits are finite and of the padded vocab's width
-    hpc = sys_.engines["hpc"]
     with torch.inference_mode():
         cache = hpc.model.init_cache(1, MAX_SEQ, hpc.device)
         logits, _ = hpc.model.prefill_chunk(
@@ -350,15 +528,16 @@ def main_path_phase(torch):
     if tuple(logits.shape) != (1, hpc.cfg.padded_vocab) or not bool(logits.isfinite().all()):
         raise AssertionError(f"full-width logits: shape {tuple(logits.shape)}, "
                              f"finite {bool(logits.isfinite().all())}")
-    return launches, sys_
+    return launches, stats, sys_
 
 
-def breakdown_phase(torch, sys_):
+def breakdown_phase(torch, label, sys_):
     """Where the time goes, on the HPC engine alone (after the main
     path's counters were read): the same 4 sessions through
     ServingEngine.submit without gateway, control plane, relay and
     encryption; then one B=8 paged decode step of the model, host wall
-    time against the device time the profiler sums over its kernels."""
+    time against the device time the profiler sums over its kernels.
+    Shuts the system down."""
     hpc = sys_.engines["hpc"]
     prompts = [f"Explain request {i} of the dual-channel relay." for i in range(4)]
     t0 = time.perf_counter()
@@ -366,8 +545,10 @@ def breakdown_phase(torch, sys_):
            [hpc.submit(p, max_new_tokens=32) for p in prompts]]
     wall = time.perf_counter() - t0
     ttft = sorted(r.ttft_s for r in res)
-    log(f"breakdown: engine alone, 4 sessions x 32 tokens: "
-        f"{sum(r.n_generated for r in res) / wall:.1f} tok/s over all sessions "
+    out = dict(engine_tok_s=sum(r.n_generated for r in res) / wall,
+               engine_ttft_median_ms=ttft[2] * 1e3)
+    log(f"{label} breakdown: engine alone, 4 sessions x 32 tokens: "
+        f"{out['engine_tok_s']:.1f} tok/s over all sessions "
         f"(wall {wall:.2f} s), TTFT median {ttft[2] * 1e3:.1f} ms, max {ttft[-1] * 1e3:.1f} ms")
 
     b = hpc.scheduler.batcher
@@ -379,10 +560,10 @@ def breakdown_phase(torch, sys_):
     pages = torch.arange(1, 1 + 3 * b.B, dtype=torch.int32, device=hpc.device)
     bt = torch.zeros((b.B, b.n_pages), dtype=torch.int32, device=hpc.device)
     bt[:, :3] = pages.reshape(b.B, 3)
-    cache = {"k": b.cache["k"], "v": b.cache["v"],
-             "pos": torch.full((b.B,), 40, dtype=torch.int32, device=hpc.device),
-             "pos_offset": torch.zeros(b.B, dtype=torch.int32, device=hpc.device),
-             "block_tables": bt}
+    cache = {k: b.cache[k] for k in b._pool_keys}
+    cache.update(pos=torch.full((b.B,), 40, dtype=torch.int32, device=hpc.device),
+                 pos_offset=torch.zeros(b.B, dtype=torch.int32, device=hpc.device),
+                 block_tables=bt)
     tok = torch.full((b.B, 1), 42, dtype=torch.int64, device=hpc.device)
     with torch.inference_mode():
         def step():
@@ -402,20 +583,60 @@ def breakdown_phase(torch, sys_):
             for _ in range(5):
                 step()
             torch.cuda.synchronize()
-    evs = [e for e in prof.key_averages()
-           if getattr(e, "device_type", None) is not None
+    avgs = prof.key_averages()
+    evs = [e for e in avgs if getattr(e, "device_type", None) is not None
            and str(e.device_type).endswith("CUDA")]
+    host = [e for e in avgs if e not in evs]
     dev_us = sum(getattr(e, "self_device_time_total", 0) for e in evs) / 5
     n_launch = sum(e.count for e in evs
                    if getattr(e, "self_device_time_total", 0) > 0) / 5
-    log(f"breakdown: B=8 paged decode step at full width: {step_ms:.2f} ms wall, "
+    # host time inside PyTorch ops and CUDA runtime calls (the profiler's
+    # own cost included); the rest of the wall time is Python
+    host_us = sum(e.self_cpu_time_total for e in host) / 5
+    out.update(step_ms=step_ms, dev_ms=dev_us / 1e3, n_launch=n_launch,
+               busy=dev_us / 1e3 / step_ms, host_ops_ms=host_us / 1e3)
+    log(f"{label} breakdown: B=8 paged decode step at full width: {step_ms:.2f} ms wall, "
         f"{n_launch:.0f} device kernels taking "
         f"{dev_us / 1e3:.2f} ms -> device busy {dev_us / 1e3 / step_ms * 100:.0f}% "
-        f"of the step")
-    top = sorted(evs, key=lambda e: -getattr(e, "self_device_time_total", 0))[:8]
+        f"of the step; host self time in ops and runtime calls {host_us / 1e3:.2f} ms "
+        f"(under the profiler)")
+    top = sorted(evs, key=lambda e: -getattr(e, "self_device_time_total", 0))[:10]
     for e in top:
         log(f"  {getattr(e, 'self_device_time_total', 0) / 5 / 1e3:8.3f} ms/step "
             f"{e.count // 5:5d} calls  {e.key[:90]}")
+    for e in sorted(host, key=lambda e: -e.self_cpu_time_total)[:12]:
+        log(f"  host {e.self_cpu_time_total / 5 / 1e3:8.3f} ms/step "
+            f"{e.count // 5:5d} calls  {e.key[:80]}")
+    # host cost of one call, enqueue only: 200 calls do not fill the
+    # device's launch queue, so the host clock sees the host's own work
+    from repro_torch.models import layers
+    from repro_torch.models.lm import _layer
+    lp = _layer(hpc.params["blocks"], 0)
+    xs = torch.randn(b.B, 1, hpc.cfg.d_model, device=hpc.device, dtype=hpc.cfg.cdtype())
+    w1 = lp["mlp"]["w1"]
+    calls = {f"_matmul w1 ({'awq_matmul' if isinstance(w1, dict) else 'torch matmul'})":
+             lambda: layers._matmul(xs, w1, hpc.cfg),
+             "rmsnorm": lambda: layers.rmsnorm(xs, lp["ln1"], hpc.cfg),
+             "torch.add": lambda: xs + xs}
+    if "k_qscale" in cache:
+        calls["quantize_kv"] = lambda: layers.ops.quantize_kv(xs, torch.int8)
+    host_call = {}
+    with torch.inference_mode():
+        for name, fn in calls.items():
+            for _ in range(20):
+                fn()
+            torch.cuda.synchronize()
+            t0 = time.perf_counter()
+            for _ in range(200):
+                fn()
+            host_call[name] = (time.perf_counter() - t0) / 200 * 1e6
+            torch.cuda.synchronize()
+    log(f"{label} breakdown: host us per call {json.dumps(host_call)}; "
+        f"{threading.active_count()} Python threads alive: "
+        f"{sorted(t.name for t in threading.enumerate())}")
+    for e in sys_.engines.values():      # let the weights go, whoever holds the engine
+        e.params = None
+    return out
 
 
 def main() -> int:
@@ -444,17 +665,45 @@ def main() -> int:
     timer = Timer(torch)
     rows = kernel_phase(torch, timer)
     reference_phase(torch)
-    launches, sys_ = main_path_phase(torch)
-    breakdown_phase(torch, sys_)
 
-    sources = {"rmsnorm": ("src/repro_torch/kernels/csrc/rmsnorm.cu",
-                           "src/repro/kernels/rmsnorm.py:26"),
-               "paged_attention": ("src/repro_torch/kernels/csrc/attention.cu",
-                                   "src/repro/kernels/paged_attention.py:91"),
-               "decode_attention": ("src/repro_torch/kernels/csrc/attention.cu",
-                                    "src/repro/kernels/decode_attention.py:65")}
+    launches, dense, sys_ = main_path_phase(
+        torch, "main path", ("rmsnorm", "paged_attention", "decode_attention"))
+    held = torch.cuda.memory_allocated()
+    dense.update(breakdown_phase(torch, "main path", sys_))
+    del sys_
+    gc.collect()
+    torch.cuda.empty_cache()
+    freed = torch.cuda.memory_allocated()
+    if freed > held - 15 * 2**30:
+        raise AssertionError(f"the dense system was not freed: {held / 2**30:.2f} GiB "
+                             f"-> {freed / 2**30:.2f} GiB allocated")
+    log(f"dense system freed: {held / 2**30:.2f} GiB -> {freed / 2**30:.2f} GiB allocated")
+
+    qlaunches, quant, sys_ = main_path_phase(
+        torch, "quantized path", ("rmsnorm", "paged_attention_quant", "awq_matmul"),
+        kv_dtype="int8", quantize_mlp=True)
+    quant.update(breakdown_phase(torch, "quantized path", sys_))
+    del sys_
+    launches.update(paged_attention_quant=qlaunches["paged_attention_quant"],
+                    awq_matmul=qlaunches["awq_matmul"])
+    log(f"{card}: dense bf16 vs int8 pages + W4A16 (group 64), the same 4 + 1 requests")
+    for key, what in (("ttft_median_ms", "TTFT median ms"), ("ttft_max_ms", "TTFT max ms"),
+                      ("tok_s_session", "decode tok/s per session"),
+                      ("tok_s_all", "tok/s over all 4 sessions"),
+                      ("peak_gib", "peak device memory while serving GiB"),
+                      ("build_peak_gib", "peak device memory building GiB"),
+                      ("weight_gb", "HPC weight_bytes GB"),
+                      ("pool_bytes", "HPC pool_bytes"),
+                      ("engine_tok_s", "engine alone tok/s"),
+                      ("engine_ttft_median_ms", "engine alone TTFT median ms"),
+                      ("step_ms", "B=8 step wall ms"), ("dev_ms", "B=8 step device ms"),
+                      ("host_ops_ms", "B=8 step host ms in ops (profiled)"),
+                      ("n_launch", "B=8 step device kernels"),
+                      ("busy", "B=8 step device busy share")):
+        log(f"compare {what:38s} dense {dense[key]:14.4f}  quantized {quant[key]:14.4f}")
+
     kernels = []
-    for name, (src, replaces) in sources.items():
+    for name, (src, replaces) in KERNELS.items():
         r = rows[name]
         kernels.append({"name": name, "route": "cuda", "source": src,
                         "replaces": replaces, "launches": launches[name],

@@ -28,7 +28,9 @@ from repro_torch.core.relay import Relay
 from repro_torch.core.router import TierRouter
 from repro_torch.core.summarizer import DEFAULT_POLICIES, TierAwareSummarizer
 from repro_torch.core.tiers import CloudBackend, HPCBackend, LocalBackend, TierSpec
+from repro_torch.models import build_model
 from repro_torch.serving import ServingEngine, resolve_device
+from repro_torch.serving.quantize import quantize_mlp_tree
 
 
 @dataclass
@@ -71,14 +73,19 @@ def build_system(*, relay_enabled: bool = True, encrypt: bool = True,
     only shepherd relay traffic; decode work is batched on the HPC
     engine's broker thread).
 
-    Not ported yet, and refused: ``kv_dtype`` other than "fp32",
-    ``quantize_mlp``, ``speculative`` and ``replicas > 1``. The local
-    tier defaults to ``minitron-8b`` at smoke size until xLSTM is ported
-    (the JAX package defaults to ``xlstm-125m``)."""
+    ``kv_dtype`` ("fp32" | "int8" | "fp8_e4m3") selects the paged KV
+    pool's storage on both tier engines: int8 / fp8 codes with float32
+    per-position scales, dequantized inside the paged-attention kernel.
+    ``quantize_mlp=True`` serves both tiers with W4A16 AWQ weights
+    (gated MLP and attention ``wo``, group 64): the paper's
+    Qwen-72B-AWQ HPC tier. Each tier's dense params are built on
+    ``device``, quantized once there, and dropped.
+
+    Not ported yet, and refused: ``speculative`` and ``replicas > 1``.
+    The local tier defaults to ``minitron-8b`` at smoke size until xLSTM
+    is ported (the JAX package defaults to ``xlstm-125m``)."""
     unported = [name for name, on in (
-        (f"kv_dtype={kv_dtype!r}", kv_dtype != "fp32"),
-        ("quantize_mlp", quantize_mlp), ("speculative", speculative),
-        (f"replicas={replicas}", replicas > 1)) if on]
+        ("speculative", speculative), (f"replicas={replicas}", replicas > 1)) if on]
     if unported:
         raise NotImplementedError(f"not ported yet: {', '.join(unported)}")
     del spec_k, fleet_overrides      # kept for the reference's signature
@@ -92,14 +99,26 @@ def build_system(*, relay_enabled: bool = True, encrypt: bool = True,
         hpc_cfg = hpc_cfg.replace(**hpc_overrides)
     if local_overrides:
         local_cfg = local_cfg.replace(**local_overrides)
-    local_engine = ServingEngine(local_cfg, max_seq=max_seq, seed=0,
+    def params_for(cfg):
+        # W4A16: init the params the engine would build itself and quantize
+        # them once with group 64 (it fits smoke-scale contraction dims; what
+        # does not divide stays dense), in place, so each dense stack goes
+        # as its quantized copy lands
+        if not quantize_mlp:
+            return None
+        return quantize_mlp_tree(build_model(cfg).init(0, device), group_size=64,
+                                 in_place=True)
+
+    local_engine = ServingEngine(local_cfg, params=params_for(local_cfg),
+                                 max_seq=max_seq, seed=0,
                                  scheduler_slots=scheduler_slots,
                                  prefix_cache_pages=prefix_cache_pages,
-                                 device=device)
-    hpc_engine = ServingEngine(hpc_cfg, max_seq=max_seq, seed=0,
+                                 kv_dtype=kv_dtype, device=device)
+    hpc_engine = ServingEngine(hpc_cfg, params=params_for(hpc_cfg),
+                               max_seq=max_seq, seed=0,
                                scheduler_slots=scheduler_slots,
                                prefix_cache_pages=prefix_cache_pages,
-                               device=device)
+                               kv_dtype=kv_dtype, device=device)
     local_engine.warmup()
     hpc_engine.warmup()
 

@@ -1,12 +1,14 @@
 // Single-token decode attention for Hopper (sm_90a), bound with ctypes.
-// One source, templated on the element type (float, bf16) and on how K/V
-// is addressed: through a block table into a shared page pool (paged) or
-// by stride into a per-slot contiguous cache.
+// One source, templated on the element type of q/out (float, bf16), on the
+// element type of the K/V pages (the same, or int8 / fp8 e4m3 codes with a
+// float32 scale per (page, kv head, position)) and on how K/V is addressed:
+// through a block table into a shared page pool (paged) or by stride into
+// a per-slot contiguous cache.
 //
 // Replaces:
 //   src/repro/kernels/paged_attention.py::paged_attention
-//     (Pallas body _paged_kernel; the int8/fp8 body _paged_kernel_quant is
-//     not ported yet)
+//     (Pallas bodies _paged_kernel and, for int8/fp8 pools,
+//     _paged_kernel_quant)
 //   src/repro/kernels/decode_attention.py::decode_attention
 //     (Pallas body _dec_kernel)
 //
@@ -28,13 +30,23 @@
 //    (D + 1 floats), so the score and PV loops read it without bank
 //    conflicts; scores, the online softmax (m, l) and the fp32 accumulator
 //    stay on chip; the output is acc / max(l, 1e-30), as the Pallas kernel
-//    writes it.
+//    writes it;
+//  * quantized pools are dequantized while the tile is staged:
+//    float(code) * scale[pid, h, pos], the same single product as the plain
+//    version, so the pool is never widened in device memory and the staged
+//    tile (and so the shared-memory layout) is the same fp32 tile as for an
+//    unquantized pool. Scales are read only for live positions t < nvalid,
+//    so a dead page's scales are never touched either.
 // Known limits, left to later work: B*Hkv blocks (64 at the serving
 // batch of 8) leave most of the 132 SMs idle -- a split-K over SMs would
 // fill them; loads are scalar, not 16-byte vectors, cp.async or TMA.
 
 #include <cuda_bf16.h>
+#include <cuda_fp8.h>
 #include <cuda_runtime.h>
+#include <stdint.h>
+
+#include <type_traits>
 
 #define NEG_INF (-1e30f)
 #define THREADS 128
@@ -43,6 +55,10 @@ template <typename T> __device__ __forceinline__ float to_f(T v);
 template <> __device__ __forceinline__ float to_f<float>(float v) { return v; }
 template <> __device__ __forceinline__ float to_f<__nv_bfloat16>(__nv_bfloat16 v) {
   return __bfloat162float(v);
+}
+template <> __device__ __forceinline__ float to_f<int8_t>(int8_t v) { return (float)v; }
+template <> __device__ __forceinline__ float to_f<__nv_fp8_e4m3>(__nv_fp8_e4m3 v) {
+  return static_cast<float>(v);
 }
 template <typename T> __device__ __forceinline__ T from_f(float v);
 template <> __device__ __forceinline__ float from_f<float>(float v) { return v; }
@@ -60,14 +76,18 @@ __device__ __forceinline__ float warp_sum(float v) {
 }
 
 // q, out: (B, Hq, 1, D). Paged: k, v are pools (P, Hkv, tile, D) and
-// block_tables is (B, n_tiles_max). Contiguous: k, v are (B, Hkv, S, D).
-// s_cap is the number of addressable key positions per slot.
-template <typename T, bool PAGED>
+// block_tables is (B, n_tiles_max); for KT other than T, ks and vs are the
+// (P, Hkv, tile) float32 scales of the codes in k and v (null otherwise).
+// Contiguous: k, v are (B, Hkv, S, D). s_cap is the number of addressable
+// key positions per slot.
+template <typename T, typename KT, bool PAGED>
 __global__ void __launch_bounds__(THREADS) decode_attn_kernel(
-    const T* __restrict__ q, const T* __restrict__ k, const T* __restrict__ v,
+    const T* __restrict__ q, const KT* __restrict__ k, const KT* __restrict__ v,
+    const float* __restrict__ ks, const float* __restrict__ vs,
     const int* __restrict__ block_tables, const int* __restrict__ kv_len,
     const int* __restrict__ pos_offset, T* __restrict__ out, int Hq, int Hkv, int D,
     int tile, int n_tiles_max, int S, int s_cap, float scale, float soft_cap) {
+  constexpr bool QUANT = !std::is_same<KT, T>::value;
   extern __shared__ float smem[];
   const int G = Hq / Hkv;
   const int b = blockIdx.x / Hkv, h = blockIdx.x % Hkv;
@@ -102,10 +122,11 @@ __global__ void __launch_bounds__(THREADS) decode_attn_kernel(
   for (int it = 0; it < n_tiles; ++it) {
     const int t0 = it * tile;
     const int nvalid = min(tile, len - t0);
-    size_t base;
+    size_t base, sbase = 0;
     if (PAGED) {
       const int pid = block_tables[(size_t)b * n_tiles_max + it];
-      base = ((size_t)pid * Hkv + h) * (size_t)tile * D;
+      sbase = ((size_t)pid * Hkv + h) * (size_t)tile;
+      base = sbase * D;
     } else {
       base = (((size_t)b * Hkv + h) * S + t0) * (size_t)D;
     }
@@ -115,6 +136,10 @@ __global__ void __launch_bounds__(THREADS) decode_attn_kernel(
       if (t < nvalid) {
         kk = to_f(k[base + i]);
         vv = to_f(v[base + i]);
+        if (QUANT) {
+          kk *= ks[sbase + t];
+          vv *= vs[sbase + t];
+        }
       }
       k_s[t * ld + d] = kk;
       v_s[t * ld + d] = vv;
@@ -178,38 +203,68 @@ static size_t smem_bytes(int G, int D, int tile) {
   return sizeof(float) * (size_t)(2 * G * D + 2 * tile * (D + 1) + G * tile + 3 * G);
 }
 
-template <bool PAGED>
-static int launch(const void* q, const void* k, const void* v, const void* bt,
-                  const void* kv_len, const void* pos_offset, void* out, int B, int Hq,
-                  int Hkv, int D, int tile, int n_tiles_max, int S, int s_cap,
-                  float scale, float soft_cap, int dtype, void* stream) {
+template <typename T, typename KT, bool PAGED>
+static void launch_typed(const void* q, const void* k, const void* v, const void* ks,
+                         const void* vs, const void* bt, const void* kv_len,
+                         const void* pos_offset, void* out, int B, int Hq, int Hkv, int D,
+                         int tile, int n_tiles_max, int S, int s_cap, float scale,
+                         float soft_cap, cudaStream_t s) {
   const size_t smem = smem_bytes(Hq / Hkv, D, tile);
+  decode_attn_kernel<T, KT, PAGED><<<B * Hkv, THREADS, smem, s>>>(
+      (const T*)q, (const KT*)k, (const KT*)v, (const float*)ks, (const float*)vs,
+      (const int*)bt, (const int*)kv_len, (const int*)pos_offset, (T*)out, Hq, Hkv, D,
+      tile, n_tiles_max, S, s_cap, scale, soft_cap);
+}
+
+// dtype codes: 0 = float32, 1 = bfloat16 (q, out and unquantized pages);
+// kv codes: 0 = pages in q's dtype, 2 = int8, 3 = float8 e4m3.
+template <bool PAGED>
+static int launch(const void* q, const void* k, const void* v, const void* ks,
+                  const void* vs, const void* bt, const void* kv_len,
+                  const void* pos_offset, void* out, int B, int Hq, int Hkv, int D,
+                  int tile, int n_tiles_max, int S, int s_cap, float scale,
+                  float soft_cap, int dtype, int kv, void* stream) {
   cudaStream_t s = (cudaStream_t)stream;
-  if (dtype == 0)
-    decode_attn_kernel<float, PAGED><<<B * Hkv, THREADS, smem, s>>>(
-        (const float*)q, (const float*)k, (const float*)v, (const int*)bt,
-        (const int*)kv_len, (const int*)pos_offset, (float*)out, Hq, Hkv, D, tile,
-        n_tiles_max, S, s_cap, scale, soft_cap);
-  else if (dtype == 1)
-    decode_attn_kernel<__nv_bfloat16, PAGED><<<B * Hkv, THREADS, smem, s>>>(
-        (const __nv_bfloat16*)q, (const __nv_bfloat16*)k, (const __nv_bfloat16*)v,
-        (const int*)bt, (const int*)kv_len, (const int*)pos_offset,
-        (__nv_bfloat16*)out, Hq, Hkv, D, tile, n_tiles_max, S, s_cap, scale, soft_cap);
-  else
+#define ARGS q, k, v, ks, vs, bt, kv_len, pos_offset, out, B, Hq, Hkv, D, tile, \
+             n_tiles_max, S, s_cap, scale, soft_cap, s
+  if (dtype == 0 && kv == 0) {
+    launch_typed<float, float, PAGED>(ARGS);
+  } else if (dtype == 1 && kv == 0) {
+    launch_typed<__nv_bfloat16, __nv_bfloat16, PAGED>(ARGS);
+  } else if constexpr (PAGED) {  // quantized pages exist only in page pools
+    if (dtype == 0 && kv == 2)
+      launch_typed<float, int8_t, true>(ARGS);
+    else if (dtype == 1 && kv == 2)
+      launch_typed<__nv_bfloat16, int8_t, true>(ARGS);
+    else if (dtype == 0 && kv == 3)
+      launch_typed<float, __nv_fp8_e4m3, true>(ARGS);
+    else if (dtype == 1 && kv == 3)
+      launch_typed<__nv_bfloat16, __nv_fp8_e4m3, true>(ARGS);
+    else
+      return (int)cudaErrorInvalidValue;
+  } else {
     return (int)cudaErrorInvalidValue;
+  }
+#undef ARGS
   return (int)cudaGetLastError();
 }
 
-// dtype codes: 0 = float32, 1 = bfloat16. Each returns cudaGetLastError().
+// Each returns cudaGetLastError().
+// k_pages, v_pages hold elements of q's dtype (kv = 0; k_scales and v_scales
+// null), or int8 (kv = 2) or float8 e4m3 (kv = 3) codes whose (P, Hkv, page)
+// float32 scales are k_scales, v_scales.
 extern "C" int paged_attention_launch(const void* q, const void* k_pages,
-                                      const void* v_pages, const void* block_tables,
+                                      const void* v_pages, const void* k_scales,
+                                      const void* v_scales, const void* block_tables,
                                       const void* kv_len, const void* pos_offset,
                                       void* out, int B, int Hq, int Hkv, int D, int page,
                                       int n_pages, float scale, float soft_cap, int dtype,
-                                      void* stream) {
-  return launch<true>(q, k_pages, v_pages, block_tables, kv_len, pos_offset, out, B, Hq,
-                      Hkv, D, page, n_pages, 0, n_pages * page, scale, soft_cap, dtype,
-                      stream);
+                                      int kv, void* stream) {
+  if ((kv != 0) != (k_scales != nullptr) || (kv != 0) != (v_scales != nullptr))
+    return (int)cudaErrorInvalidValue;
+  return launch<true>(q, k_pages, v_pages, k_scales, v_scales, block_tables, kv_len,
+                      pos_offset, out, B, Hq, Hkv, D, page, n_pages, 0, n_pages * page,
+                      scale, soft_cap, dtype, kv, stream);
 }
 
 extern "C" int decode_attention_launch(const void* q, const void* k, const void* v,
@@ -217,8 +272,9 @@ extern "C" int decode_attention_launch(const void* q, const void* k, const void*
                                        int Hkv, int S, int D, float scale, float soft_cap,
                                        int dtype, void* stream) {
   const int tile = 16;
-  return launch<false>(q, k, v, nullptr, kv_len, nullptr, out, B, Hq, Hkv, D, tile,
-                       (S + tile - 1) / tile, S, S, scale, soft_cap, dtype, stream);
+  return launch<false>(q, k, v, nullptr, nullptr, nullptr, kv_len, nullptr, out, B, Hq,
+                       Hkv, D, tile, (S + tile - 1) / tile, S, S, scale, soft_cap, dtype,
+                       0, stream);
 }
 
 extern "C" size_t attention_smem_bytes(int G, int D, int tile) {

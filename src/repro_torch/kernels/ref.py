@@ -78,15 +78,112 @@ def gather_kv_pages(pages, block_tables):
     return g.reshape(*g.shape[:-3], n * page, g.shape[-1])
 
 
+# ---------------------------------------------------------------------------
+# KV quantization (int8 / fp8 paged pools)
+# ---------------------------------------------------------------------------
+
+
+def kv_qmax(dtype):
+    """Max representable magnitude for a quantized-KV storage dtype, or
+    ``None`` if ``dtype`` is not a quantized KV format."""
+    if dtype == torch.int8:
+        return 127.0
+    if dtype == torch.float8_e4m3fn:
+        return 448.0
+    return None
+
+
+def quantize_kv(x, dtype):
+    """Symmetric per-vector amax quantization over the last axis.
+
+    x (..., D) any float dtype -> (q, scale): ``q`` is ``x`` stored in
+    ``dtype`` (int8 or float8_e4m3fn), ``scale`` (...,) float32 with
+    ``dequantize_kv(q, scale) ~= x``. All-zero vectors get scale 0 and
+    quantize to exact zeros. Divides by the safe scale (never multiplies
+    by its reciprocal), so the codes are the JAX package's bit for bit.
+    """
+    qmax = kv_qmax(dtype)
+    if qmax is None:
+        raise TypeError(f"not a quantized KV dtype: {dtype}")
+    xf = x.float()
+    scale = xf.abs().amax(dim=-1) / qmax
+    safe = torch.where(scale > 0, scale, torch.ones_like(scale))
+    y = xf / safe[..., None]
+    if dtype == torch.int8:
+        return torch.clamp(torch.round(y), -qmax, qmax).to(torch.int8), scale
+    return y.to(dtype), scale
+
+
+def dequantize_kv(q, scale):
+    """Inverse of :func:`quantize_kv`: (..., D) codes + (...,) scales
+    -> float32 (..., D)."""
+    return q.float() * scale[..., None].float()
+
+
+def gather_dequant_kv_pages(pages, scales, block_tables):
+    """Gather quantized pool pages (P, Hkv, page, D) and their f32 scale
+    sidecar (P, Hkv, page) into the contiguous per-slot view
+    (B, Hkv, n_pages * page, D), dequantized to float32."""
+    g = gather_kv_pages(pages, block_tables)
+    s = gather_kv_pages(scales[..., None], block_tables)
+    return g.float() * s.float()
+
+
 def paged_attention(q, k_pages, v_pages, *, block_tables, kv_len, scale=None,
-                    logit_soft_cap: float = 0.0, pos_offset=None):
+                    logit_soft_cap: float = 0.0, pos_offset=None,
+                    k_scales=None, v_scales=None):
     """Paged decode attention: gather the block-table rows into the
     contiguous (B, Hkv, S, D) view, then run decode attention. The
-    slot-space KV length is ``kv_len - pos_offset``."""
+    slot-space KV length is ``kv_len - pos_offset``. With ``k_scales``/
+    ``v_scales`` ((P, Hkv, page) float32) the pages are int8/fp8 codes,
+    dequantized as ``code * scale`` with the math in float32."""
     kv_len = torch.as_tensor(kv_len, device=q.device)
     if pos_offset is not None:
         kv_len = kv_len - torch.as_tensor(pos_offset, device=q.device)
-    k = gather_kv_pages(k_pages, block_tables).to(q.dtype)
-    v = gather_kv_pages(v_pages, block_tables).to(q.dtype)
+    if k_scales is not None:
+        k = gather_dequant_kv_pages(k_pages, k_scales, block_tables)
+        v = gather_dequant_kv_pages(v_pages, v_scales, block_tables)
+    else:
+        k = gather_kv_pages(k_pages, block_tables).to(q.dtype)
+        v = gather_kv_pages(v_pages, block_tables).to(q.dtype)
     return decode_attention(q, k, v, kv_len=kv_len, scale=scale,
                             logit_soft_cap=logit_soft_cap)
+
+
+# ---------------------------------------------------------------------------
+# AWQ-style W4A16 grouped-dequant matmul
+# ---------------------------------------------------------------------------
+
+
+def awq_pack(w_int, bits: int = 4):
+    """Pack int weights (K, N), values in [0, 2^bits), into int32
+    (K // pack, N), nibble i of a word holding row ``pack * r + i``."""
+    pack = 32 // bits
+    K, N = w_int.shape
+    if K % pack:
+        raise ValueError(f"K={K} is not a multiple of {pack}")
+    w = w_int.to(torch.int64).reshape(K // pack, pack, N)
+    out = torch.zeros((K // pack, N), dtype=torch.int64, device=w_int.device)
+    for i in range(pack):
+        out |= w[:, i, :] << (bits * i)
+    return torch.where(out >= 1 << 31, out - (1 << 32), out).to(torch.int32)
+
+
+def awq_unpack(qw, bits: int = 4):
+    """Unpack int32 (K // pack, N) -> int32 (K, N) in [0, 2^bits)."""
+    pack = 32 // bits
+    Kp, N = qw.shape
+    u = qw.to(torch.int64) & 0xFFFFFFFF
+    parts = [(u >> (bits * i)) & ((1 << bits) - 1) for i in range(pack)]
+    return torch.stack(parts, dim=1).reshape(Kp * pack, N).to(torch.int32)
+
+
+def awq_matmul(x, qw, scales, zeros, *, bits: int = 4, group_size: int = 128):
+    """x (M, K) @ dequant(qw) -> (M, N) in x's dtype; qw packed int32
+    (K // (32 / bits), N), scales and zeros (K // group_size, N):
+    w = (q - z) * s per group, accumulated in float32."""
+    K = x.shape[-1]
+    w_int = awq_unpack(qw, bits)
+    g = torch.arange(K, device=x.device) // group_size
+    w = (w_int.float() - zeros.float()[g]) * scales.float()[g]
+    return (x.float() @ w).to(x.dtype)

@@ -24,6 +24,14 @@ def main():
     ap.add_argument("--prefix-pages", type=int, default=256,
                     help="KV page-pool budget per tier engine (0 disables "
                          "prefix caching)")
+    ap.add_argument("--kv-dtype", default="fp32",
+                    choices=["fp32", "int8", "fp8_e4m3"],
+                    help="paged KV pool storage: fp32 keeps the compute "
+                         "dtype; int8/fp8_e4m3 store quantized pages with "
+                         "per-position scales, dequantized in the kernel")
+    ap.add_argument("--quantize-mlp", action="store_true",
+                    help="serve W4A16 AWQ-quantized MLP + attention-output "
+                         "weights (the paper's Qwen-72B-AWQ HPC tier)")
     ap.add_argument("--device", default=None,
                     help="torch device for both tier engines (default: the "
                          "CUDA card)")
@@ -32,6 +40,7 @@ def main():
     print("building STREAM system (three tiers + relay + proxy)...")
     sys_ = build_system(hpc_arch=args.arch, dispatch_latency_s=0.05, max_seq=256,
                         prefix_cache_pages=args.prefix_pages,
+                        kv_dtype=args.kv_dtype, quantize_mlp=args.quantize_mlp,
                         device=args.device)
 
     queries = [

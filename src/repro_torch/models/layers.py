@@ -140,8 +140,14 @@ def attention(x, p, cfg: ModelConfig, *, positions, cache, cache_index,
         ``cache_index + 1``, made once per step by the caller.
       * contiguous chunked prefill (S > 1, ``chunked``).
 
-    The pool or cache must be in the compute dtype: a cast here would
-    copy the layer's whole cache on every call.
+    A quantized pool arrives as ``(ck, cv, ks, vs)``: int8/fp8 pages and
+    their (P, Hkv, page) float32 scales. Both paged modes quantize the
+    new K/V (``ops.quantize_kv``) and write codes and scales in place;
+    decode attends through the quantized kernel, prefill over the
+    gathered, dequantized view.
+
+    An unquantized pool or cache must be in the compute dtype: a cast
+    here would copy the layer's whole cache on every call.
     """
     B, S, _ = x.shape
     H, Hkv, Dh = cfg.n_heads, cfg.n_kv_heads, cfg.head_dim
@@ -154,29 +160,50 @@ def attention(x, p, cfg: ModelConfig, *, positions, cache, cache_index,
         q = apply_rope(q, cos, sin)
         k = apply_rope(k, cos, sin)
 
-    ck, cv = cache
-    if ck.dtype != q.dtype or cv.dtype != q.dtype:
+    ck, cv, *qs = cache
+    ks, vs = qs or (None, None)
+    quant = ks is not None
+    if quant:
+        if block_tables is None or ops.kv_qmax(ck.dtype) is None:
+            raise TypeError(f"scales come with quantized page pools only, got "
+                            f"{ck.dtype} {'pages' if block_tables is not None else 'cache'}")
+    elif ck.dtype != q.dtype or cv.dtype != q.dtype:
         raise TypeError(f"KV cache dtype {ck.dtype} differs from the compute "
                         f"dtype {q.dtype}")
     if block_tables is not None:
         page = ck.shape[2]
         if S == 1:
             pid, off, kl = paged_step
-            ck[pid, :, off, :] = k[:, :, 0, :]
-            cv[pid, :, off, :] = v[:, :, 0, :]
+            if quant:
+                # one quantization for K and V together: (2, B, Hkv, D)
+                kvq, kvs = ops.quantize_kv(torch.stack((k[:, :, 0], v[:, :, 0])),
+                                           ck.dtype)
+                ck[pid, :, off, :], cv[pid, :, off, :] = kvq[0], kvq[1]
+                ks[pid, :, off], vs[pid, :, off] = kvs[0], kvs[1]
+            else:
+                ck[pid, :, off, :] = k[:, :, 0, :]
+                cv[pid, :, off, :] = v[:, :, 0, :]
             out = ops.paged_attention(q.contiguous(), ck, cv,
                                       block_tables=block_tables, kv_len=kl,
-                                      pos_offset=pos_offset)
+                                      pos_offset=pos_offset,
+                                      k_scales=ks, v_scales=vs)
         elif isinstance(cache_index, int) and chunked and B == 1:
             si = cache_index - (pos_offset or 0)
             o = si % page
             if o + S > page:
                 raise ValueError(f"prefill chunk [{si}, {si + S}) crosses a page")
             pid = block_tables[0, si // page:si // page + 1].long()
-            ck[pid, :, o:o + S, :] = k
-            cv[pid, :, o:o + S, :] = v
-            gk = ops.gather_kv_pages(ck, block_tables)
-            gv = ops.gather_kv_pages(cv, block_tables)
+            if quant:
+                kvq, kvs = ops.quantize_kv(torch.stack((k, v)), ck.dtype)
+                ck[pid, :, o:o + S, :], cv[pid, :, o:o + S, :] = kvq[0], kvq[1]
+                ks[pid, :, o:o + S], vs[pid, :, o:o + S] = kvs[0], kvs[1]
+                gk = ops.gather_dequant_kv_pages(ck, ks, block_tables)
+                gv = ops.gather_dequant_kv_pages(cv, vs, block_tables)
+            else:
+                ck[pid, :, o:o + S, :] = k
+                cv[pid, :, o:o + S, :] = v
+                gk = ops.gather_kv_pages(ck, block_tables)
+                gv = ops.gather_kv_pages(cv, block_tables)
             out = ops.chunk_attention(q, gk, gv, q_offset=si, kv_len=si + S)
         else:
             raise NotImplementedError(
@@ -200,9 +227,15 @@ def attention(x, p, cfg: ModelConfig, *, positions, cache, cache_index,
 
 
 def _matmul(x, w, cfg: ModelConfig):
-    """Dense matmul; the W4A16 AWQ dict form is not ported yet."""
-    if isinstance(w, dict):
-        raise NotImplementedError("W4A16 (awq_matmul) weights are not ported yet")
+    """Dense matmul, or W4A16 through ``ops.awq_matmul`` for a quantized
+    node ``{"qw", "scales", "zeros"}`` (AWQ layout; the group size is
+    K over the scales' rows, as the JAX package infers it)."""
+    if isinstance(w, dict) and "qw" in w:
+        K = w["qw"].shape[-2] * 8                      # 8 nibbles per int32
+        out = ops.awq_matmul(x.reshape(-1, x.shape[-1]).contiguous(), w["qw"],
+                             w["scales"], w["zeros"], bits=4,
+                             group_size=K // w["scales"].shape[-2])
+        return out.reshape(*x.shape[:-1], -1)
     return x @ w.to(x.dtype)
 
 

@@ -103,9 +103,12 @@ class TransformerLM:
             else:
                 kv_len = torch.full((x.shape[0],), cache_index + 1,
                                     dtype=torch.int32, device=x.device)
+        # quantized pools: the (L, P, Hkv, page) scale sidecars ride with
+        # their pages as two more entries of each layer's cache
+        names = ("k", "v") + (("k_qscale", "v_qscale") if "k_qscale" in cache else ())
         for i in range(self.cfg.n_layers):
             x = self._block(x, _layer(params["blocks"], i), positions=positions,
-                            cache=(cache["k"][i], cache["v"][i]),
+                            cache=tuple(cache[n][i] for n in names),
                             cache_index=cache_index, chunked=chunked,
                             block_tables=bt, pos_offset=poff,
                             paged_step=paged_step, kv_len=kv_len)

@@ -9,7 +9,10 @@ positions 0..n-1 in page-aligned chunks (``pagepool.chunk_plan``).
 
 Entry points run on the CUDA card unless the caller passes
 ``device="cpu"``: with ``device=None`` the engine raises where no sm_90
-card is present rather than falling back to the CPU.
+card is present rather than falling back to the CPU. ``kv_dtype`` picks
+the page pool's storage (``pagepool.KV_DTYPES``: int8/fp8 codes with
+f32 scales, or the compute dtype); ``params`` may be a W4A16 tree from
+``serving.quantize.quantize_mlp_tree``.
 ``generate_batch`` is not ported yet (it needs ``SlotSplicer``).
 """
 
@@ -25,7 +28,8 @@ import torch
 
 from repro_torch.models import build_model
 from repro_torch.models.common import ModelConfig
-from repro_torch.serving.pagepool import chunk_plan
+from repro_torch.serving import prng
+from repro_torch.serving.pagepool import chunk_plan, kv_storage
 from repro_torch.serving.sampler import (GenerationParams, SamplerConfig,
                                          StopMatcher, sample_slots)
 from repro_torch.serving.scheduler import clip_prompt
@@ -65,12 +69,15 @@ class ServingEngine:
                  scheduler_slots: int = 4, prefill_chunk: int = 32,
                  page: int = 16, prefix_cache_pages: int = 256,
                  kv_dtype: str = "fp32", device=None):
+        kv_storage(kv_dtype)            # refuse an unknown one before any work
         self.cfg = cfg
         self.device = resolve_device(device)
         self.model = build_model(cfg)
         self.params = (params if params is not None
                        else self.model.init(seed, self.device))
-        self.gen = torch.Generator(device=self.device).manual_seed(seed)
+        # the shared sampling key, split per draw as the JAX package splits
+        # its ``rng`` (a host-side uint32 pair; no device work)
+        self.rng = prng.PRNGKey(seed)
         self.max_seq = max_seq
         self.tokenizer = ByteTokenizer(cfg.vocab_size)
         self.sampler = sampler or SamplerConfig(vocab_size=cfg.vocab_size)
@@ -161,7 +168,8 @@ class ServingEngine:
         tok = torch.argmax(last, -1)[:, None]
         self.model.decode_step(self.params, tok, cache)
         t, p, s = self._param_vectors(None, batch)
-        sample_slots(last, self.gen, self.sampler, t, p, s, np.zeros(batch, np.int32))
+        sample_slots(last, prng.PRNGKey(0), self.sampler, t, p, s,
+                     np.zeros(batch, np.int32))
 
     # ------------------------------------------------------------------
     @torch.inference_mode()
@@ -180,7 +188,8 @@ class ServingEngine:
         temps, topps, seeds = self._param_vectors(gp)
 
         def draw(logits, step):
-            return sample_slots(logits, self.gen, self.sampler, temps, topps,
+            self.rng, k = prng.split(self.rng)
+            return sample_slots(logits, k, self.sampler, temps, topps,
                                 seeds, np.full(1, step, np.int32))
 
         cache = self.model.init_cache(1, self.max_seq, self.device)

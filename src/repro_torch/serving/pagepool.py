@@ -8,8 +8,11 @@ directly through per-slot block tables.
 Layout comes from the model's ``cache_specs()``
 (:meth:`repro_torch.models.common.LeafLayout.pool_shape`): k
 ``(L, B, Hkv, S, D)`` pools as ``(L, P, Hkv, page, D)``. The buffers are
-allocated once, in the model's compute dtype, and written in place by
-the model's paged attention.
+allocated once and written in place by the model's paged attention: in
+the model's compute dtype (``kv_dtype="fp32"``), or as int8 / fp8 e4m3
+codes (``KV_DTYPES``) with a float32 scale per (layer, page, kv head,
+position) in a sidecar of the pool's shape minus its last axis, handed
+out as the cache key ``"<leaf>_qscale"``.
 
 **Page id 0 is the reserved trash page.** Finished slots are parked at
 position 0 with an all-zero block-table row, so their dead (masked,
@@ -17,8 +20,7 @@ never read) decode writes land on page 0. ``alloc`` never hands out
 page 0 and ``free`` rejects it.
 
 The copying movement of the JAX package (``store_pages``/``load`` and
-``SlotSplicer``, the splice path of stateful models) and quantized
-``kv_dtype`` pools are not ported yet.
+``SlotSplicer``, the splice path of stateful models) is not ported yet.
 """
 
 from __future__ import annotations
@@ -31,6 +33,24 @@ import torch
 from repro_torch.models.common import cache_layout, has_state_leaves
 
 TRASH_PAGE = 0
+
+# kv_dtype axis: how "kv_seq" pool leaves are stored. "fp32" keeps the
+# model's compute dtype; the quantized modes store the narrow dtype plus
+# the float32 scale sidecar.
+KV_DTYPES = {
+    "fp32": None,
+    "int8": torch.int8,
+    "fp8_e4m3": torch.float8_e4m3fn,
+}
+
+
+def kv_storage(kv_dtype: str):
+    """The narrow dtype of ``kv_dtype``'s pages (None: the compute
+    dtype); an unknown ``kv_dtype`` is refused."""
+    if kv_dtype not in KV_DTYPES:
+        raise ValueError(f"kv_dtype must be one of {sorted(KV_DTYPES)}, "
+                         f"got {kv_dtype!r}")
+    return KV_DTYPES[kv_dtype]
 
 
 @dataclass
@@ -81,11 +101,10 @@ class PagePool:
 
     def __init__(self, model, *, page: int = 16, capacity: int = 256,
                  kv_dtype: str = "fp32", device="cpu"):
-        if kv_dtype != "fp32":
-            raise NotImplementedError(
-                f"kv_dtype={kv_dtype!r}: quantized KV pages are not ported yet")
+        qdt = kv_storage(kv_dtype)
         self.page = page
         self.capacity = capacity
+        self.kv_dtype = kv_dtype
         self.layout = cache_layout(model.cache_specs())
         self.stateful = has_state_leaves(self.layout)
         template = model.init_cache(1, page, device="meta")
@@ -93,9 +112,15 @@ class PagePool:
         for name, lay in self.layout.items():
             if lay.paged:
                 leaf = template[name]
+                shape = lay.pool_shape(leaf.shape, page, capacity + 1)
                 self._paged[name] = torch.zeros(
-                    lay.pool_shape(leaf.shape, page, capacity + 1),
-                    dtype=leaf.dtype, device=device)
+                    shape, dtype=qdt or leaf.dtype, device=device)
+                if qdt is not None:
+                    self._paged[f"{name}_qscale"] = torch.zeros(
+                        shape[:-1], dtype=torch.float32, device=device)
+        # device bytes held, sidecars included
+        self.pool_bytes = sum(t.numel() * t.element_size()
+                              for t in self._paged.values())
         self._free = list(range(capacity, 0, -1))   # never hands out page 0
         self._free_set = set(self._free)
         self.high_water = 0
@@ -138,7 +163,8 @@ class PagePool:
     # ------------------------------------------------------------ paged view
     def paged_cache(self, batch: int, max_pages: int) -> dict:
         """Zero-copy decode cache over the pool buffers for a ``batch``-
-        slot batcher: every "kv_seq" leaf is its pool buffer, plus per-slot
+        slot batcher: every "kv_seq" leaf is its pool buffer (with its
+        ``"<leaf>_qscale"`` sidecar in a quantized pool), plus per-slot
         ``block_tables`` (batch, max_pages) int32, ``pos`` and
         ``pos_offset`` (batch,) int32. Hands the buffers to the caller."""
         if self.stateful:

@@ -11,10 +11,12 @@ The continuous batcher mixes requests with different params in one
 fused device step, so ``sample_slots`` samples every decode slot with
 its OWN temperature / top-p / seed in one call.
 
-Stochastic draws use ``torch.Generator``s and Gumbel-max sampling. They
-are not bitwise the JAX package's threefry streams (a known difference,
-ROADMAP queue 3): a seeded request reproduces within the port, keyed on
-(seed, step), whatever other sessions share its batch.
+Stochastic draws are the JAX package's: Threefry-2x32 keys
+(:mod:`repro_torch.serving.prng`) and ``jax.random.categorical``'s
+Gumbel-max draw. A seeded slot draws with ``fold_in(PRNGKey(seed),
+step)``, whatever other sessions share its batch; an unseeded slot with
+``fold_in(rng, slot)`` of the tick's key ``rng``, split from the
+engine's key as the JAX package splits it.
 """
 
 from __future__ import annotations
@@ -23,6 +25,8 @@ from dataclasses import dataclass
 
 import numpy as np
 import torch
+
+from repro_torch.serving import prng
 
 
 @dataclass(frozen=True)
@@ -148,22 +152,29 @@ def _nucleus_mask(z, probs, top_p):
     return torch.where((top_p >= 1.0) | (probs >= thresh), z, -1e30)
 
 
-def _gumbel(V: int, gen: torch.Generator, device):
-    u = torch.rand(V, generator=gen, device=device).clamp_(min=1e-20)
-    return -torch.log(-torch.log(u))
+def slot_keys(rng, seeds, steps):
+    """The (B,) key pair each slot draws with: ``fold_in(PRNGKey(seed),
+    step)`` where ``seed >= 0``, else ``fold_in(rng, slot)``. Host numpy
+    int64 arrays (B values: cheaper here than as device launches)."""
+    seeds = np.asarray(seeds, np.int64)
+    s1, s2 = prng.fold_in(prng.PRNGKey(np.maximum(seeds, 0)),
+                          np.asarray(steps, np.int64))
+    r1, r2 = prng.fold_in(rng, np.arange(len(seeds), dtype=np.int64))
+    seeded = seeds >= 0
+    return np.where(seeded, s1, r1), np.where(seeded, s2, r2)
 
 
-def sample_slots(logits, gen: torch.Generator, sc: SamplerConfig, temps, top_ps,
-                 seeds, steps):
+def sample_slots(logits, rng, sc: SamplerConfig, temps, top_ps, seeds, steps):
     """Per-slot sampling for one fused decode tick.
 
-    logits (B, V) on the device; ``temps``/``top_ps``/``seeds``/``steps``
-    (B,) host arrays. A slot with ``temp <= 0`` takes argmax. ``seed >= 0``
-    draws from a per-request stream keyed on (seed, step), independent of
-    which other sessions share the batch; ``seed < 0`` draws from the
-    shared generator ``gen``. Returns (B,) int64 token ids on the device.
-    The greedy decision is made on the host, so an all-greedy batch is a
-    single argmax with no host read.
+    logits (B, V) on the device; ``rng`` the tick's key pair;
+    ``temps``/``top_ps``/``seeds``/``steps`` (B,) host arrays. A slot
+    with ``temp <= 0`` takes argmax. ``seed >= 0`` draws from a
+    per-request stream keyed on (seed, step), independent of which other
+    sessions share the batch; ``seed < 0`` folds the slot index into
+    ``rng``. Returns (B,) int64 token ids on the device. The greedy
+    decision is made on the host, so an all-greedy batch is a single
+    argmax with no host read and no key arithmetic.
     """
     logits = _mask_vocab(logits, sc)
     greedy = torch.argmax(logits, dim=-1)
@@ -171,7 +182,6 @@ def sample_slots(logits, gen: torch.Generator, sc: SamplerConfig, temps, top_ps,
     if not (temps > 0.0).any():
         return greedy
     dev = logits.device
-    B, V = logits.shape
     z = logits / torch.as_tensor(np.maximum(temps, 1e-6), device=dev)[:, None]
     if sc.top_k:
         kth = torch.topk(z, sc.top_k, dim=-1).values[..., -1:]
@@ -179,9 +189,6 @@ def sample_slots(logits, gen: torch.Generator, sc: SamplerConfig, temps, top_ps,
     probs = torch.softmax(z, dim=-1)
     z = _nucleus_mask(z, probs, torch.as_tensor(
         np.asarray(top_ps, np.float32), device=dev)[:, None])
-    noise = torch.stack([
-        _gumbel(V, torch.Generator(device=dev).manual_seed(
-            (int(s) << 32) + int(t)) if s >= 0 else gen, dev)
-        for s, t in zip(np.asarray(seeds), np.asarray(steps))])
-    drawn = torch.argmax(z + noise, dim=-1)
+    keys = torch.from_numpy(np.stack(slot_keys(rng, seeds, steps))).to(dev)
+    drawn = prng.categorical(keys[0], keys[1], z)
     return torch.where(torch.as_tensor(temps <= 0.0, device=dev), greedy, drawn)

@@ -30,6 +30,7 @@ import numpy as np
 import torch
 
 from repro_torch.models.common import cache_layout, has_state_leaves
+from repro_torch.serving import prng
 from repro_torch.serving.pagepool import PagePool, chunk_plan
 from repro_torch.serving.prefix_cache import PrefixCache, PrefixLease
 from repro_torch.serving.sampler import GenerationParams, StopMatcher, sample_slots
@@ -134,7 +135,7 @@ class _Admission:
     lease: Optional[PrefixLease] = None
     temp: float = 0.0                # resolved per-request sampling params
     top_p: float = 1.0
-    seed: int = -1                   # -1 -> shared per-tick generator
+    seed: int = -1                   # -1 -> shared per-tick key
 
 
 class ContinuousBatcher:
@@ -200,7 +201,10 @@ class ContinuousBatcher:
     def _fused(self):
         """One tick: decode all slots, sample, mask EOS/length per slot.
         Returns the packed (B, 3) int32 [next, emitted, done] on the host
-        -- the tick's single token transfer."""
+        -- the tick's single token transfer. Splits the engine's key once
+        per tick, greedy or not, as the JAX package's scheduler does (host
+        arithmetic only)."""
+        self.engine.rng, rng = prng.split(self.engine.rng)
         eos, pad = self.tokenizer.eos_id, self.tokenizer.pad_id
         state = torch.from_numpy(np.stack(
             [self._active_m.astype(np.int32), self._gen, self._maxgen])).to(
@@ -208,7 +212,7 @@ class ContinuousBatcher:
         run, gen, max_gen = state[0].bool(), state[1], state[2]
         logits, cache = self.model.decode_step(self.engine.params, self.tok,
                                                self.cache)
-        nxt = sample_slots(logits, self.engine.gen, self.engine.sampler,
+        nxt = sample_slots(logits, rng, self.engine.sampler,
                            self._temp, self._topp, self._seed, self._gen)
         nxt = torch.where(run, nxt, pad)
         gen2 = gen + run.to(gen.dtype)
@@ -228,7 +232,8 @@ class ContinuousBatcher:
         """Sample an admission's first token from its prefill logits (step 0
         of its sample stream), drop it into the tok buffer, and read it as
         one scalar."""
-        t = sample_slots(logits, self.engine.gen, self.engine.sampler,
+        self.engine.rng, k = prng.split(self.engine.rng)
+        t = sample_slots(logits, k, self.engine.sampler,
                          np.array([adm.temp], np.float32),
                          np.array([adm.top_p], np.float32),
                          np.array([adm.seed], np.int64), np.zeros(1, np.int32))

@@ -134,9 +134,9 @@ def test_unported_paths_refuse(engines):
         ContinuousBatcher(port, slots=2, max_seq=90, prefix_pages=32)
     with pytest.raises(NotImplementedError, match="contiguous splice"):
         ContinuousBatcher(port, slots=2, max_seq=96, prefix_pages=0)
-    with pytest.raises(NotImplementedError, match="kv_dtype"):
+    with pytest.raises(ValueError, match="kv_dtype must be one of"):
         ContinuousBatcher(ServingEngine(port.cfg, params=port.params, max_seq=96,
-                                        device="cpu", kv_dtype="int8"), slots=2)
+                                        device="cpu", kv_dtype="int4"), slots=2)
 
 
 def test_chunk_plan_and_clip_prompt_match_reference():
@@ -164,9 +164,8 @@ def test_sampler_greedy_masks_padded_vocab():
 
 def test_seeded_stream_independent_of_batch(engines):
     """Seeded slots draw from a stream keyed on (seed, step), so a seeded
-    request gives the same tokens alone and next to other sessions. (Not
-    the JAX package's threefry bits: parity with those streams is not
-    part of this port slice.)"""
+    request gives the same tokens alone and next to other sessions
+    (parity with the JAX package's streams: tests/test_torch_prng.py)."""
     _, port = engines
     gp = GenerationParams(max_tokens=8, temperature=0.9, seed=21)
     alone = port.submit(PROMPTS[1], params=gp).result(timeout=120).tokens

@@ -62,6 +62,34 @@ def test_hpc_tier_greedy_stream_equals_reference(systems):
     assert streams[1] == streams[0] and len(streams[0]) == 12
 
 
+def test_hpc_tier_greedy_stream_equals_reference_quantized():
+    """The paper's quantized HPC tier: int8 KV pages and W4A16 weights
+    (group 64) on both tiers; with the reference's quantized weights
+    swapped in, the HPC tier's greedy stream equals the reference's."""
+    kw = dict(KW, kv_dtype="int8", quantize_mlp=True)
+    ref = ref_build_system(**kw)
+    port = build_system(device="cpu", **kw)
+    try:
+        hpc = port.engines["hpc"]
+        assert hpc.params["blocks"]["mlp"]["w1"]["qw"].dtype == torch.int32
+        hpc.params = params_from_numpy(jax.tree.map(np.asarray, ref.engines["hpc"].params))
+        msgs = [{"role": "user", "content": "Explain the dual-channel relay in depth."}]
+        streams = []
+        for s in (ref, port):
+            ids = []
+            res = s.backends["hpc"].stream(msgs, max_tokens=12,
+                                           on_token=lambda t, _: ids.append(t))
+            assert res.streamed and res.n_completion_tokens == len(ids)
+            streams.append(ids)
+        assert streams[1] == streams[0] and len(streams[0]) == 12
+        assert hpc.scheduler.batcher.cache["k"].dtype == torch.int8
+    finally:
+        for s in (ref, port):
+            for e in s.engines.values():
+                e.shutdown()
+            s.endpoint.shutdown()
+
+
 @pytest.mark.parametrize("alias,tier", [("stream-hpc", "hpc"), ("stream-auto", "local")])
 def test_gateway_serves_alias(systems, alias, tier):
     _, port = systems
@@ -91,10 +119,11 @@ def test_relay_never_sees_plaintext(systems, monkeypatch):
 
 
 def test_unported_options_refuse():
-    for kw in ({"kv_dtype": "int8"}, {"quantize_mlp": True},
-               {"speculative": True}, {"replicas": 2}):
+    for kw in ({"speculative": True}, {"replicas": 2}):
         with pytest.raises(NotImplementedError, match="not ported"):
             build_system(device="cpu", **kw)
+    with pytest.raises(ValueError, match="kv_dtype must be one of"):
+        build_system(device="cpu", kv_dtype="int4")
 
 
 def test_feature_judge_trains_like_reference():
