@@ -29,8 +29,23 @@ Phases, each of which fails the run when it fails:
   5. quantized main path: once the dense system is freed, the same with
      int8 KV pages and W4A16 weights (the paper's AWQ HPC tier); the
      counters of awq_matmul, quantized paged attention and rmsnorm,
-     zeroed just before, must grow; then its breakdown, and the two
-     paths' figures side by side.
+     zeroed just before, must grow; then its breakdown;
+  6. hybrid main path: once the quantized system is freed, the HPC tier
+     at the full width of zamba2-7b (bf16, 81 Mamba-2 layers and a shared
+     attention block, random weights from seed 0) served through the
+     contiguous splice path with a 32-page stateful prefix pool; the
+     counters of ssd, decode_attention and rmsnorm, zeroed just before,
+     must grow; then its breakdown, and the three paths' figures side by
+     side.
+Every breakdown profiles one B=8 decode step and one 16-token prefill
+piece of the model alone. The kernel phase also holds ssd (the Mamba-2
+chunked scan) against its plain version at the smoke chunk (16, float32,
+with and without h0) and at zamba2-7b's prefill piece (T = 256 with 32
+live steps, and T = 512, bf16, with h0), decode attention at zamba2's
+shared block (B = 8, 32/32 heads of D = 112) and rmsnorm at width 3584;
+the reference phase also serves a small float32 zamba2 on card and CPU.
+In the kernels JSON, ``launches`` is a kernel's count summed over the
+three main paths (each zeroed just before its path and read just after).
 The line before the last is the kernels JSON; the last line is
 {"ok": true, "device": {...}}. Exits nonzero with no result line when
 no CUDA device is present or the port's sources are missing.
@@ -54,6 +69,12 @@ TOL = {"float32": (5e-5, 1e-5), "bfloat16": (1e-2, 1.6e-2)}   # (atol, rtol)
 FULL = dict(n_layers=32, d_model=4096, n_heads=32, n_kv_heads=8, head_dim=128,
             d_ff=16384, vocab_size=256000, param_dtype="bfloat16",
             compute_dtype="bfloat16")
+# zamba2-7b at its published widths (src/repro_torch/configs/zamba2_7b.py)
+ZAMBA_FULL = dict(n_layers=81, d_model=3584, n_heads=32, n_kv_heads=32, head_dim=112,
+                  d_ff=14336, vocab_size=32000, ssm_state=64, ssm_head_dim=64,
+                  ssm_expand=2, ssm_chunk=256, attn_every=6,
+                  param_dtype="bfloat16", compute_dtype="bfloat16")
+ZAMBA_POOL_PAGES = 32      # ~152 MB of state snapshot per page at full width
 B, HQ, HKV, D, PAGE, MAX_SEQ = 8, 32, 8, 128, 16, 256
 N_TIMED = 100
 # W4A16 shapes of one decode step's layer (M = B rows): w1 and w3, w2, wo
@@ -74,7 +95,10 @@ KERNELS = {
                          "src/repro/kernels/decode_attention.py:65"),
     "awq_matmul": ("src/repro_torch/kernels/csrc/awq_matmul.cu",
                    "src/repro/kernels/awq_matmul.py:52"),
+    "ssd": ("src/repro_torch/kernels/csrc/ssd.cu",
+            "src/repro/kernels/ssm_scan.py:72"),
 }
+SSD_REL = 1e-5     # ssd's float32 outputs: max abs err <= SSD_REL * max(1, max |plain|)
 
 
 def log(*a):
@@ -127,6 +151,20 @@ def int4pack_mm(torch, x, qw, sc, zr, gs):
     return lambda: torch.ops.aten._weight_int4pack_mm(x, wp, gs, sz)
 
 
+def check_ssd(name, got, want):
+    """ssd's bf16 y is held like any bf16 output; its float32 outputs (y
+    in float32, the state always) to SSD_REL of the largest |plain|: sums
+    over up to 256 steps run in another order than the plain version's,
+    so an element near zero carries the rounding of larger terms."""
+    if str(got.dtype) == "torch.bfloat16":
+        return check_close(name, got, want, "bfloat16")
+    err = (got.float() - want.float()).abs().max().item()
+    lim = SSD_REL * max(1.0, want.float().abs().max().item())
+    if not bool(got.isfinite().all()) or not err <= lim:
+        raise AssertionError(f"{name}: max_abs_err {err:.3e} beyond {lim:.3e}")
+    return err
+
+
 def bound_ms(nbytes, flops, dtype):
     t_bytes = nbytes / HBM_BYTES_PER_S
     t_ops = flops / PEAK_FLOPS[dtype]
@@ -141,6 +179,7 @@ def kernel_phase(torch, timer):
     from repro_torch.kernels import paged_attention as pa_k
     from repro_torch.kernels import ref
     from repro_torch.kernels import rmsnorm as rms_k
+    from repro_torch.kernels import ssm_scan as ssd_k
 
     g = torch.Generator(device="cuda").manual_seed(0)
     rows = {}
@@ -345,16 +384,91 @@ def kernel_phase(torch, timer):
                 bms, by = bound_ms(nbytes, 4 * D * HQ * keys, dname)
                 rows["decode_attention"] = dict(ms=t_k, plain_ms=t_p, library_ms=t_l,
                                                 bound_ms=bms, bound_by=by)
+    # ---- zamba2-7b's shared block: decode attention at B=8, 32/32 heads of
+    # D=112 over a ragged 256-position contiguous cache; rmsnorm at 3584
+    zl = [1, 5, 16, 17, 100, 128, 255, 256]
+    for dname in ("float32", "bfloat16"):
+        dt = getattr(torch, dname)
+        q = randn(B, 32, 1, 112, dtype=dt)
+        k, v = randn(B, 32, MAX_SEQ, 112, dtype=dt), randn(B, 32, MAX_SEQ, 112, dtype=dt)
+        kl = torch.tensor(zl, dtype=torch.int32, device="cuda")
+        rows[("decode_attention", dname)].append(check_close(
+            "decode_attention zamba2 B=8 32/32 D=112",
+            dec_k.decode_attention(q, k, v, kv_len=kl), dec_k.plain(q, k, v, kv_len=kl),
+            dname))
+        x, w = randn(B, 1, 3584, dtype=dt), 1 + 0.1 * randn(3584, dtype=dt)
+        rows[("rmsnorm", dname)].append(check_close(
+            "rmsnorm 8x3584", rms_k.rmsnorm(x, w), rms_k.plain(x, w), dname))
+        if dname != "bfloat16":
+            continue
+        mask = (torch.arange(MAX_SEQ, device="cuda")[None, :] < kl[:, None])[:, None, None, :]
+        elt = q.element_size()
+        for what, fk, fp, fl, nbytes, flops in (
+                ("decode_attention zamba2 B=8 32/32 D=112 S=256",
+                 lambda: dec_k.decode_attention(q, k, v, kv_len=kl),
+                 lambda: dec_k.plain(q, k, v, kv_len=kl),
+                 lambda: F.scaled_dot_product_attention(q, k, v, attn_mask=mask),
+                 2 * q.numel() * elt + 2 * sum(zl) * 32 * 112 * elt + 4 * B,
+                 4 * 112 * 32 * sum(zl)),
+                ("rmsnorm zamba2 8x3584", lambda: rms_k.rmsnorm(x, w),
+                 lambda: rms_k.plain(x, w), lambda: F.rms_norm(x, (3584,), w, eps=1e-5),
+                 2 * x.numel() * elt + w.numel() * elt, 4 * x.numel())):
+            t_k, t_p, t_l = timer.ms(fk), timer.ms(fp), timer.ms(fl)
+            bms, by = bound_ms(nbytes, flops, dname)
+            log(f"time {what}: kernel {t_k:.4f} ms  plain {t_p:.4f} ms  library "
+                f"{t_l:.4f} ms  bound {bms:.6f} ms ({by})")
+
+    # ---- ssd: the smoke chunk (16) in float32, with and without h0; then
+    # zamba2-7b's prefill piece -- a 32-token piece padded to one 256-step
+    # chunk (dt = 0 on the padding) -- and two full chunks (the carry)
+    for dname, (b, T, H, P, N, L, live) in (
+            ("float32", (2, 48, 4, 16, 16, 16, 37)),
+            ("float32", (1, 256, 112, 64, 64, 256, 32)),
+            ("bfloat16", (1, 256, 112, 64, 64, 256, 32)),
+            ("bfloat16", (1, 512, 112, 64, 64, 256, 512))):
+        dt = getattr(torch, dname)
+        x = randn(b, T, H, P, dtype=dt)
+        dtv = 1e-3 + 0.1 * torch.rand((b, T, H), generator=g, device="cuda")
+        dtv[:, live:] = 0.0
+        A = -(1.0 + 15.0 * torch.rand(H, generator=g, device="cuda"))
+        Bm, Cm = randn(b, T, N, dtype=dt), randn(b, T, N, dtype=dt)
+        Dv, h0 = randn(H, dtype=torch.float32), randn(b, H, P, N, dtype=torch.float32)
+        what = f"ssd ({b}, {T}, {H}, {P}, {N}) chunk {L}, {live} live steps"
+        for h in (None, h0):
+            y, hf = ssd_k.ssd(x, dtv, A, Bm, Cm, Dv, chunk=L, h0=h)
+            yp, hp = ssd_k.plain(x, dtv, A, Bm, Cm, Dv, chunk=L, h0=h)
+            errs = rows.setdefault(("ssd", dname), [])
+            errs.append(check_ssd(f"{what} h0={h is not None} y", y, yp))
+            errs.append(check_ssd(f"{what} h0={h is not None} state", hf, hp))
+        if dname == "bfloat16" and T == 256:      # the main path's piece
+            t_k = timer.ms(lambda: ssd_k.ssd(x, dtv, A, Bm, Cm, Dv, chunk=L, h0=h0))
+            t_p = timer.ms(lambda: ssd_k.plain(x, dtv, A, Bm, Cm, Dv, chunk=L, h0=h0),
+                           n=20)
+            elt = x.element_size()
+            nbytes = (2 * x.numel() * elt + dtv.numel() * 4 + 2 * H * 4
+                      + 2 * Bm.numel() * elt + 2 * h0.numel() * 4)
+            # float32 math per (batch, chunk): the causal C.B triangle once
+            # (B and C are shared by the heads), then per head the M.x
+            # triangle, the inter-chunk term and the state update
+            flops = b * (T // L) * (L * (L + 1) * N
+                                    + H * (L * (L + 1) * P + 4 * L * P * N))
+            bms, by = bound_ms(nbytes, flops, "float32")
+            rows["ssd"] = dict(ms=t_k, plain_ms=t_p, library_ms=None,
+                               bound_ms=bms, bound_by=by)
+            log(f"time {what} bf16 with h0: {flops / 1e9:.3f} GFLOP (float32), "
+                f"{nbytes / 1e6:.2f} MB")
+
     for (name, dname), errs in sorted((k, v) for k, v in rows.items()
                                       if isinstance(k, tuple)):
-        log(f"kernel {name:21s} {dname:9s} max_abs_err {max(errs):.3e} "
-            f"(tolerance atol {TOL[dname][0]} + rtol {TOL[dname][1]})")
+        tol = (f"atol {TOL[dname][0]} + rtol {TOL[dname][1]}"
+               + (f"; float32 outputs {SSD_REL} x max |plain|" if name == "ssd" else ""))
+        log(f"kernel {name:21s} {dname:9s} max_abs_err {max(errs):.3e} (tolerance {tol})")
     for name in KERNELS:
         r = rows[name]
         r["max_abs_err"] = max(rows[(name, "float32")] + rows[(name, "bfloat16")])
+        lib = "none" if r["library_ms"] is None else f"{r['library_ms']:.4f} ms"
         log(f"time {name:21s} bf16 kernel {r['ms']:.4f} ms  plain {r['plain_ms']:.4f} ms"
-            f"  library {r['library_ms']:.4f} ms  bound {r['bound_ms']:.5f} ms "
-            f"({r['bound_by']})")
+            f"  library {lib}  bound {r['bound_ms']:.5f} ms ({r['bound_by']})")
     return rows
 
 
@@ -398,19 +512,51 @@ def reference_phase(torch):
             f"{'dense weights' if kv_dtype == 'fp32' else 'W4A16 group 64'}, "
             f"{kv_dtype} pages)")
 
+    # the hybrid family: ssd in every prefill piece, the contiguous splice
+    # batcher with a stateful prefix pool (the repeat is a prefix hit)
+    zcfg = get_smoke_config("zamba2-7b").replace(vocab_size=300, vocab_pad_to=64,
+                                                 compute_dtype="float32")
+    gpu = ServingEngine(zcfg, max_seq=96, device="cuda")
+    cpu = ServingEngine(zcfg, max_seq=96, device="cpu",
+                        params=tree_map(lambda t: t.cpu(), gpu.params))
+    for p in prompts:
+        a, c = gpu.generate(p, max_new_tokens=12).tokens, cpu.generate(p, max_new_tokens=12).tokens
+        if a != c:
+            raise AssertionError(f"zamba2: generate() differs card vs CPU: {a} vs {c}")
+    streams = []
+    for eng in (gpu, cpu):
+        res = [h.result(timeout=300) for h in
+               [eng.submit(p, max_new_tokens=12) for p in prompts]]
+        res.append(eng.submit(prompts[1], max_new_tokens=12).result(timeout=300))
+        streams.append(res)
+    for a, c in zip(*streams):
+        if a.tokens != c.tokens or a.prefix_hit_tokens != c.prefix_hit_tokens:
+            raise AssertionError(f"zamba2: batcher stream differs card vs CPU: "
+                                 f"{a.tokens} vs {c.tokens}")
+    b = gpu.scheduler.batcher
+    if b.paged or not streams[0][-1].prefix_hit_tokens:
+        raise AssertionError("zamba2: not served by the splice path with a prefix hit")
+    gpu.shutdown()
+    cpu.shutdown()
+    log(f"reference: {len(prompts)} prompts + a prefix hit token-identical card vs CPU "
+        f"(zamba2 smoke, float32, generate and the contiguous splice batcher; "
+        f"{b.bytes_copied_per_admission():.0f} B copied per admission)")
+
 
 # ---------------------------------------------------------------- main path
 def counters():
     """kernel -> (module, counter attribute) of its wrapper's launch count."""
-    from repro_torch.kernels import awq_matmul, decode_attention, paged_attention, rmsnorm
+    from repro_torch.kernels import (awq_matmul, decode_attention, paged_attention,
+                                     rmsnorm, ssm_scan)
     return {"rmsnorm": (rmsnorm, "launches"),
             "paged_attention": (paged_attention, "launches"),
             "paged_attention_quant": (paged_attention, "launches_quant"),
             "decode_attention": (decode_attention, "launches"),
-            "awq_matmul": (awq_matmul, "launches")}
+            "awq_matmul": (awq_matmul, "launches"),
+            "ssd": (ssm_scan, "launches")}
 
 
-def main_path_phase(torch, label, must_launch, **system_kw):
+def main_path_phase(torch, label, must_launch, hpc_overrides=FULL, **system_kw):
     """build_system on the card with the full-width HPC tier, then four
     concurrent stream-hpc requests and one stream-auto request through
     the gateway. Every kernel of ``must_launch``, its counter zeroed
@@ -425,7 +571,7 @@ def main_path_phase(torch, label, must_launch, **system_kw):
     for mod, attr in counters().values():
         setattr(mod, attr, 0)
     sys_ = build_system(device="cuda", local_arch="minitron-8b", max_seq=MAX_SEQ,
-                        hpc_overrides=FULL, dispatch_latency_s=0.05, **system_kw)
+                        hpc_overrides=hpc_overrides, dispatch_latency_s=0.05, **system_kw)
     torch.cuda.synchronize()
     build_s = time.perf_counter() - t0
     build_peak = torch.cuda.max_memory_allocated()
@@ -476,7 +622,9 @@ def main_path_phase(torch, label, must_launch, **system_kw):
     torch.cuda.synchronize()
     launches = {name: getattr(mod, attr) for name, (mod, attr) in counters().items()}
     peak = torch.cuda.max_memory_allocated()
-    pool_bytes = hpc.scheduler.batcher.pool.pool_bytes
+    batcher = hpc.scheduler.batcher
+    pool_bytes = batcher.pool.pool_bytes
+    copied = batcher.bytes_copied_per_admission()
 
     ttfts, rates, total_tokens = [], [], 0
     for i, r in enumerate(results):
@@ -512,13 +660,17 @@ def main_path_phase(torch, label, must_launch, **system_kw):
     stats = dict(ttft_median_ms=ttfts[len(ttfts) // 2] * 1e3, ttft_max_ms=ttfts[-1] * 1e3,
                  tok_s_session=sum(rates) / len(rates), tok_s_all=total_tokens / wall,
                  wall_s=wall, peak_gib=peak / 2**30, build_peak_gib=build_peak / 2**30,
-                 weight_gb=wb["total"] / 1e9, pool_bytes=pool_bytes)
+                 weight_gb=wb["total"] / 1e9, pool_bytes=pool_bytes,
+                 bytes_copied_per_admission=copied)
     log(f"{label}: TTFT median {stats['ttft_median_ms']:.1f} ms "
         f"(max {stats['ttft_max_ms']:.1f} ms) over 4 concurrent stream-hpc requests; "
         f"decode {stats['tok_s_session']:.1f} tok/s per session, "
         f"{stats['tok_s_all']:.1f} tok/s over all 4 sessions (wall {wall:.2f} s); "
         f"peak device memory while serving {stats['peak_gib']:.2f} GiB; "
-        f"HPC page pool {pool_bytes / 2**20:.1f} MiB")
+        f"HPC page pool {pool_bytes / 2**20:.1f} MiB ({pool_bytes} B, "
+        f"{'paged' if batcher.paged else 'contiguous splice'} path, "
+        f"{batcher.pool.capacity} pages); {copied:.0f} B copied per admission "
+        f"over {batcher.admissions} admissions")
 
     # full-width logits are finite and of the padded vocab's width
     with torch.inference_mode():
@@ -531,13 +683,56 @@ def main_path_phase(torch, label, must_launch, **system_kw):
     return launches, stats, sys_
 
 
+def profile_phase(torch, label, what, fn):
+    """Host wall time of ``fn`` (ending in a synchronize) against the
+    device time the profiler sums over its kernels; logs the top kernels
+    and host ops. Returns (wall ms, device ms, kernels, host ms in ops)."""
+    from torch.profiler import ProfilerActivity, profile
+    with torch.inference_mode():
+        for _ in range(3):
+            fn()
+        torch.cuda.synchronize()
+        n = 10
+        t0 = time.perf_counter()
+        for _ in range(n):
+            fn()
+        torch.cuda.synchronize()
+        wall_ms = (time.perf_counter() - t0) / n * 1e3
+        with profile(activities=[ProfilerActivity.CPU, ProfilerActivity.CUDA]) as prof:
+            for _ in range(5):
+                fn()
+            torch.cuda.synchronize()
+    avgs = prof.key_averages()
+    evs = [e for e in avgs if getattr(e, "device_type", None) is not None
+           and str(e.device_type).endswith("CUDA")]
+    host = [e for e in avgs if e not in evs]
+    dev_us = sum(getattr(e, "self_device_time_total", 0) for e in evs) / 5
+    n_launch = sum(e.count for e in evs
+                   if getattr(e, "self_device_time_total", 0) > 0) / 5
+    # host time inside PyTorch ops and CUDA runtime calls (the profiler's
+    # own cost included); the rest of the wall time is Python
+    host_us = sum(e.self_cpu_time_total for e in host) / 5
+    log(f"{label} breakdown: {what}: {wall_ms:.2f} ms wall, {n_launch:.0f} device kernels "
+        f"taking {dev_us / 1e3:.2f} ms -> device busy {dev_us / 1e3 / wall_ms * 100:.0f}% "
+        f"of it; host self time in ops and runtime calls {host_us / 1e3:.2f} ms "
+        f"(under the profiler)")
+    for e in sorted(evs, key=lambda e: -getattr(e, "self_device_time_total", 0))[:10]:
+        log(f"  {getattr(e, 'self_device_time_total', 0) / 5 / 1e3:8.3f} ms/call "
+            f"{e.count // 5:5d} calls  {e.key[:90]}")
+    for e in sorted(host, key=lambda e: -e.self_cpu_time_total)[:12]:
+        log(f"  host {e.self_cpu_time_total / 5 / 1e3:8.3f} ms/call "
+            f"{e.count // 5:5d} calls  {e.key[:80]}")
+    return wall_ms, dev_us / 1e3, n_launch, host_us / 1e3
+
+
 def breakdown_phase(torch, label, sys_):
     """Where the time goes, on the HPC engine alone (after the main
     path's counters were read): the same 4 sessions through
     ServingEngine.submit without gateway, control plane, relay and
-    encryption; then one B=8 paged decode step of the model, host wall
-    time against the device time the profiler sums over its kernels.
-    Shuts the system down."""
+    encryption; then one B=8 decode step of the model (paged, or the
+    splice path's contiguous slot cache) and one 16-token prefill piece,
+    host wall time against the device time the profiler sums over their
+    kernels. Shuts the system down."""
     hpc = sys_.engines["hpc"]
     prompts = [f"Explain request {i} of the dual-channel relay." for i in range(4)]
     t0 = time.perf_counter()
@@ -556,67 +751,43 @@ def breakdown_phase(torch, label, sys_):
         e.shutdown()
     sys_.endpoint.shutdown()
     sys_.gateway.shutdown()
-    # a synthetic B=8 step over the (now idle) pool: 40 cached tokens per slot
-    pages = torch.arange(1, 1 + 3 * b.B, dtype=torch.int32, device=hpc.device)
-    bt = torch.zeros((b.B, b.n_pages), dtype=torch.int32, device=hpc.device)
-    bt[:, :3] = pages.reshape(b.B, 3)
-    cache = {k: b.cache[k] for k in b._pool_keys}
-    cache.update(pos=torch.full((b.B,), 40, dtype=torch.int32, device=hpc.device),
-                 pos_offset=torch.zeros(b.B, dtype=torch.int32, device=hpc.device),
-                 block_tables=bt)
+    # a synthetic B=8 step over the (now idle) slots: 40 cached tokens each
+    pos = torch.full((b.B,), 40, dtype=torch.int32, device=hpc.device)
+    if b.paged:
+        pages = torch.arange(1, 1 + 3 * b.B, dtype=torch.int32, device=hpc.device)
+        bt = torch.zeros((b.B, b.n_pages), dtype=torch.int32, device=hpc.device)
+        bt[:, :3] = pages.reshape(b.B, 3)
+        cache = {k: b.cache[k] for k in b._pool_keys}
+        cache.update(pos=pos, block_tables=bt,
+                     pos_offset=torch.zeros(b.B, dtype=torch.int32, device=hpc.device))
+    else:
+        cache = {**b.cache, "pos": pos}
     tok = torch.full((b.B, 1), 42, dtype=torch.int64, device=hpc.device)
-    with torch.inference_mode():
-        def step():
-            logits, _ = hpc.model.decode_step(hpc.params, tok, cache)
-            return logits
-        for _ in range(3):
-            step()
-        torch.cuda.synchronize()
-        n = 10
-        t0 = time.perf_counter()
-        for _ in range(n):
-            step()
-        torch.cuda.synchronize()
-        step_ms = (time.perf_counter() - t0) / n * 1e3
-        from torch.profiler import ProfilerActivity, profile
-        with profile(activities=[ProfilerActivity.CPU, ProfilerActivity.CUDA]) as prof:
-            for _ in range(5):
-                step()
-            torch.cuda.synchronize()
-    avgs = prof.key_averages()
-    evs = [e for e in avgs if getattr(e, "device_type", None) is not None
-           and str(e.device_type).endswith("CUDA")]
-    host = [e for e in avgs if e not in evs]
-    dev_us = sum(getattr(e, "self_device_time_total", 0) for e in evs) / 5
-    n_launch = sum(e.count for e in evs
-                   if getattr(e, "self_device_time_total", 0) > 0) / 5
-    # host time inside PyTorch ops and CUDA runtime calls (the profiler's
-    # own cost included); the rest of the wall time is Python
-    host_us = sum(e.self_cpu_time_total for e in host) / 5
-    out.update(step_ms=step_ms, dev_ms=dev_us / 1e3, n_launch=n_launch,
-               busy=dev_us / 1e3 / step_ms, host_ops_ms=host_us / 1e3)
-    log(f"{label} breakdown: B=8 paged decode step at full width: {step_ms:.2f} ms wall, "
-        f"{n_launch:.0f} device kernels taking "
-        f"{dev_us / 1e3:.2f} ms -> device busy {dev_us / 1e3 / step_ms * 100:.0f}% "
-        f"of the step; host self time in ops and runtime calls {host_us / 1e3:.2f} ms "
-        f"(under the profiler)")
-    top = sorted(evs, key=lambda e: -getattr(e, "self_device_time_total", 0))[:10]
-    for e in top:
-        log(f"  {getattr(e, 'self_device_time_total', 0) / 5 / 1e3:8.3f} ms/step "
-            f"{e.count // 5:5d} calls  {e.key[:90]}")
-    for e in sorted(host, key=lambda e: -e.self_cpu_time_total)[:12]:
-        log(f"  host {e.self_cpu_time_total / 5 / 1e3:8.3f} ms/step "
-            f"{e.count // 5:5d} calls  {e.key[:80]}")
+    kind = "paged" if b.paged else "contiguous"
+    step_ms, dev_ms, n_launch, host_ms = profile_phase(
+        torch, label, f"B=8 {kind} decode step at full width",
+        lambda: hpc.model.decode_step(hpc.params, tok, cache)[0])
+    out.update(step_ms=step_ms, dev_ms=dev_ms, n_launch=n_launch,
+               busy=dev_ms / step_ms, host_ops_ms=host_ms)
+    piece = torch.arange(3, 3 + PAGE, dtype=torch.int64, device=hpc.device)[None]
+    one = hpc.model.init_cache(1, MAX_SEQ, hpc.device)
+    piece_ms, pdev_ms, p_launch, _ = profile_phase(
+        torch, label, f"one {PAGE}-token prefill piece at full width",
+        lambda: hpc.model.prefill_chunk(hpc.params, piece, one)[0])
+    out.update(piece_ms=piece_ms, piece_dev_ms=pdev_ms, piece_launch=p_launch,
+               piece_busy=pdev_ms / piece_ms)
+    del one
     # host cost of one call, enqueue only: 200 calls do not fill the
     # device's launch queue, so the host clock sees the host's own work
     from repro_torch.models import layers
     from repro_torch.models.lm import _layer
     lp = _layer(hpc.params["blocks"], 0)
     xs = torch.randn(b.B, 1, hpc.cfg.d_model, device=hpc.device, dtype=hpc.cfg.cdtype())
-    w1 = lp["mlp"]["w1"]
-    calls = {f"_matmul w1 ({'awq_matmul' if isinstance(w1, dict) else 'torch matmul'})":
-             lambda: layers._matmul(xs, w1, hpc.cfg),
-             "rmsnorm": lambda: layers.rmsnorm(xs, lp["ln1"], hpc.cfg),
+    wname, w, ln = (("w1", lp["mlp"]["w1"], lp["ln1"]) if "mlp" in lp
+                    else ("in_proj", lp["in_proj"], lp["ln"]))
+    calls = {f"_matmul {wname} ({'awq_matmul' if isinstance(w, dict) else 'torch matmul'})":
+             lambda: layers._matmul(xs, w, hpc.cfg),
+             "rmsnorm": lambda: layers.rmsnorm(xs, ln, hpc.cfg),
              "torch.add": lambda: xs + xs}
     if "k_qscale" in cache:
         calls["quantize_kv"] = lambda: layers.ops.quantize_kv(xs, torch.int8)
@@ -666,27 +837,31 @@ def main() -> int:
     rows = kernel_phase(torch, timer)
     reference_phase(torch)
 
-    launches, dense, sys_ = main_path_phase(
-        torch, "main path", ("rmsnorm", "paged_attention", "decode_attention"))
-    held = torch.cuda.memory_allocated()
-    dense.update(breakdown_phase(torch, "main path", sys_))
-    del sys_
-    gc.collect()
-    torch.cuda.empty_cache()
-    freed = torch.cuda.memory_allocated()
-    if freed > held - 15 * 2**30:
-        raise AssertionError(f"the dense system was not freed: {held / 2**30:.2f} GiB "
-                             f"-> {freed / 2**30:.2f} GiB allocated")
-    log(f"dense system freed: {held / 2**30:.2f} GiB -> {freed / 2**30:.2f} GiB allocated")
+    paths = {}
+    for label, must, kw in (
+            ("dense", ("rmsnorm", "paged_attention", "decode_attention"), {}),
+            ("quantized", ("rmsnorm", "paged_attention_quant", "awq_matmul"),
+             dict(kv_dtype="int8", quantize_mlp=True)),
+            ("hybrid", ("ssd", "decode_attention", "rmsnorm"),
+             dict(hpc_arch="zamba2-7b", hpc_overrides=ZAMBA_FULL,
+                  prefix_cache_pages=ZAMBA_POOL_PAGES))):
+        launches, stats, sys_ = main_path_phase(torch, f"{label} path", must, **kw)
+        held = torch.cuda.memory_allocated()
+        stats.update(breakdown_phase(torch, f"{label} path", sys_))
+        paths[label] = (launches, stats)
+        # the next path builds only once this one's memory went back
+        del sys_
+        gc.collect()
+        torch.cuda.empty_cache()
+        freed = torch.cuda.memory_allocated()
+        if freed > held - 5 * 2**30:
+            raise AssertionError(f"the {label} system was not freed: {held / 2**30:.2f} "
+                                 f"GiB -> {freed / 2**30:.2f} GiB allocated")
+        log(f"{label} system freed: {held / 2**30:.2f} GiB -> {freed / 2**30:.2f} GiB "
+            f"allocated")
 
-    qlaunches, quant, sys_ = main_path_phase(
-        torch, "quantized path", ("rmsnorm", "paged_attention_quant", "awq_matmul"),
-        kv_dtype="int8", quantize_mlp=True)
-    quant.update(breakdown_phase(torch, "quantized path", sys_))
-    del sys_
-    launches.update(paged_attention_quant=qlaunches["paged_attention_quant"],
-                    awq_matmul=qlaunches["awq_matmul"])
-    log(f"{card}: dense bf16 vs int8 pages + W4A16 (group 64), the same 4 + 1 requests")
+    log(f"{card}: dense bf16 minitron-8b | int8 pages + W4A16 (group 64) minitron-8b | "
+        f"bf16 zamba2-7b (splice path), the same 4 + 1 requests")
     for key, what in (("ttft_median_ms", "TTFT median ms"), ("ttft_max_ms", "TTFT max ms"),
                       ("tok_s_session", "decode tok/s per session"),
                       ("tok_s_all", "tok/s over all 4 sessions"),
@@ -694,19 +869,26 @@ def main() -> int:
                       ("build_peak_gib", "peak device memory building GiB"),
                       ("weight_gb", "HPC weight_bytes GB"),
                       ("pool_bytes", "HPC pool_bytes"),
+                      ("bytes_copied_per_admission", "bytes copied per admission"),
                       ("engine_tok_s", "engine alone tok/s"),
                       ("engine_ttft_median_ms", "engine alone TTFT median ms"),
                       ("step_ms", "B=8 step wall ms"), ("dev_ms", "B=8 step device ms"),
                       ("host_ops_ms", "B=8 step host ms in ops (profiled)"),
                       ("n_launch", "B=8 step device kernels"),
-                      ("busy", "B=8 step device busy share")):
-        log(f"compare {what:38s} dense {dense[key]:14.4f}  quantized {quant[key]:14.4f}")
+                      ("busy", "B=8 step device busy share"),
+                      ("piece_ms", "16-token prefill piece wall ms"),
+                      ("piece_dev_ms", "16-token prefill piece device ms"),
+                      ("piece_launch", "16-token prefill piece device kernels"),
+                      ("piece_busy", "16-token prefill piece device busy share")):
+        log(f"compare {what:38s} " + "  ".join(
+            f"{label} {stats[key]:14.4f}" for label, (_, stats) in paths.items()))
 
     kernels = []
     for name, (src, replaces) in KERNELS.items():
         r = rows[name]
         kernels.append({"name": name, "route": "cuda", "source": src,
-                        "replaces": replaces, "launches": launches[name],
+                        "replaces": replaces,
+                        "launches": sum(l[name] for l, _ in paths.values()),
                         "max_abs_err": r["max_abs_err"], "ms": r["ms"],
                         "plain_ms": r["plain_ms"], "bound_ms": r["bound_ms"],
                         "bound_by": r["bound_by"], "library_ms": r["library_ms"]})

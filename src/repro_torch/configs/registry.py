@@ -22,7 +22,7 @@ ARCHS = [
     "xlstm-125m",
 ]
 
-PORTED = {"minitron-8b": "minitron_8b"}
+PORTED = {"minitron-8b": "minitron_8b", "zamba2-7b": "zamba2_7b"}
 
 
 def _load(arch: str):

@@ -30,8 +30,8 @@ def mha(q, k, v, *, causal: bool = True, kv_len=None, q_offset=None,
 
     q: (B, Hq, Sq, D); k, v: (B, Hkv, Skv, D); Hq % Hkv == 0.
     kv_len: optional int or (B,) tensor; key positions >= kv_len are masked.
-    q_offset: optional int; absolute position of q[0] for the causal mask
-    (default Skv - Sq).
+    q_offset: optional int or (B,) tensor; absolute position of q[0] for
+    the causal mask (default Skv - Sq).
     """
     B, Hq, Sq, D = q.shape
     Hkv, Skv = k.shape[1], k.shape[2]
@@ -49,8 +49,13 @@ def mha(q, k, v, *, causal: bool = True, kv_len=None, q_offset=None,
     mask = torch.ones((1, 1, 1, Sq, Skv), dtype=torch.bool, device=q.device)
     if causal:
         off = q_offset if q_offset is not None else Skv - Sq
-        qpos = torch.arange(Sq, device=q.device) + off
-        mask = mask & (kpos[None, :] <= qpos[:, None])
+        if torch.is_tensor(off):            # per-slot offsets (B,)
+            qpos = (off.reshape(-1, 1, 1, 1, 1)
+                    + torch.arange(Sq, device=q.device).reshape(1, 1, 1, Sq, 1))
+            mask = mask & (kpos.reshape(1, 1, 1, 1, Skv) <= qpos)
+        else:
+            qpos = torch.arange(Sq, device=q.device) + off
+            mask = mask & (kpos[None, :] <= qpos[:, None])
     if kv_len is not None:
         kl = torch.as_tensor(kv_len, device=q.device).reshape(-1, 1, 1, 1, 1)
         mask = mask & (kpos.reshape(1, 1, 1, 1, Skv) < kl)
@@ -148,6 +153,82 @@ def paged_attention(q, k_pages, v_pages, *, block_tables, kv_len, scale=None,
         v = gather_kv_pages(v_pages, block_tables).to(q.dtype)
     return decode_attention(q, k, v, kv_len=kv_len, scale=scale,
                             logit_soft_cap=logit_soft_cap)
+
+
+# ---------------------------------------------------------------------------
+# Mamba-2 SSD (chunked scan)
+# ---------------------------------------------------------------------------
+
+
+def _segsum(logd):
+    """Log-space segment sums: out[..., t, s] = sum_{r=s+1..t} logd[..., r].
+    logd (..., L) -> (..., L, L), -inf above the diagonal."""
+    L = logd.shape[-1]
+    c = torch.cumsum(logd, dim=-1)
+    diff = c[..., :, None] - c[..., None, :]
+    mask = torch.tril(torch.ones((L, L), dtype=torch.bool, device=logd.device))
+    return torch.where(mask, diff, float("-inf"))
+
+
+def ssd(x, dt, A, B, C, D, *, chunk: int = 64, h0=None):
+    """Mamba-2 state-space duality (chunked) forward, float32 inside.
+
+    x (b, T, H, P); dt (b, T, H) positive step sizes; A (H,) negative
+    decay rates; B, C (b, T, N) shared across heads; D (H,) skip; h0
+    optional (b, H, P, N) initial state. T must be a multiple of
+    ``chunk``. Returns y (b, T, H, P) in x's dtype and the final state
+    (b, H, P, N) float32. The chunk-to-chunk recurrence runs in order
+    (the JAX package uses an associative scan: equal up to rounding).
+    """
+    b, T, H, P = x.shape
+    N = B.shape[-1]
+    if T % chunk:
+        raise ValueError(f"T={T} is not a multiple of chunk={chunk}")
+    nc = T // chunk
+    dtf = dt.float()
+    logd = dtf * A.float()[None, None, :]                        # (b, T, H)
+    xc = x.float().reshape(b, nc, chunk, H, P)
+    dtc = dtf.reshape(b, nc, chunk, H)
+    Bc = B.float().reshape(b, nc, chunk, N)
+    Cc = C.float().reshape(b, nc, chunk, N)
+
+    # intra-chunk (quadratic, attention-like)
+    ld_t = logd.reshape(b, nc, chunk, H).movedim(-1, -2)        # (b, nc, H, L)
+    G = torch.exp(_segsum(ld_t))                                # (b, nc, H, L, L)
+    CB = torch.einsum("bctn,bcsn->bcts", Cc, Bc)                # (b, nc, L, L)
+    dts = dtc.movedim(-1, -2)                                   # (b, nc, H, L)
+    M = CB[:, :, None] * G * dts[..., None, :]
+    y_intra = torch.einsum("bchts,bcshp->bcthp", M, xc)
+
+    # chunk states and the recurrence H_c = a_c * H_{c-1} + S_c
+    cum = torch.cumsum(ld_t, dim=-1)                            # (b, nc, H, L)
+    decay_to_end = torch.exp(cum[..., -1:] - cum)
+    S = torch.einsum("bchs,bcsh,bcsn,bcshp->bchpn", decay_to_end, dtc, Bc, xc)
+    a = torch.exp(cum[..., -1])                                 # (b, nc, H)
+    h = (torch.zeros((b, H, P, N), dtype=torch.float32, device=x.device)
+         if h0 is None else h0.float())
+    h_prev = []
+    for c in range(nc):
+        h_prev.append(h)
+        h = a[:, c, :, None, None] * h + S[:, c]
+    h_prev = torch.stack(h_prev, dim=1)                         # (b, nc, H, P, N)
+
+    # inter-chunk contribution: decay from the chunk start, own step included
+    y_inter = torch.einsum("bctn,bcht,bchpn->bcthp", Cc, torch.exp(cum), h_prev)
+    y = y_intra + y_inter + D.float()[None, None, None, :, None] * xc
+    return y.reshape(b, T, H, P).to(x.dtype), h
+
+
+def ssd_step(x, dt, A, B, C, D, h):
+    """Single-token SSD recurrence (decode): x (b, H, P), dt (b, H), B, C
+    (b, N), h (b, H, P, N) float32 -> y (b, H, P) in x's dtype, new h."""
+    dtf = dt.float()
+    dA = torch.exp(dtf * A.float()[None, :])                    # (b, H)
+    xB = torch.einsum("bhp,bn->bhpn", x.float() * dtf[..., None], B.float())
+    h_new = dA[..., None, None] * h + xB
+    y = torch.einsum("bn,bhpn->bhp", C.float(), h_new)
+    y = y + D.float()[None, :, None] * x.float()
+    return y.to(x.dtype), h_new
 
 
 # ---------------------------------------------------------------------------

@@ -1,6 +1,6 @@
 """Model factory: ModelConfig -> model object.
 
-Protocol (see lm.TransformerLM): param_defs() / init(seed, device),
+Protocol (see lm.TransformerLM, ssm.HybridLM): param_defs() / init(seed, device),
 init_cache(batch, max_seq, device) / cache_specs(),
 prefill_chunk(params, tokens, cache) -> (last_logits, cache),
 decode_step(params, token, cache) -> (logits, cache).
@@ -12,8 +12,12 @@ from repro_torch.models.common import ModelConfig
 
 
 def build_model(cfg: ModelConfig):
+    if cfg.family == "hybrid":
+        from repro_torch.models.ssm import HybridLM
+        return HybridLM(cfg)
     if cfg.is_encoder_decoder or cfg.family != "dense":
         raise NotImplementedError(
-            f"{cfg.name}: family {cfg.family!r} is not ported yet (dense only)")
+            f"{cfg.name}: family {cfg.family!r} is not ported yet (dense and "
+            "hybrid only)")
     from repro_torch.models.lm import TransformerLM
     return TransformerLM(cfg)

@@ -143,7 +143,7 @@ class ParamDef:
     """Declarative parameter: shape, logical axes, initializer."""
     shape: tuple
     logical: tuple            # logical axis name (or None) per dim
-    init: str = "normal"      # normal | zeros | ones | embed | scaled
+    init: str = "normal"      # normal | zeros | ones | embed | scaled | ssm_a | ssm_dt
     scale: float = 1.0
     dtype: Any = None         # override param dtype
 
@@ -189,6 +189,13 @@ def init_params(defs, seed: int, param_dtype=torch.float32, device="cpu"):
             g = torch.Generator(device=device).manual_seed(seed * 100_003 + i)
             t = torch.empty(d.shape, dtype=dt, device=device).normal_(
                 0.0, std, generator=g)
+        elif d.init in ("ssm_a", "ssm_dt"):
+            # mamba A_log = log U(1, 16); dt bias = softplus^-1 of U(1e-3, 1e-1)
+            lo, hi = (1.0, 16.0) if d.init == "ssm_a" else (1e-3, 1e-1)
+            g = torch.Generator(device=device).manual_seed(seed * 100_003 + i)
+            u = torch.empty(d.shape, dtype=torch.float32, device=device).uniform_(
+                lo, hi, generator=g)
+            t = (torch.log(u) if d.init == "ssm_a" else torch.log(torch.expm1(u))).to(dt)
         else:
             raise ValueError(f"unknown init {d.init}")
         node = out

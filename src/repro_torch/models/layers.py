@@ -119,6 +119,30 @@ def paged_decode_step(block_tables, pos, pos_offset, page: int):
     return pid.long(), (spos % page).long(), pos + 1
 
 
+def decode_kv_len(pos, batch: int, device):
+    """The decode kernel's (B,) int32 KV length for a step at ``pos``
+    (an int for every slot, or a (B,) tensor): one past the written
+    position. Made once per step and shared by every layer."""
+    if torch.is_tensor(pos):
+        return (pos + 1).to(torch.int32)
+    return torch.full((batch,), pos + 1, dtype=torch.int32, device=device)
+
+
+def update_cache_at(buf, new, idx, axis: int):
+    """Write ``new`` into ``buf`` in place at position ``idx`` along
+    ``axis``. ``idx`` is an int (the same position for every row) or a
+    (B,) tensor (per-slot positions; ``buf`` and ``new`` lead with the
+    batch axis), as the JAX package's ``update_cache_at`` takes it."""
+    n = new.shape[axis]
+    if not torch.is_tensor(idx):
+        buf.narrow(axis, idx, n).copy_(new)
+        return buf
+    pos = idx.long()[:, None] + torch.arange(n, device=buf.device)       # (B, n)
+    rows = torch.arange(buf.shape[0], device=buf.device)[:, None]
+    buf.movedim(axis, 1)[rows, pos] = new.movedim(axis, 1).to(buf.dtype)
+    return buf
+
+
 def attention(x, p, cfg: ModelConfig, *, positions, cache, cache_index,
               chunked=False, block_tables=None, pos_offset=None,
               paged_step=None, kv_len=None):
@@ -135,10 +159,13 @@ def attention(x, p, cfg: ModelConfig, *, positions, cache, cache_index,
         ``cache_index`` an int): the chunk lies inside one page
         (``chunk_plan``) and is written there; it attends to the gathered
         view of the slot's pages.
-      * contiguous decode (S == 1, int ``cache_index``): cache (B, Hkv,
-        S_max, D) written at ``cache_index``; ``kv_len`` (B,) int32 is
-        ``cache_index + 1``, made once per step by the caller.
-      * contiguous chunked prefill (S > 1, ``chunked``).
+      * contiguous decode (S == 1): cache (B, Hkv, S_max, D) written at
+        ``cache_index`` -- an int, or a (B,) tensor of per-slot positions
+        (the continuous batcher's splice path); ``kv_len`` (B,) int32 is
+        ``cache_index + 1``, made once per step by the caller
+        (:func:`decode_kv_len`).
+      * contiguous chunked prefill (S > 1, ``chunked``), at an int or
+        per-slot ``cache_index``.
 
     A quantized pool arrives as ``(ck, cv, ks, vs)``: int8/fp8 pages and
     their (P, Hkv, page) float32 scales. Both paged modes quantize the
@@ -208,15 +235,13 @@ def attention(x, p, cfg: ModelConfig, *, positions, cache, cache_index,
         else:
             raise NotImplementedError(
                 "paged multi-token windows (speculative verify) are not ported yet")
-    elif not isinstance(cache_index, int):
-        raise NotImplementedError("per-slot contiguous positions are not ported yet")
     elif S == 1:
-        ck[:, :, cache_index, :] = k[:, :, 0, :]
-        cv[:, :, cache_index, :] = v[:, :, 0, :]
+        update_cache_at(ck, k, cache_index, axis=2)
+        update_cache_at(cv, v, cache_index, axis=2)
         out = ops.decode_attention(q.contiguous(), ck, cv, kv_len=kv_len)
     elif chunked:
-        ck[:, :, cache_index:cache_index + S, :] = k
-        cv[:, :, cache_index:cache_index + S, :] = v
+        update_cache_at(ck, k, cache_index, axis=2)
+        update_cache_at(cv, v, cache_index, axis=2)
         out = ops.chunk_attention(q, ck, cv, q_offset=cache_index,
                                   kv_len=cache_index + S)
     else:

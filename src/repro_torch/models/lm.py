@@ -101,8 +101,7 @@ class TransformerLM:
                 paged_step = layers.paged_decode_step(bt, cache_index, poff,
                                                       cache["k"].shape[3])
             else:
-                kv_len = torch.full((x.shape[0],), cache_index + 1,
-                                    dtype=torch.int32, device=x.device)
+                kv_len = layers.decode_kv_len(cache_index, x.shape[0], x.device)
         # quantized pools: the (L, P, Hkv, page) scale sidecars ride with
         # their pages as two more entries of each layer's cache
         names = ("k", "v") + (("k_qscale", "v_qscale") if "k_qscale" in cache else ())
@@ -137,9 +136,9 @@ class TransformerLM:
 
     def decode_step(self, params, token, cache):
         """One token per slot: ``token`` (B, 1); ``cache["pos"]`` an int
-        (contiguous, one shared position) or a (B,) int32 tensor (paged,
-        per-slot positions). Returns logits (B, V) and the cache with
-        ``pos`` advanced."""
+        (one shared position) or a (B,) int32 tensor of per-slot positions
+        (paged, or the contiguous cache of the splice path). Returns
+        logits (B, V) and the cache with ``pos`` advanced."""
         pos = cache["pos"]
         x = layers.embed(token, params["embed"], self.cfg)
         if isinstance(pos, int):

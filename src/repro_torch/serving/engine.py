@@ -4,16 +4,19 @@ The per-tier inference backend. ``submit`` streams a session through
 the engine's :class:`~repro_torch.serving.broker.SessionBroker` (the
 shared continuous batch); ``generate`` runs one request on its own with
 a contiguous cache, yielding tokens through ``on_token`` as they are
-produced. Prefill is position-stable everywhere: prompts run at absolute
-positions 0..n-1 in page-aligned chunks (``pagepool.chunk_plan``).
+produced; ``generate_batch`` prefills each prompt alone and splices it
+into a shared B-slot cache (``SlotSplicer``) before they decode
+together. Prefill is position-stable everywhere: prompts run at absolute
+positions 0..n-1 in page-aligned chunks (``pagepool.chunk_plan``), so
+identical prefixes give identical caches on every path.
 
 Entry points run on the CUDA card unless the caller passes
 ``device="cpu"``: with ``device=None`` the engine raises where no sm_90
 card is present rather than falling back to the CPU. ``kv_dtype`` picks
 the page pool's storage (``pagepool.KV_DTYPES``: int8/fp8 codes with
 f32 scales, or the compute dtype); ``params`` may be a W4A16 tree from
-``serving.quantize.quantize_mlp_tree``.
-``generate_batch`` is not ported yet (it needs ``SlotSplicer``).
+``serving.quantize.quantize_mlp_tree``. ``paged_kv=False`` pins the
+batcher to its contiguous splice path (stateful models take it anyway).
 """
 
 from __future__ import annotations
@@ -27,9 +30,9 @@ import numpy as np
 import torch
 
 from repro_torch.models import build_model
-from repro_torch.models.common import ModelConfig
+from repro_torch.models.common import ModelConfig, cache_layout, round_up
 from repro_torch.serving import prng
-from repro_torch.serving.pagepool import chunk_plan, kv_storage
+from repro_torch.serving.pagepool import SlotSplicer, chunk_plan, kv_storage
 from repro_torch.serving.sampler import (GenerationParams, SamplerConfig,
                                          StopMatcher, sample_slots)
 from repro_torch.serving.scheduler import clip_prompt
@@ -68,7 +71,7 @@ class ServingEngine:
                  max_seq: int = 256, sampler: SamplerConfig | None = None,
                  scheduler_slots: int = 4, prefill_chunk: int = 32,
                  page: int = 16, prefix_cache_pages: int = 256,
-                 kv_dtype: str = "fp32", device=None):
+                 paged_kv: bool = True, kv_dtype: str = "fp32", device=None):
         kv_storage(kv_dtype)            # refuse an unknown one before any work
         self.cfg = cfg
         self.device = resolve_device(device)
@@ -83,6 +86,9 @@ class ServingEngine:
         self.sampler = sampler or SamplerConfig(vocab_size=cfg.vocab_size)
         self.page = page
         self.prefix_cache_pages = prefix_cache_pages
+        # native paged decode in the batcher (attention-only models);
+        # False pins it to the contiguous splice path
+        self.paged_kv = paged_kv
         self.kv_dtype = kv_dtype
         self.scheduler_slots = scheduler_slots
         self.prefill_chunk = prefill_chunk
@@ -241,3 +247,52 @@ class ServingEngine:
             tokens=out, text=text, ttft_s=ttft,
             total_s=total, tok_per_s=len(out) / max(total - ttft, 1e-9),
             n_prompt=len(ids), n_generated=len(out), finish_reason=finish)
+
+    # ------------------------------------------------------------------
+    def _bucket(self, n: int) -> int:
+        """Power-of-two bucket for n, the capacity-budget unit of
+        ``clip_prompt`` (prefill runs the raw prompt)."""
+        b = 16
+        while b < n:
+            b *= 2
+        return min(b, self.max_seq - 1)
+
+    @torch.inference_mode()
+    def generate_batch(self, prompts: list[str], *, max_new_tokens: int = 32):
+        """Fixed-batch generation. Each row prefills position-stable at
+        batch=1 and is spliced into a shared B-slot cache (the splice the
+        batcher's contiguous path uses); then all rows decode together
+        through ``sample_slots``, so row i reproduces a solo ``generate``
+        of its prompt draw for draw. Returns (texts, token lists)."""
+        B = len(prompts)
+        enc = [self.tokenizer.encode(p) for p in prompts]
+        L = self._bucket(max(len(e) for e in enc))
+        # decode writes len .. len + max_new - 2: keep them inside the seq axis
+        max_new_tokens = max(min(max_new_tokens, self.max_seq + 1 - L), 1)
+        splicer = SlotSplicer(cache_layout(self.model.cache_specs()))
+        cache = self.model.init_cache(B, self.max_seq, self.device)
+        cache["pos"] = torch.zeros((B,), dtype=torch.int32, device=self.device)
+        first_logits = []
+        for i, ids in enumerate(enc):
+            lg, one = self._chunked_prefill(
+                ids, self.model.init_cache(1, self.max_seq, self.device))
+            first_logits.append(lg)
+            splicer(cache, one, i, min(round_up(len(ids), self.page), self.max_seq))
+        logits = torch.cat(first_logits, dim=0)
+        temps, topps, seeds = self._param_vectors(None, B)
+        outs = [[] for _ in range(B)]
+
+        def draw(logits, step):
+            self.rng, k = prng.split(self.rng)
+            return sample_slots(logits, k, self.sampler, temps, topps, seeds,
+                                np.full(B, step, np.int32))
+
+        tok = draw(logits, 0)[:, None]
+        for t in range(max_new_tokens):
+            for i, v in enumerate(tok[:, 0].tolist()):
+                outs[i].append(v)
+            if t == max_new_tokens - 1:
+                break
+            logits, cache = self.model.decode_step(self.params, tok, cache)
+            tok = draw(logits, t + 1)[:, None]
+        return [self.tokenizer.decode(o) for o in outs], outs

@@ -1,9 +1,11 @@
-"""PagePool -- shared device-resident KV page memory, paged part.
+"""PagePool -- shared device-resident KV page memory.
 
 A fixed budget of fixed-size pages resident on the device, which the
 radix-tree prefix cache (:mod:`repro_torch.serving.prefix_cache`) maps to
 token-id page keys, and which the continuous batcher's decode reads
-directly through per-slot block tables.
+directly through per-slot block tables (the native paged path) or copies
+into and out of contiguous slot caches (the splice path of stateful
+models).
 
 Layout comes from the model's ``cache_specs()``
 (:meth:`repro_torch.models.common.LeafLayout.pool_shape`): k
@@ -14,13 +16,20 @@ codes (``KV_DTYPES``) with a float32 scale per (layer, page, kv head,
 position) in a sidecar of the pool's shape minus its last axis, handed
 out as the cache key ``"<leaf>_qscale"``.
 
+For every *state* leaf (batch axis but no "kv_seq": the SSM and conv
+states of a hybrid model) the pool holds a per-page snapshot of the
+whole leaf, valid only at the exact token position it was taken: a
+zamba2-7b page carries ~152 MB of state beside its 3 MB of K/V.
+
 **Page id 0 is the reserved trash page.** Finished slots are parked at
 position 0 with an all-zero block-table row, so their dead (masked,
 never read) decode writes land on page 0. ``alloc`` never hands out
 page 0 and ``free`` rejects it.
 
-The copying movement of the JAX package (``store_pages``/``load`` and
-``SlotSplicer``, the splice path of stateful models) is not ported yet.
+The copying movement (``store_pages``/``store_state``/``load``, and
+``SlotSplicer`` for batch=1 -> slot splices) writes in place and counts
+its bytes in ``bytes_copied``: the admission cost the paged path avoids.
+It runs on compute-dtype pools only.
 """
 
 from __future__ import annotations
@@ -30,7 +39,7 @@ from typing import Callable, Optional
 
 import torch
 
-from repro_torch.models.common import cache_layout, has_state_leaves
+from repro_torch.models.common import LeafLayout, cache_layout, has_state_leaves
 
 TRASH_PAGE = 0
 
@@ -92,6 +101,36 @@ def chunk_plan(n_cached: int, n_total: int, page: int) -> list[int]:
     return pieces
 
 
+def _nbytes(t: torch.Tensor) -> int:
+    return t.numel() * t.element_size()
+
+
+class SlotSplicer:
+    """Batch=1 -> slot cache splice, shared by the contiguous admission
+    path (stateful models, or a pool that cannot page) and
+    ``ServingEngine.generate_batch``. Leaves with a "kv_seq" axis copy
+    only their first ``used`` positions; batch-only leaves copy the whole
+    slot slice; ``pos`` is set from the source's scalar. Writes the slot
+    cache in place; ``bytes_copied`` accumulates the splice traffic."""
+
+    def __init__(self, layout: dict[str, LeafLayout]):
+        self.layout = layout
+        self.bytes_copied = 0
+
+    def __call__(self, cache: dict, one: dict, slot: int, used: int) -> dict:
+        for name, lay in self.layout.items():
+            if lay.batch_axis < 0:
+                continue
+            src, dst = one[name], cache[name].narrow(lay.batch_axis, slot, 1)
+            sa = lay.seq_axis
+            if sa >= 0 and used < src.shape[sa]:
+                src, dst = src.narrow(sa, 0, used), dst.narrow(sa, 0, used)
+            dst.copy_(src)
+            self.bytes_copied += _nbytes(src)
+        cache["pos"][slot] = int(one["pos"])
+        return cache
+
+
 class PagePool:
     """Fixed budget of device-resident KV pages for one model.
 
@@ -109,18 +148,29 @@ class PagePool:
         self.stateful = has_state_leaves(self.layout)
         template = model.init_cache(1, page, device="meta")
         self._paged: dict[str, torch.Tensor] = {}
+        # per-page snapshots of each state leaf: (capacity + 1, *leaf
+        # without its batch axis)
+        self._state: dict[str, torch.Tensor] = {}
+        self._page_bytes = 0         # device bytes one page spans (paged leaves)
+        self._state_bytes = 0        # device bytes one state snapshot spans
         for name, lay in self.layout.items():
+            leaf = template[name] if lay.batch_axis >= 0 else None
             if lay.paged:
-                leaf = template[name]
                 shape = lay.pool_shape(leaf.shape, page, capacity + 1)
                 self._paged[name] = torch.zeros(
                     shape, dtype=qdt or leaf.dtype, device=device)
                 if qdt is not None:
                     self._paged[f"{name}_qscale"] = torch.zeros(
                         shape[:-1], dtype=torch.float32, device=device)
-        # device bytes held, sidecars included
-        self.pool_bytes = sum(t.numel() * t.element_size()
-                              for t in self._paged.values())
+                self._page_bytes += _nbytes(leaf)
+            elif lay.state:
+                block = [n for d, n in enumerate(leaf.shape) if d != lay.batch_axis]
+                self._state[name] = torch.zeros((capacity + 1, *block), dtype=leaf.dtype,
+                                                device=device)
+                self._state_bytes += _nbytes(leaf)
+        # device bytes held, sidecars and state snapshots included
+        self.pool_bytes = sum(_nbytes(t) for t in (*self._paged.values(),
+                                                   *self._state.values()))
         self._free = list(range(capacity, 0, -1))   # never hands out page 0
         self._free_set = set(self._free)
         self.high_water = 0
@@ -180,3 +230,73 @@ class PagePool:
                                             device=dev)
         self._detached = True
         return cache
+
+    # ------------------------------------------------------------ movement
+    def _movable(self):
+        if self._detached:
+            raise RuntimeError("pool buffers are owned by the paged batcher")
+        if self.kv_dtype != "fp32":
+            raise RuntimeError("the copying splice path runs on compute-dtype pools "
+                               "only; quantized pools are written in place by the "
+                               "paged decode path")
+
+    def store_pages(self, cache: dict, batch_idx: int, first_page: int, pids: list):
+        """Copy ``len(pids)`` consecutive pages starting at page
+        ``first_page`` (token positions ``[first_page * page, ...)``) of
+        slot ``batch_idx`` of a contiguous ``cache`` into the pool pages
+        ``pids`` -- paged leaves only."""
+        self._movable()
+        n = len(pids)
+        self.bytes_copied += n * self._page_bytes
+        idx = torch.tensor(pids, dtype=torch.long, device=self._device())
+        for name, pool in self._paged.items():
+            lay = self.layout[name]
+            ba, sa = lay.batch_axis, lay.seq_axis - 1     # seq axis once batch is gone
+            run = cache[name].select(ba, batch_idx).narrow(
+                sa, first_page * self.page, n * self.page)
+            shape = list(run.shape)
+            shape[sa:sa + 1] = [n, self.page]
+            pool.movedim(ba, 0)[idx] = run.reshape(shape).movedim(sa, 0).to(pool.dtype)
+
+    def store_state(self, cache: dict, batch_idx: int, pid: int):
+        """Snapshot every state leaf of slot ``batch_idx`` into pool page
+        ``pid``. Only meaningful when the slot sits exactly at that page's
+        end position -- the prefix cache enforces that (``state_ok``)."""
+        if not self._state:
+            return
+        self._movable()
+        self.bytes_copied += self._state_bytes
+        for name, snap in self._state.items():
+            snap[pid].copy_(cache[name].select(self.layout[name].batch_axis, batch_idx))
+
+    def load(self, cache: dict, batch_idx: int, page_ids: list, state_pid=None) -> dict:
+        """Splice the cached pages ``page_ids`` into slot ``batch_idx`` of a
+        contiguous ``cache`` as its token prefix ``[0, n * page)`` and (for
+        stateful models) restore the state snapshot of page ``state_pid``.
+        Writes ``cache`` in place and returns it with ``pos`` set to the
+        cached length."""
+        self._movable()
+        n = len(page_ids)
+        self.bytes_copied += n * self._page_bytes
+        idx = torch.tensor(page_ids, dtype=torch.long, device=self._device())
+        for name, pool in self._paged.items():
+            lay = self.layout[name]
+            ba, sa = lay.batch_axis, lay.seq_axis - 1
+            blocks = pool.movedim(ba, 0)[idx].movedim(0, sa)        # n beside the page axis
+            shape = list(blocks.shape)
+            shape[sa:sa + 2] = [n * self.page]
+            cache[name].select(ba, batch_idx).narrow(sa, 0, n * self.page).copy_(
+                blocks.reshape(shape))
+        if state_pid is not None:
+            self.bytes_copied += self._state_bytes
+            for name, snap in self._state.items():
+                cache[name].select(self.layout[name].batch_axis, batch_idx).copy_(
+                    snap[state_pid])
+        if torch.is_tensor(cache["pos"]):
+            cache["pos"][batch_idx] = n * self.page
+        else:
+            cache["pos"] = n * self.page
+        return cache
+
+    def _device(self):
+        return next(iter(self._paged.values())).device

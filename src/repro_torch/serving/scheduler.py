@@ -1,6 +1,7 @@
 """Continuous batching scheduler -- fused decode ticks over a shared
-paged-KV pool with radix-tree prefix caching (the native paged path of
-the JAX package's ``serving/scheduler.py``).
+KV page pool with radix-tree prefix caching (the JAX package's
+``serving/scheduler.py``: its native paged path and its contiguous
+splice path).
 
 Fixed decode batch of B slots. One tick decodes every slot, samples,
 and masks EOS/length per slot on the device; the host reads back a
@@ -8,16 +9,26 @@ single packed (B, 3) int32 array per tick (``transfers``). An admission
 additionally reads its first token as one scalar (``adm_transfers``),
 so TTFT never waits for the next full tick.
 
-Slots decode straight out of the pool buffers through per-slot block
-tables: admission of a cached prefix points the slot's table at the
-tree's pages, prompts prefill position-stable in page-aligned chunks
-(``chunk_plan``) into private pages, and publishing at finish is an
-ownership transfer. No KV byte is copied per admission.
+**Paged** (attention-only models, page-aligned ``max_seq``, a pool that
+holds one worst-case slot, ``engine.paged_kv``): slots decode straight
+out of the pool buffers through per-slot block tables. Admission of a
+cached prefix points the slot's table at the tree's pages, prompts
+prefill position-stable in page-aligned chunks (``chunk_plan``) into
+private pages, and publishing at finish is an ownership transfer. No KV
+byte is copied per admission.
 
-Not ported yet, and refused with ``NotImplementedError`` rather than
-served another way: the contiguous splice path (stateful families, a
-pool too small for one slot, unaligned ``max_seq``), speculative
-decoding and rolling windows (``WindowPolicy``).
+**Contiguous splice** (everything else, among it every stateful model:
+an SSM state has no page address): slots live in a contiguous (B, ...)
+cache with per-slot positions. An admission prefills into its own
+batch=1 cache (loading a cached prefix from the pool first), publishes a
+state snapshot at each completed page while it prefills (stateful
+pools), and is spliced into its slot at activation (``SlotSplicer``);
+``bytes_copied_per_admission`` counts the splice and the pool traffic.
+The pool is then always in the compute dtype: ``kv_dtype`` applies to
+the paged path only, as in the JAX package.
+
+Not ported yet: speculative decoding and rolling windows
+(``WindowPolicy``); the JAX package declines both on the splice path.
 """
 
 from __future__ import annotations
@@ -29,9 +40,9 @@ from typing import Callable, Optional
 import numpy as np
 import torch
 
-from repro_torch.models.common import cache_layout, has_state_leaves
+from repro_torch.models.common import cache_layout, has_state_leaves, round_up
 from repro_torch.serving import prng
-from repro_torch.serving.pagepool import PagePool, chunk_plan
+from repro_torch.serving.pagepool import PagePool, SlotSplicer, chunk_plan
 from repro_torch.serving.prefix_cache import PrefixCache, PrefixLease
 from repro_torch.serving.sampler import GenerationParams, StopMatcher, sample_slots
 from repro_torch.serving.tokenizer import ByteTokenizer
@@ -128,7 +139,7 @@ class _Admission:
     could not serve."""
     req: Request
     slot: int
-    cache: dict                      # batch=1 view of the pool being filled
+    cache: dict                      # batch=1 view of the pool (paged) or own cache
     ids: list                        # clipped prompt (absolute token basis)
     pieces: list                     # remaining chunk lengths
     pos: int = 0                     # tokens prefilled so far (incl. cached)
@@ -154,30 +165,34 @@ class ContinuousBatcher:
         if prefix_pages is None:
             prefix_pages = engine.prefix_cache_pages
         layout = cache_layout(self.model.cache_specs())
+        self._splicer = SlotSplicer(layout)
         self.n_pages = self.max_seq // page
-        why = [reason for reason, bad in (
-            ("prefix_pages=0", not prefix_pages),
-            ("a stateful model", has_state_leaves(layout)),
-            (f"max_seq={self.max_seq} not a multiple of page={page}",
-             self.max_seq % page),
-            (f"prefix_pages={prefix_pages} < one slot's {self.n_pages} pages",
-             prefix_pages and prefix_pages < self.n_pages)) if bad]
-        if why:
-            raise NotImplementedError(
-                "only the native paged decode path is ported; the contiguous "
-                f"splice path this configuration needs ({', '.join(why)}) is not")
-        self.pool = PagePool(self.model, page=page, capacity=prefix_pages,
-                             kv_dtype=engine.kv_dtype, device=self.device)
-        self.prefix = PrefixCache(self.pool)
+        # paged decode needs an attention-only model, page-aligned max_seq
+        # and a pool that holds one worst-case slot; anything else (and
+        # paged_kv=False) takes the contiguous splice path, whose pool is
+        # always in the compute dtype
+        self.paged = (bool(prefix_pages) and not has_state_leaves(layout)
+                      and self.max_seq % page == 0 and prefix_pages >= self.n_pages
+                      and engine.paged_kv)
+        self.pool = (PagePool(self.model, page=page, capacity=prefix_pages,
+                              kv_dtype=engine.kv_dtype if self.paged else "fp32",
+                              device=self.device)
+                     if prefix_pages else None)
+        self.prefix = PrefixCache(self.pool) if self.pool is not None else None
         self.admissions = 0
         self._stall = False
-        # the pool buffers ARE the decode cache: the model writes them in
-        # place, and every admission's batch=1 cache views the same tensors
-        self.cache = self.pool.paged_cache(self.B, self.n_pages)
-        self._bt = np.zeros((self.B, self.n_pages), np.int32)
-        self._bt_dirty = False
-        self._pool_keys = [k for k in self.cache
-                           if k not in ("pos", "pos_offset", "block_tables")]
+        if self.paged:
+            # the pool buffers ARE the decode cache: the model writes them in
+            # place, and every admission's batch=1 cache views the same tensors
+            self.cache = self.pool.paged_cache(self.B, self.n_pages)
+            self._bt = np.zeros((self.B, self.n_pages), np.int32)
+            self._bt_dirty = False
+            self._pool_keys = [k for k in self.cache
+                               if k not in ("pos", "pos_offset", "block_tables")]
+        else:
+            self.cache = self.model.init_cache(self.B, self.max_seq, self.device)
+            self.cache["pos"] = torch.zeros((self.B,), dtype=torch.int32,
+                                            device=self.device)
         self.window = None               # rolling windows: not ported (broker reads it)
         self.active: list[Optional[Request]] = [None] * self.B
         self.queue: list[Request] = []
@@ -219,9 +234,11 @@ class ContinuousBatcher:
         done_now = run & ((nxt == eos) | (gen2 >= max_gen))
         alive = run & ~done_now
         # park finished/empty slots at pos 0 so their (masked, unread)
-        # cache writes land on the trash page
+        # cache writes land on the trash page (paged) or their own slot
         cache["pos"] = torch.where(alive, cache["pos"], 0).to(torch.int32)
-        cache["pos_offset"] = torch.where(alive, cache["pos_offset"], 0).to(torch.int32)
+        if "pos_offset" in cache:
+            cache["pos_offset"] = torch.where(alive, cache["pos_offset"],
+                                              0).to(torch.int32)
         self.cache = cache
         self.tok = nxt[:, None]
         packed = torch.stack([nxt.to(torch.int32), run.to(torch.int32),
@@ -256,11 +273,16 @@ class ContinuousBatcher:
             self.queue.remove(req)
         elif self._adm is not None and self._adm.req is req:
             adm = self._adm
-            if adm.lease is not None:
+            if self.paged and adm.lease is not None:
                 # transfer the completed pages to the tree FIRST, then free
                 # what the session still owns (pool.free asserts the order)
                 self.prefix.publish_paged(adm.lease, adm.ids, adm.pos,
                                           req._pages, req._own)
+            elif adm.lease is not None and not self.pool.stateful:
+                # a cancelled prefill still publishes the pages it completed
+                # (stateful pools published them page by page already)
+                self.prefix.publish(adm.lease, adm.ids, adm.cache, 0,
+                                    kv_n=adm.pos, state_at=-1)
             self._release_lease(req)
             self._free_pages(req)
             self._adm = None
@@ -277,7 +299,7 @@ class ContinuousBatcher:
         return True
 
     def _release_lease(self, req: Request):
-        if req._lease is not None:
+        if req._lease is not None and self.prefix is not None:
             self.prefix.release(req._lease)
             req._lease = None
 
@@ -311,11 +333,47 @@ class ContinuousBatcher:
         ids, req.max_new_tokens = clip_prompt(
             req.prompt_ids, req.max_new_tokens, self.max_seq)
         req._kv_ids = ids
-        # zero-copy admission: the cached prefix is served by POINTING the
-        # slot's block table at the tree's pages; the suffix plus the
-        # decode budget get private pages allocated up front, so nothing
-        # in the serving loop can run out of pages mid-stream. The last
-        # written position is len(ids) + max_new - 2.
+        if self.paged:
+            if not self._map_pages(req, ids):
+                return None
+            lease = req._lease
+            one = {k: self.cache[k] for k in self._pool_keys}
+            one["pos"] = lease.n_cached
+            row = np.zeros((1, self.n_pages), np.int32)
+            row[0, :len(req._pages)] = req._pages
+            one["block_tables"] = torch.from_numpy(row).to(self.device)
+        else:
+            # splice admission: prefill into a batch=1 cache of its own,
+            # after loading the longest cached page-aligned prefix under
+            # this tenant's salt from the pool; the lease pins the matched
+            # pages until the session finishes
+            lease = None
+            one = self.model.init_cache(1, self.max_seq, self.device)
+            if self.prefix is not None:
+                lease = self.prefix.begin(req.cache_salt, ids)
+                if lease.n_cached:
+                    one = self.prefix.load_into(lease, one, 0)
+        n_cached = lease.n_cached if lease is not None else 0
+        req._lease = lease
+        req.prefix_hit_tokens = n_cached
+        p, sc = req.params, self.engine.sampler
+        return _Admission(
+            req=req, slot=slot, cache=one, ids=ids,
+            pieces=chunk_plan(n_cached, len(ids), self.page),
+            pos=n_cached, lease=lease,
+            temp=(p.temperature if p and p.temperature is not None
+                  else sc.temperature),
+            top_p=p.top_p if p and p.top_p is not None else sc.top_p,
+            seed=(p.seed & 0x7FFFFFFF) if p and p.seed is not None else -1)
+
+    def _map_pages(self, req: Request, ids: list) -> bool:
+        """Zero-copy paged admission: the cached prefix is served by
+        POINTING the slot's block table at the tree's pages; the suffix
+        plus the decode budget get private pages allocated up front, so
+        nothing in the serving loop can run out of pages mid-stream (the
+        last written position is len(ids) + max_new - 2). False, with the
+        request back at the queue's head, when the pool is exhausted even
+        after eviction."""
         lease = self.prefix.begin(req.cache_salt, ids)
         need = -(-(len(ids) + req.max_new_tokens - 1) // self.page)
         private = need - len(lease.chain)
@@ -328,25 +386,11 @@ class ContinuousBatcher:
             self.prefix.release(lease)
             self.queue.insert(0, req)
             self._stall = True
-            return None
+            return False
         req._pages = [nd.page for nd in lease.chain] + pids
         req._own = [False] * len(lease.chain) + [True] * len(pids)
-        row = np.zeros((1, self.n_pages), np.int32)
-        row[0, :len(req._pages)] = req._pages
-        one = {k: self.cache[k] for k in self._pool_keys}
-        one["pos"] = lease.n_cached
-        one["block_tables"] = torch.from_numpy(row).to(self.device)
         req._lease = lease
-        req.prefix_hit_tokens = lease.n_cached
-        p, sc = req.params, self.engine.sampler
-        return _Admission(
-            req=req, slot=slot, cache=one, ids=ids,
-            pieces=chunk_plan(lease.n_cached, len(ids), self.page),
-            pos=lease.n_cached, lease=lease,
-            temp=(p.temperature if p and p.temperature is not None
-                  else sc.temperature),
-            top_p=p.top_p if p and p.top_p is not None else sc.top_p,
-            seed=(p.seed & 0x7FFFFFFF) if p and p.seed is not None else -1)
+        return True
 
     def _advance_admissions(self):
         """Start or advance the in-flight admission by one tick's worth of
@@ -370,6 +414,12 @@ class ContinuousBatcher:
                                                          chunk, adm.cache)
             adm.pos += n
             budget -= n
+            if adm.lease is not None and self.pool.stateful:
+                # recurrent models publish per completed page DURING
+                # prefill: the state snapshot a node needs exists only
+                # while the cache sits exactly at that page's boundary
+                self.prefix.publish(adm.lease, adm.ids, adm.cache, 0,
+                                    kv_n=adm.pos, state_at=adm.pos)
         if adm.pieces:
             return
         # prefill complete: sample + emit the first token (one scalar read
@@ -383,11 +433,16 @@ class ContinuousBatcher:
         # offer the GIL to the consumer thread the emission just woke
         time.sleep(0)
         self.admissions += 1
-        if adm.lease is not None:
+        if self.paged and adm.lease is not None:
             # publish is pure ownership transfer: the prompt's full pages
             # become tree nodes, zero bytes moved
             self.prefix.publish_paged(adm.lease, adm.ids, adm.pos,
                                       req._pages, req._own)
+        elif adm.lease is not None and not self.pool.stateful:
+            # attention-only models on the splice path: store the prompt's
+            # pages in one batched copy, after the first token left
+            self.prefix.publish(adm.lease, adm.ids, adm.cache, 0,
+                                kv_n=adm.pos, state_at=-1)
         if stopped or first == self.tokenizer.eos_id or req.max_new_tokens <= 1:
             req.done = True          # ended on its prefill token
             req.finish_reason = ("length" if (not stopped and
@@ -399,13 +454,18 @@ class ContinuousBatcher:
             if req.on_done:
                 req.on_done(req)
             return
-        # activation is two pointer writes: the block-table row and the
-        # slot's position
-        self._bt[slot, :] = 0
-        self._bt[slot, :len(req._pages)] = req._pages
-        self._bt_dirty = True
-        self.cache["pos"][slot] = len(adm.ids)
-        self.cache["pos_offset"][slot] = 0
+        if self.paged:
+            # activation is two pointer writes: the block-table row and the
+            # slot's position
+            self._bt[slot, :] = 0
+            self._bt[slot, :len(req._pages)] = req._pages
+            self._bt_dirty = True
+            self.cache["pos"][slot] = len(adm.ids)
+            self.cache["pos_offset"][slot] = 0
+        else:
+            # splice: the admission's used pages and whole state into the slot
+            used = min(round_up(len(adm.ids), self.page), self.max_seq)
+            self._splicer(self.cache, adm.cache, slot, used)
         self.active[slot] = req
         self._active_m[slot] = True
         self._gen[slot] = 1          # the prefill token counts
@@ -425,17 +485,25 @@ class ContinuousBatcher:
         elif not req.finish_reason:
             req.finish_reason = ("length" if self._gen[slot] >= self._maxgen[slot]
                                  else "stop")
-        # publish the decoded extension back to the tree (ownership
-        # transfer) BEFORE the owned-page sweep; KV exists for the prompt
-        # plus every output token but the last
+        # publish the decoded extension back to the tree: KV exists for the
+        # prompt plus every output token but the last. Paged: an ownership
+        # transfer, BEFORE the owned-page sweep. Splice: a store from the
+        # slot; no state snapshot exists mid-decode (state_at=-1), so a
+        # stateful node becomes resumable only once a later prefill
+        # re-crosses it at its boundary
         if req._lease is not None and req._kv_ids is not None:
             kv_n = len(req._kv_ids) + max(len(req.output_ids) - 1, 0)
-            self.prefix.publish_paged(req._lease, req._kv_ids + req.output_ids,
-                                      kv_n, req._pages, req._own)
+            if self.paged:
+                self.prefix.publish_paged(req._lease, req._kv_ids + req.output_ids,
+                                          kv_n, req._pages, req._own)
+            else:
+                self.prefix.publish(req._lease, req._kv_ids + req.output_ids,
+                                    self.cache, slot, kv_n=kv_n, state_at=-1)
         self._release_lease(req)
         self._free_pages(req)
-        self._bt[slot, :] = 0
-        self._bt_dirty = True
+        if self.paged:
+            self._bt[slot, :] = 0
+            self._bt_dirty = True
         req.flush_stop(deliver=not cancelled)
         if req.on_done:
             req.on_done(req)
@@ -448,12 +516,18 @@ class ContinuousBatcher:
                 + (self._adm is not None))
 
     def pool_stats(self):
-        return self.pool.stats()
+        """The pool's PoolStats (None when prefix caching is off)."""
+        return self.pool.stats() if self.pool is not None else None
 
     def bytes_copied_per_admission(self) -> float:
-        """Device bytes moved per admitted session by KV copies (attention
-        math excluded). The paged path re-points block tables, so 0."""
-        return self.pool.bytes_copied / max(self.admissions, 1)
+        """Device bytes moved per admitted session by splice, store and
+        load copies (attention math excluded). The paged path re-points
+        block tables, so 0; the splice path pays a slot splice plus its
+        pool stores and loads."""
+        total = self._splicer.bytes_copied
+        if self.pool is not None:
+            total += self.pool.bytes_copied
+        return total / max(self.admissions, 1)
 
     @torch.inference_mode()
     def step(self) -> int:
@@ -472,7 +546,7 @@ class ContinuousBatcher:
                 self._advance_admissions()
         if not any(r is not None for r in self.active):
             return self._in_flight()
-        if self._bt_dirty:
+        if self.paged and self._bt_dirty:
             # the block tables reach the device only when a mapping changed
             self.cache["block_tables"] = torch.from_numpy(self._bt.copy()).to(
                 self.device, non_blocking=True)

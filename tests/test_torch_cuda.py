@@ -10,7 +10,12 @@ lacks.)
 Tolerance: float32 atol 5e-5 (summation order, fast exp); bfloat16 atol
 1e-2 + rtol 1.6e-2, as in ``chip_smoke.py`` (two bf16 ulps relative, so
 one rounding difference passes at any magnitude: ``w`` is drawn from
-randn, so rmsnorm outputs reach |y| > 4, where one ulp is 0.03).
+randn, so rmsnorm outputs reach |y| > 4, where one ulp is 0.03). The SSD
+scan's float32 outputs (y in float32, and the float32 state in both
+types) are held to max abs error <= 1e-5 * max(1, max |plain|), the CPU
+tests' bound: its sums run over up to 256 steps in another order than
+the plain version's, so an element near zero may carry the rounding of
+much larger terms.
 """
 
 import pytest
@@ -22,6 +27,7 @@ from repro_torch.kernels import decode_attention as dec_k  # noqa: E402
 from repro_torch.kernels import paged_attention as pa_k  # noqa: E402
 from repro_torch.kernels import ref  # noqa: E402
 from repro_torch.kernels import rmsnorm as rms_k  # noqa: E402
+from repro_torch.kernels import ssm_scan as ssd_k  # noqa: E402
 
 
 def _card():
@@ -116,3 +122,102 @@ def test_awq_matmul_matches_plain_on_card(dtype, group):
         torch.testing.assert_close(got, want, atol=atol, rtol=rtol)
     with pytest.raises(ValueError):
         awq_k.awq_matmul(x[:, :K - 8], qw[:-1], s, z, group_size=group)
+
+
+def _ssd_close(got, want):
+    err = (got.float() - want.float()).abs().max().item()
+    assert err <= 1e-5 * max(1.0, want.float().abs().max().item()), err
+
+
+@pytest.mark.cuda
+@pytest.mark.parametrize("dtype", ["float32", "bfloat16"])
+@pytest.mark.parametrize("b,T,H,P,N,chunk,live", [
+    (2, 48, 4, 16, 16, 16, 37),          # smoke: three chunks, a padded tail
+    (2, 48, 4, 16, 16, 16, 32),          # smoke: a whole chunk of padding
+    (1, 256, 112, 64, 64, 256, 32),      # zamba2-7b: a 32-token piece in one chunk
+    (1, 512, 112, 64, 64, 256, 256),     # zamba2-7b: a whole chunk of padding
+    (1, 512, 112, 64, 64, 256, 512),     # two full chunks: the state carried
+])
+def test_ssd_matches_plain_on_card(dtype, b, T, H, P, N, chunk, live):
+    """The Hopper SSD kernel against its plain version, from zero state
+    and from h0; padded steps (dt = 0) must leave the state unchanged."""
+    _card()
+    dt_ = getattr(torch, dtype)
+    g = torch.Generator(device="cuda").manual_seed(3)
+    x = torch.randn((b, T, H, P), generator=g, device="cuda").to(dt_)
+    dt = 1e-3 + 0.1 * torch.rand((b, T, H), generator=g, device="cuda")
+    dt[:, live:] = 0.0
+    A = -(1.0 + 15.0 * torch.rand(H, generator=g, device="cuda"))
+    B = torch.randn((b, T, N), generator=g, device="cuda").to(dt_)
+    C = torch.randn((b, T, N), generator=g, device="cuda").to(dt_)
+    D = torch.randn(H, generator=g, device="cuda")
+    h0 = torch.randn((b, H, P, N), generator=g, device="cuda")
+    for h in (None, h0):
+        before = ssd_k.launches
+        y, hf = ssd_k.ssd(x, dt, A, B, C, D, chunk=chunk, h0=h)
+        torch.cuda.synchronize()
+        assert ssd_k.launches == before + 1
+        yp, hp = ssd_k.plain(x, dt, A, B, C, D, chunk=chunk, h0=h)
+        assert y.dtype == dt_ and hf.dtype == torch.float32
+        if dtype == "float32":
+            _ssd_close(y, yp)
+        else:
+            torch.testing.assert_close(y, yp, atol=1e-2, rtol=1.6e-2)
+        _ssd_close(hf, hp)
+    if live < T:
+        # what the padded steps hold leaves the state and the live y alone
+        x2, B2, C2 = x.clone(), B.clone(), C.clone()
+        for a in (x2, B2, C2):
+            a[:, live:] = torch.randn(a[:, live:].shape, generator=g, device="cuda").to(dt_)
+        y2, h2 = ssd_k.ssd(x2, dt, A, B2, C2, D, chunk=chunk, h0=h0)
+        _ssd_close(h2, hf)
+        _ssd_close(y2[:, :live].float(), y[:, :live].float())
+    if live < T and live % chunk == 0:
+        # padding leaves the state where the unpadded steps left it
+        _, h_live = ssd_k.ssd(x[:, :live].contiguous(), dt[:, :live].contiguous(), A,
+                              B[:, :live].contiguous(), C[:, :live].contiguous(), D,
+                              chunk=chunk, h0=h0)
+        _ssd_close(hf, h_live)
+    with pytest.raises(TypeError):
+        ssd_k.ssd(x, dt.to(dt_ if dtype == "bfloat16" else torch.float16), A, B, C, D,
+                  chunk=chunk)
+
+
+@pytest.mark.cuda
+@pytest.mark.parametrize("P,N,chunk", [(32, 32, 16), (64, 64, 1024)])
+def test_ssd_refuses_a_shape_it_does_not_take_on_card(P, N, chunk):
+    """A (P, N) the kernel is not built for, or a chunk past a block's
+    shared memory, raises from the launch and counts no launch."""
+    _card()
+    b, T, H = 1, chunk, 2
+    x = torch.randn((b, T, H, P), device="cuda")
+    dt = torch.full((b, T, H), 0.01, device="cuda")
+    A, D = -torch.ones(H, device="cuda"), torch.ones(H, device="cuda")
+    B = C = torch.randn((b, T, N), device="cuda")
+    before = ssd_k.launches
+    with pytest.raises(RuntimeError, match="built for"):
+        ssd_k.ssd(x, dt, A, B, C, D, chunk=chunk)
+    assert ssd_k.launches == before
+
+
+@pytest.mark.cuda
+@pytest.mark.parametrize("dtype", ["float32", "bfloat16"])
+def test_zamba2_width_attention_and_rmsnorm_on_card(dtype):
+    """zamba2-7b's shapes: the shared block's decode attention (32 heads
+    of D = 112, one query head per kv head, ragged kv_len) and rmsnorm at
+    width 3584."""
+    _card()
+    dt = getattr(torch, dtype)
+    atol, rtol = _tol(dtype)
+    g = torch.Generator(device="cuda").manual_seed(4)
+
+    def rn(*s):
+        return torch.randn(s, generator=g, device="cuda").to(dt)
+
+    q, k, v = rn(8, 32, 1, 112), rn(8, 32, 256, 112), rn(8, 32, 256, 112)
+    kl = torch.tensor([1, 5, 16, 17, 100, 128, 255, 256], dtype=torch.int32,
+                      device="cuda")
+    torch.testing.assert_close(dec_k.decode_attention(q, k, v, kv_len=kl),
+                               dec_k.plain(q, k, v, kv_len=kl), atol=atol, rtol=rtol)
+    x, w = rn(8, 1, 3584), 1 + 0.1 * rn(3584)
+    torch.testing.assert_close(rms_k.rmsnorm(x, w), rms_k.plain(x, w), atol=atol, rtol=rtol)

@@ -37,7 +37,9 @@ def test_importing_the_port_loads_no_jax():
     code = ("import sys, repro_torch.core, repro_torch.serving, repro_torch.models, "
             "repro_torch.kernels.ops, repro_torch.kernels.rmsnorm, "
             "repro_torch.kernels.paged_attention, repro_torch.kernels.decode_attention, "
-            "repro_torch.kernels.awq_matmul, repro_torch.serving.quantize, "
+            "repro_torch.kernels.awq_matmul, repro_torch.kernels.ssm_scan, "
+            "repro_torch.models.ssm, repro_torch.configs.zamba2_7b, "
+            "repro_torch.serving.quantize, "
             "repro_torch.serving.prng, repro_torch.launch.serve; "
             "bad = sorted(m for m in sys.modules if m.split('.')[0] in "
             "('jax', 'jaxlib', 'repro')); print(bad); assert not bad")
@@ -60,4 +62,6 @@ def test_entry_points_need_a_card_unless_asked_for_cpu(monkeypatch):
         build_system()
     with pytest.raises(RuntimeError, match="no CUDA device"):
         build_system(kv_dtype="int8", quantize_mlp=True)
+    with pytest.raises(RuntimeError, match="no CUDA device"):
+        build_system(hpc_arch="zamba2-7b")
     assert ServingEngine(cfg, device="cpu", max_seq=32).device.type == "cpu"

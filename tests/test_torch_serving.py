@@ -17,6 +17,7 @@ from repro.serving import ServingEngine as RefEngine  # noqa: E402
 from repro.serving.pagepool import chunk_plan as ref_chunk_plan  # noqa: E402
 from repro.serving.scheduler import clip_prompt as ref_clip_prompt  # noqa: E402
 from repro_torch.configs import get_smoke_config  # noqa: E402
+from repro_torch.models import layers  # noqa: E402
 from repro_torch.models.interop import params_from_numpy  # noqa: E402
 from repro_torch.serving import (TRASH_PAGE, ContinuousBatcher, GenerationParams,  # noqa: E402
                                  Request, SamplerConfig, ServingEngine, chunk_plan)
@@ -129,11 +130,25 @@ def test_free_guards(engines):
 
 
 def test_unported_paths_refuse(engines):
+    """Unaligned max_seq and prefix_pages=0 take the contiguous splice
+    path (tests/test_torch_contiguous.py); what is still unported -- the
+    whole-prompt prefill that needs flash_attention, the paged verify
+    window of speculative decoding -- refuses."""
     _, port = engines
-    with pytest.raises(NotImplementedError, match="contiguous splice"):
-        ContinuousBatcher(port, slots=2, max_seq=90, prefix_pages=32)
-    with pytest.raises(NotImplementedError, match="contiguous splice"):
-        ContinuousBatcher(port, slots=2, max_seq=96, prefix_pages=0)
+    assert not ContinuousBatcher(port, slots=2, max_seq=90, prefix_pages=32).paged
+    assert not ContinuousBatcher(port, slots=2, max_seq=96, prefix_pages=0).paged
+    cfg, p = port.cfg, port.params["blocks"]
+    attn = {k: v[0] for k, v in p["attn"].items()}
+    x = torch.zeros((1, 4, cfg.d_model))
+    kv = torch.zeros((1, cfg.n_kv_heads, 16, cfg.head_dim))
+    with pytest.raises(NotImplementedError, match="flash_attention"):
+        layers.attention(x, attn, cfg, positions=torch.arange(4), cache=(kv, kv),
+                         cache_index=0)
+    pages = torch.zeros((3, cfg.n_kv_heads, 16, cfg.head_dim))
+    with pytest.raises(NotImplementedError, match="speculative verify"):
+        layers.attention(x, attn, cfg, positions=torch.arange(4), cache=(pages, pages),
+                         cache_index=torch.zeros(1, dtype=torch.int32),
+                         block_tables=torch.ones((1, 2), dtype=torch.int32))
     with pytest.raises(ValueError, match="kv_dtype must be one of"):
         ContinuousBatcher(ServingEngine(port.cfg, params=port.params, max_seq=96,
                                         device="cpu", kv_dtype="int4"), slots=2)
