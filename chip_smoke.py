@@ -36,7 +36,24 @@ Phases, each of which fails the run when it fails:
      contiguous splice path with a 32-page stateful prefix pool; the
      counters of ssd, decode_attention and rmsnorm, zeroed just before,
      must grow; then its breakdown, and the three paths' figures side by
-     side.
+     side;
+  7. training path: once the hybrid system is freed, minitron-8b at full
+     width cut to 4 of its 32 layers (float32 params, bf16 compute, remat)
+     trains 6 steps of the synthetic stream (batch 2 x seq 1024) through
+     make_train_step with the driver's AdamW schedule at a peak lr of 2e-5,
+     the last step under the profiler; losses finite and falling, the counters of
+     flash_attention and rmsnorm, zeroed just before, must grow;
+  8. the training driver (python -m repro_torch.launch.train --smoke
+     --device cuda): 6 steps with a checkpoint every 3, then again to 8,
+     which must resume at step 6 with the data stream where it stopped.
+The kernel phase also holds flash_attention against its plain version at
+the training shape (2, 32/8, 1023, 128), the prefill shape, an offset
+(Skv > Sq), a non-causal, a soft-cap and a D = 112 case, and its gradient
+(plain recompute) against plain autograd; it times forward and backward
+beside SDPA's. The reference phase also trains a small float32 minitron 3
+steps on card and CPU (losses and params must agree). The dense path,
+before it is freed, holds the whole-prompt prefill (flash_attention)
+against the chunked one over a 250-token prompt.
 Every breakdown profiles one B=8 decode step and one 16-token prefill
 piece of the model alone. The kernel phase also holds ssd (the Mamba-2
 chunked scan) against its plain version at the smoke chunk (16, float32,
@@ -45,7 +62,8 @@ live steps, and T = 512, bf16, with h0), decode attention at zamba2's
 shared block (B = 8, 32/32 heads of D = 112) and rmsnorm at width 3584;
 the reference phase also serves a small float32 zamba2 on card and CPU.
 In the kernels JSON, ``launches`` is a kernel's count summed over the
-three main paths (each zeroed just before its path and read just after).
+three serving paths and the training path (each zeroed just before its
+path and read just after).
 The line before the last is the kernels JSON; the last line is
 {"ok": true, "device": {...}}. Exits nonzero with no result line when
 no CUDA device is present or the port's sources are missing.
@@ -53,9 +71,11 @@ no CUDA device is present or the port's sources are missing.
 
 from __future__ import annotations
 
+import contextlib
 import gc
 import json
 import math
+import os
 import subprocess
 import sys
 import threading
@@ -97,8 +117,33 @@ KERNELS = {
                    "src/repro/kernels/awq_matmul.py:52"),
     "ssd": ("src/repro_torch/kernels/csrc/ssd.cu",
             "src/repro/kernels/ssm_scan.py:72"),
+    "flash_attention": ("src/repro_torch/kernels/csrc/flash_attention.cu",
+                        "src/repro/kernels/flash_attention.py:81"),
 }
 SSD_REL = 1e-5     # ssd's float32 outputs: max abs err <= SSD_REL * max(1, max |plain|)
+# flash_attention at (B, Hq, Hkv, Sq, Skv, D, causal, cap): the training
+# shape first (minitron-8b heads, T = seq - 1 = 1023), whole-prompt
+# prefill, the offset diagonal (Skv > Sq), non-causal, soft cap, zamba2's
+# D = 112 and the smoke config's training shape
+FLASH_SHAPES = ((2, 32, 8, 1023, 1023, 128, True, 0.0), (1, 32, 8, 250, 250, 128, True, 0.0),
+                (1, 32, 8, 100, 250, 128, True, 0.0), (2, 32, 8, 130, 200, 128, False, 0.0),
+                (1, 32, 8, 300, 300, 128, True, 30.0), (1, 32, 32, 250, 250, 112, True, 0.0),
+                (2, 4, 2, 63, 63, 16, True, 0.0))
+# training: full-width minitron-8b cut to 4 of its 32 layers (float32
+# params, bf16 compute), batch 2 x seq 1024, the driver's AdamW schedule
+# (warmup 5, decay over 10) at a peak lr for this width: at the driver's
+# 1e-3 (set for the smoke widths) Adam's sign-like first steps move every
+# 4096-wide matrix's output by O(1) and the loss climbs (13.15 -> 16.19
+# over 6 steps on the card), so the peak is 2e-5
+TRAIN_LAYERS, TRAIN_BATCH, TRAIN_SEQ, TRAIN_STEPS = 4, 2, 1024, 6
+TRAIN_OC = dict(lr=2e-5, warmup_steps=5, decay_steps=10)
+# card-vs-CPU training of the small float32 model: losses within
+# TRAIN_LOSS_ATOL; each param within TRAIN_PARAM_ATOL + steps * lr *
+# min(2, TRAIN_G_TOL / (sqrt(vh) + eps)), vh the CPU run's bias-corrected
+# second moment: Adam turns a gradient error dg into a step error of
+# about lr * dg / (sqrt(vh) + eps) (tests/test_torch_training.py)
+TRAIN_LOSS_ATOL, TRAIN_PARAM_ATOL, TRAIN_G_TOL = 1e-4, 1e-5, 1e-6
+PREFILL_E2E_REL = 0.05     # end-to-end prefill vs chunked: share of max |logit|
 
 
 def log(*a):
@@ -458,6 +503,8 @@ def kernel_phase(torch, timer):
             log(f"time {what} bf16 with h0: {flops / 1e9:.3f} GFLOP (float32), "
                 f"{nbytes / 1e6:.2f} MB")
 
+    flash_phase(torch, timer, rows, randn)
+
     for (name, dname), errs in sorted((k, v) for k, v in rows.items()
                                       if isinstance(k, tuple)):
         tol = (f"atol {TOL[dname][0]} + rtol {TOL[dname][1]}"
@@ -470,6 +517,58 @@ def kernel_phase(torch, timer):
         log(f"time {name:21s} bf16 kernel {r['ms']:.4f} ms  plain {r['plain_ms']:.4f} ms"
             f"  library {lib}  bound {r['bound_ms']:.5f} ms ({r['bound_by']})")
     return rows
+
+
+def flash_phase(torch, timer, rows, randn):
+    """flash_attention against its plain version at FLASH_SHAPES in both
+    types; at the training shape (bf16) the forward timed beside SDPA and
+    the gradient (autograd.Function: plain recompute) beside SDPA's."""
+    import torch.nn.functional as F
+    from repro_torch.kernels import flash_attention as fa_k
+    for dname in ("float32", "bfloat16"):
+        dt = getattr(torch, dname)
+        for (b, hq, hkv, sq, skv, d, causal, cap) in FLASH_SHAPES:
+            q, k, v = randn(b, hq, sq, d, dtype=dt), randn(b, hkv, skv, d, dtype=dt), \
+                randn(b, hkv, skv, d, dtype=dt)
+            rows.setdefault(("flash_attention", dname), []).append(check_close(
+                f"flash_attention {(b, hq, hkv, sq, skv, d)} causal={causal} cap={cap}",
+                fa_k.flash_attention(q, k, v, causal=causal, logit_soft_cap=cap),
+                fa_k.plain(q, k, v, causal=causal, logit_soft_cap=cap), dname))
+    b, hq, hkv, sq, skv, d, _, _ = FLASH_SHAPES[0]
+    dt = torch.bfloat16
+    q, k, v = randn(b, hq, sq, d, dtype=dt), randn(b, hkv, skv, d, dtype=dt), \
+        randn(b, hkv, skv, d, dtype=dt)
+    t_k = timer.ms(lambda: fa_k.flash_attention(q, k, v))
+    t_p = timer.ms(lambda: fa_k.plain(q, k, v), n=20)
+    t_l = timer.ms(lambda: F.scaled_dot_product_attention(q, k, v, is_causal=True,
+                                                          enable_gqa=True))
+    off = skv - sq
+    pairs = sum(min(skv, off + i + 1) for i in range(sq))        # visible (query, key)
+    nbytes = (2 * q.numel() + k.numel() + v.numel()) * q.element_size()
+    bms, by = bound_ms(nbytes, 4 * b * hq * d * pairs, "bfloat16")
+    rows["flash_attention"] = dict(ms=t_k, plain_ms=t_p, library_ms=t_l,
+                                   bound_ms=bms, bound_by=by)
+    # the gradient at the training shape: equal to plain autograd, then timed
+    qg, kg, vg = (t.clone().requires_grad_() for t in (q, k, v))
+    go = randn(b, hq, sq, d, dtype=dt)
+    out = fa_k.flash_attention(qg, kg, vg)
+    got = torch.autograd.grad(out, (qg, kg, vg), go, retain_graph=True)
+    want = torch.autograd.grad(fa_k.plain(qg, kg, vg), (qg, kg, vg), go)
+    for name, a, w in zip("qkv", got, want):
+        rows[("flash_attention", "bfloat16")].append(check_close(
+            f"flash_attention grad d{name} at the training shape", a, w, "bfloat16"))
+    sdpa = F.scaled_dot_product_attention(qg, kg, vg, is_causal=True, enable_gqa=True)
+    t_bk = timer.ms(lambda: torch.autograd.grad(out, (qg, kg, vg), go, retain_graph=True),
+                    n=20)
+    t_bl = timer.ms(lambda: torch.autograd.grad(sdpa, (qg, kg, vg), go, retain_graph=True),
+                    n=20)
+    rows["flash_attention_bwd"] = dict(ms=t_bk, library_ms=t_bl)
+    log(f"time flash_attention {(b, hq, hkv, sq, skv, d)} bf16 causal: {pairs} visible "
+        f"(query, key) pairs a head, {4 * b * hq * d * pairs / 1e9:.2f} GFLOP, "
+        f"{nbytes / 1e6:.1f} MB; forward kernel {t_k:.4f} ms, plain {t_p:.4f} ms, SDPA "
+        f"{t_l:.4f} ms, bound {bms:.5f} ms ({by}); backward (autograd.Function: plain "
+        f"recompute) {t_bk:.4f} ms, SDPA's backward {t_bl:.4f} ms")
+    del out, sdpa, got, want
 
 
 # ---------------------------------------------------------------- reference
@@ -543,12 +642,238 @@ def reference_phase(torch):
         f"{b.bytes_copied_per_admission():.0f} B copied per admission)")
 
 
+def training_reference_phase(torch):
+    """The small float32 minitron trains TRAIN_STEPS // 2 steps on the card
+    (kernels) and on the CPU (plain versions) from the same weights and
+    batches: losses and params must agree."""
+    import numpy as np
+    from repro_torch.configs import get_smoke_config
+    from repro_torch.kernels import flash_attention as fa_k
+    from repro_torch.kernels import rmsnorm as rms_k
+    from repro_torch.models import build_model
+    from repro_torch.models.common import flatten, tree_map
+    from repro_torch.training import (AdamWConfig, SyntheticLMData, adamw_init,
+                                      make_train_step)
+
+    cfg = get_smoke_config("minitron-8b").replace(vocab_size=300, vocab_pad_to=64,
+                                                  compute_dtype="float32")
+    model = build_model(cfg)
+    oc = AdamWConfig(lr=1e-3, warmup_steps=5, decay_steps=10)     # the driver's defaults
+    gpu = model.init(0, "cuda")
+    cpu = tree_map(lambda t: t.to("cpu", copy=True), gpu)     # the step updates in place
+    runs = {}
+    n_fa, n_rms = fa_k.launches, rms_k.launches
+    for name, params in (("card", gpu), ("cpu", cpu)):
+        data = SyntheticLMData(cfg.vocab_size, 2, 64, seed=0)         # T = 63: ragged
+        step = make_train_step(model, oc)
+        opt, losses = adamw_init(params), []
+        dev = flatten(params)[0][1].device
+        for _ in range(3):
+            params, opt, m = step(params, opt,
+                                  {"tokens": torch.from_numpy(data.next()["tokens"]).to(dev)})
+            losses.append(float(m["loss"]))
+        runs[name] = (params, opt, losses)
+    if fa_k.launches == n_fa or rms_k.launches == n_rms:
+        raise AssertionError("reference training did not launch flash_attention and rmsnorm")
+    (pg, _, lg), (pc, oc_cpu, lc) = runs["card"], runs["cpu"]
+    if not np.allclose(lg, lc, atol=TRAIN_LOSS_ATOL, rtol=0):
+        raise AssertionError(f"training losses differ card vs CPU: {lg} vs {lc}")
+    worst, beyond, n_w = 0.0, 0, 0
+    for (path, a), (_, b), (_, nu) in zip(flatten(pg), flatten(pc), flatten(oc_cpu["nu"])):
+        err = (a.cpu() - b).abs()
+        vh = nu / (1 - oc.b2 ** 3)
+        lim = TRAIN_PARAM_ATOL + 3 * oc.lr * torch.clamp(
+            TRAIN_G_TOL / (vh.sqrt() + oc.eps), max=2.0)
+        if bool((err > lim).any()):
+            raise AssertionError(f"{'/'.join(path)}: card vs CPU params differ by up to "
+                                 f"{(err - lim).max().item():.3e} beyond their bound")
+        worst = max(worst, err.max().item())
+        beyond += int((err > TRAIN_PARAM_ATOL).sum())
+        n_w += err.numel()
+    log(f"reference: small float32 minitron trained 3 steps (batch 2 x seq 64, T = 63) "
+        f"on card and CPU: losses {[round(x, 6) for x in lg]} vs "
+        f"{[round(x, 6) for x in lc]}; params max abs diff {worst:.3e}, {beyond} of "
+        f"{n_w} weights beyond {TRAIN_PARAM_ATOL} (within lr * {TRAIN_G_TOL} / "
+        f"(sqrt(vh) + eps) a step)")
+
+
+def prefill_check(torch, hpc):
+    """On the full-width dense system, a 250-token prompt through the
+    whole-prompt prefill branch (flash_attention) and the chunked one
+    (the plain chunk attention):
+      * layer by layer from the same residual input (the chunked path's):
+        each block's output within the bf16 tolerance, element by
+        element, and the K/V each branch writes bit-equal;
+      * end to end, model.prefill against model.prefill_chunk: finite
+        logits, pos = 250, one kernel launch a layer, and the last logits
+        within PREFILL_E2E_REL of max |logit| (the greedy token is
+        reported: a random model's top two logits may sit closer). Two
+        valid bf16 computations drift apart through 32 random layers by
+        a few bf16 ulps of the largest logit, about the size of the
+        element-wise bf16 tolerance, which is why that tolerance is held
+        per layer; a masking fault moves the logits by O(their spread).
+    """
+    from repro_torch.kernels import flash_attention as fa_k
+    from repro_torch.models import layers
+    from repro_torch.models.lm import _layer
+    model, params, cfg = hpc.model, hpc.params, hpc.cfg
+    n = 250
+    g = torch.Generator(device=hpc.device).manual_seed(0)
+    toks = torch.randint(0, cfg.vocab_size, (1, n), generator=g, device=hpc.device)
+    atol, rtol = TOL["bfloat16"]
+    with torch.inference_mode():
+        whole = model.init_cache(1, MAX_SEQ, hpc.device)
+        chunk = model.init_cache(1, MAX_SEQ, hpc.device)
+        x = layers.embed(toks, params["embed"], cfg)
+        positions = torch.arange(n, device=hpc.device)
+        worst = 0.0
+        for i in range(cfg.n_layers):
+            bp = _layer(params["blocks"], i)
+            yw = model._block(x, bp, positions=positions, cache_index=0,
+                              cache=(whole["k"][i], whole["v"][i]))
+            yc = model._block(x, bp, positions=positions, cache_index=0, chunked=True,
+                              cache=(chunk["k"][i], chunk["v"][i]))
+            worst = max(worst, check_close(f"prefill layer {i}", yw, yc, "bfloat16"))
+            x = yc
+        for key in ("k", "v"):
+            if not torch.equal(whole[key], chunk[key]):
+                raise AssertionError(f"prefill branches wrote different {key} caches")
+        del whole, chunk, x, yw, yc
+        out, ms = {}, {}
+        before = fa_k.launches
+        for name in ("prefill", "prefill_chunk"):
+            cache = model.init_cache(1, MAX_SEQ, hpc.device)
+            torch.cuda.synchronize()
+            t0 = time.perf_counter()
+            out[name] = getattr(model, name)(params, toks, cache)
+            torch.cuda.synchronize()
+            ms[name] = (time.perf_counter() - t0) * 1e3
+        launched = fa_k.launches - before
+    (lw, cw), (lc, cc) = out["prefill"], out["prefill_chunk"]
+    top = lc.float().abs().max().item()
+    err = (lw - lc).float().abs().max().item()
+    kv_err = max((cw[k] - cc[k]).float().abs().max().item() for k in ("k", "v"))
+    same_token = bool((lw.argmax(-1) == lc.argmax(-1)).all())
+    if (launched != cfg.n_layers or cw["pos"] != n or not bool(lw.isfinite().all())
+            or not err <= PREFILL_E2E_REL * top):
+        raise AssertionError(f"whole-prompt prefill vs chunked: {launched} launches, pos "
+                             f"{cw['pos']}, same greedy token {same_token}, last-logit "
+                             f"max abs diff {err:.4e} (bound {PREFILL_E2E_REL * top:.4e})")
+    log(f"dense path prefill check: {n} tokens, {cfg.n_layers} layers; layer by layer "
+        f"from one input: block outputs max abs diff {worst:.3e} (bf16 atol {atol} + rtol "
+        f"{rtol}), K/V caches bit-equal; end to end: prefill ({launched} flash_attention "
+        f"launches, {ms['prefill']:.1f} ms) vs prefill_chunk ({ms['prefill_chunk']:.1f} "
+        f"ms): same greedy token {same_token}, last logits max abs diff {err:.4e} (bound "
+        f"{PREFILL_E2E_REL} x max |logit| {top:.3f} = {PREFILL_E2E_REL * top:.4e}; the "
+        f"bf16 tolerance of max |logit| would be {atol + rtol * top:.4e}), K/V max abs "
+        f"diff {kv_err:.4e}")
+
+
+def training_phase(torch):
+    """Full-width minitron-8b cut to TRAIN_LAYERS layers trains TRAIN_STEPS
+    steps of the synthetic stream through make_train_step; the last step
+    runs under the profiler. Returns the kernel launches of the path."""
+    import numpy as np
+    from torch.profiler import ProfilerActivity, profile
+    from repro_torch.configs import get_config
+    from repro_torch.models import build_model
+    from repro_torch.models.common import flatten
+    from repro_torch.training import AdamWConfig, SyntheticLMData, make_train_step
+    from repro_torch.training.train import init_train_state
+
+    cfg = get_config("minitron-8b", n_layers=TRAIN_LAYERS)
+    model = build_model(cfg)
+    torch.cuda.reset_peak_memory_stats()
+    params, opt = init_train_state(model, 0, "cuda")
+    n_params = sum(t.numel() for _, t in flatten(params))
+    state_gb = torch.cuda.memory_allocated() / 1e9
+    step = make_train_step(model, AdamWConfig(**TRAIN_OC))
+    data = SyntheticLMData(cfg.vocab_size, TRAIN_BATCH, TRAIN_SEQ)
+    for mod, attr in counters().values():
+        setattr(mod, attr, 0)
+    losses, walls = [], []
+    for i in range(TRAIN_STEPS):
+        batch = {"tokens": torch.from_numpy(data.next()["tokens"]).cuda()}
+        torch.cuda.synchronize()
+        with (profile(activities=[ProfilerActivity.CPU, ProfilerActivity.CUDA])
+              if i == TRAIN_STEPS - 1 else contextlib.nullcontext()) as prof:
+            t0 = time.perf_counter()
+            params, opt, m = step(params, opt, batch)
+            losses.append(float(m["loss"]))
+            torch.cuda.synchronize()
+            walls.append((time.perf_counter() - t0) * 1e3)
+        log(f"training step {i + 1}: loss {losses[-1]:.4f} grad_norm "
+            f"{float(m['grad_norm']):.3f} lr {float(m['lr']):.2e} wall {walls[-1]:.1f} ms"
+            + (" (profiled)" if i == TRAIN_STEPS - 1 else ""))
+    launches = {name: getattr(mod, attr) for name, (mod, attr) in counters().items()}
+    peak = torch.cuda.max_memory_allocated()
+    evs = [e for e in prof.key_averages() if getattr(e, "device_type", None) is not None
+           and str(e.device_type).endswith("CUDA")]
+    dev_ms = sum(getattr(e, "self_device_time_total", 0) for e in evs) / 1e3
+    top = sorted(evs, key=lambda e: -getattr(e, "self_device_time_total", 0))[:10]
+    if not (all(np.isfinite(losses)) and losses[-1] < losses[0]):
+        raise AssertionError(f"training losses {losses}: not finite, or not falling")
+    for name in ("flash_attention", "rmsnorm"):
+        if launches[name] <= 0:
+            raise AssertionError(f"training path: kernel {name} was not launched")
+    steady = sorted(walls[1:-1])[len(walls[1:-1]) // 2]
+    tokens = TRAIN_BATCH * TRAIN_SEQ
+    log(f"training path: minitron-8b at full width cut to {TRAIN_LAYERS} of 32 layers, "
+        f"{n_params / 1e9:.3f} B params (float32, bf16 compute, remat), "
+        f"{state_gb:.2f} GB of params and moments; batch {TRAIN_BATCH} x seq {TRAIN_SEQ}, "
+        f"AdamW peak lr {TRAIN_OC['lr']} warmup {TRAIN_OC['warmup_steps']}: losses "
+        f"{[round(x, 4) for x in losses]}; step wall median {steady:.1f} ms over steps "
+        f"2-{TRAIN_STEPS - 1} (first {walls[0]:.1f} ms), {tokens / steady * 1e3:.0f} tokens/s; "
+        f"profiled step {walls[-1]:.1f} ms wall, {dev_ms:.1f} ms device -> busy "
+        f"{dev_ms / walls[-1] * 100:.0f}%; peak device memory {peak / 2**30:.2f} GiB "
+        f"({peak / 1e9:.2f} GB)")
+    for e in top:
+        log(f"  {getattr(e, 'self_device_time_total', 0) / 1e3:8.3f} ms "
+            f"{e.count:5d} calls  {e.key[:90]}")
+    log(f"training path launches: {json.dumps(launches)}")
+    del params, opt, m, batch, prof
+    gc.collect()
+    torch.cuda.empty_cache()
+    return launches, dict(step_ms=steady, tok_s=tokens / steady * 1e3, dev_ms=dev_ms,
+                          busy=dev_ms / walls[-1], peak_gib=peak / 2**30, losses=losses)
+
+
+def driver_phase(torch):
+    """The training driver on the card: 6 steps with a checkpoint every 3,
+    then again to 8, which must resume at step 6 with the data stream
+    where it stopped."""
+    import shutil
+    ckpt = ROOT / "build" / "train_ckpt"
+    shutil.rmtree(ckpt, ignore_errors=True)
+    env = dict(os.environ, PYTHONPATH=str(ROOT / "src"))
+    outs = []
+    for steps in (6, 8):
+        t0 = time.perf_counter()
+        p = subprocess.run([sys.executable, "-m", "repro_torch.launch.train", "--smoke",
+                            "--device", "cuda", "--steps", str(steps), "--ckpt-every", "3",
+                            "--ckpt-dir", str(ckpt)], cwd=ROOT, env=env,
+                           capture_output=True, text=True, timeout=600)
+        if p.returncode != 0:
+            raise AssertionError(f"launch.train --steps {steps} failed:\n{p.stdout}\n{p.stderr}")
+        outs.append(p.stdout)
+        log(f"driver --steps {steps} ({time.perf_counter() - t0:.1f} s): "
+            + " | ".join(p.stdout.strip().splitlines()))
+    man = json.loads((ckpt / "step_000000008" / "MANIFEST.json").read_text())
+    if ("resumed from checkpoint step 6" not in outs[1] or "resumed" in outs[0]
+            or man["aux"]["data"]["step"] != 8
+            or not (ckpt / "step_000000006" / "MANIFEST.json").exists()):
+        raise AssertionError(f"the driver did not resume at step 6: {outs[1]!r}, "
+                             f"manifest aux {man['aux']}")
+    shutil.rmtree(ckpt, ignore_errors=True)
+
+
 # ---------------------------------------------------------------- main path
 def counters():
     """kernel -> (module, counter attribute) of its wrapper's launch count."""
-    from repro_torch.kernels import (awq_matmul, decode_attention, paged_attention,
-                                     rmsnorm, ssm_scan)
+    from repro_torch.kernels import (awq_matmul, decode_attention, flash_attention,
+                                     paged_attention, rmsnorm, ssm_scan)
     return {"rmsnorm": (rmsnorm, "launches"),
+            "flash_attention": (flash_attention, "launches"),
             "paged_attention": (paged_attention, "launches"),
             "paged_attention_quant": (paged_attention, "launches_quant"),
             "decode_attention": (decode_attention, "launches"),
@@ -836,6 +1161,7 @@ def main() -> int:
     timer = Timer(torch)
     rows = kernel_phase(torch, timer)
     reference_phase(torch)
+    training_reference_phase(torch)
 
     paths = {}
     for label, must, kw in (
@@ -846,6 +1172,8 @@ def main() -> int:
              dict(hpc_arch="zamba2-7b", hpc_overrides=ZAMBA_FULL,
                   prefix_cache_pages=ZAMBA_POOL_PAGES))):
         launches, stats, sys_ = main_path_phase(torch, f"{label} path", must, **kw)
+        if label == "dense":
+            prefill_check(torch, sys_.engines["hpc"])
         held = torch.cuda.memory_allocated()
         stats.update(breakdown_phase(torch, f"{label} path", sys_))
         paths[label] = (launches, stats)
@@ -859,6 +1187,9 @@ def main() -> int:
                                  f"GiB -> {freed / 2**30:.2f} GiB allocated")
         log(f"{label} system freed: {held / 2**30:.2f} GiB -> {freed / 2**30:.2f} GiB "
             f"allocated")
+
+    train_launches, train = training_phase(torch)
+    driver_phase(torch)
 
     log(f"{card}: dense bf16 minitron-8b | int8 pages + W4A16 (group 64) minitron-8b | "
         f"bf16 zamba2-7b (splice path), the same 4 + 1 requests")
@@ -888,12 +1219,20 @@ def main() -> int:
         r = rows[name]
         kernels.append({"name": name, "route": "cuda", "source": src,
                         "replaces": replaces,
-                        "launches": sum(l[name] for l, _ in paths.values()),
+                        "launches": sum(l[name] for l, _ in paths.values())
+                        + train_launches[name],
                         "max_abs_err": r["max_abs_err"], "ms": r["ms"],
                         "plain_ms": r["plain_ms"], "bound_ms": r["bound_ms"],
                         "bound_by": r["bound_by"], "library_ms": r["library_ms"]})
-    if not all(math.isfinite(k["ms"]) for k in kernels):
-        raise AssertionError("a kernel time is not finite")
+    log(f"{card}: training path (minitron-8b, {TRAIN_LAYERS} layers, batch {TRAIN_BATCH} x "
+        f"seq {TRAIN_SEQ}): step {train['step_ms']:.1f} ms, {train['tok_s']:.0f} tokens/s, "
+        f"device {train['dev_ms']:.1f} ms, busy {train['busy'] * 100:.0f}%, peak "
+        f"{train['peak_gib']:.2f} GiB; flash_attention backward at the training shape "
+        f"{rows['flash_attention_bwd']['ms']:.4f} ms (SDPA's "
+        f"{rows['flash_attention_bwd']['library_ms']:.4f} ms)")
+    if not all(math.isfinite(k[key]) for k in kernels
+               for key in ("ms", "plain_ms", "bound_ms", "max_abs_err")):
+        raise AssertionError("a kernel figure is not finite")
     print(json.dumps({"kernels": kernels}))
     print(json.dumps({"ok": True, "device": {
         "platform": "gpu", "kind": torch.cuda.get_device_name(0),

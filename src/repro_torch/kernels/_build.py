@@ -19,9 +19,11 @@ import subprocess
 import threading
 from pathlib import Path
 
+import torch
+
 CSRC = Path(__file__).resolve().parent / "csrc"
 BUILD_DIR = Path(__file__).resolve().parents[3] / "build" / "kernels"
-SOURCES = ("attention", "awq_matmul", "rmsnorm", "ssd")
+SOURCES = ("attention", "awq_matmul", "flash_attention", "rmsnorm", "ssd")
 NVCC_FLAGS = ("-gencode", "arch=compute_90a,code=sm_90a", "-std=c++17", "-O3",
               "-shared", "-Xcompiler", "-fPIC")
 
@@ -93,6 +95,29 @@ def check(err: int, what: str):
     """Raise on a nonzero ``cudaError_t`` returned by a launch."""
     if err != 0:
         raise RuntimeError(f"{what}: CUDA launch failed with cudaError_t {err}")
+
+
+def refuse_grad(name: str, *tensors):
+    """Raise where autograd would record a kernel that has no gradient:
+    its output would have no ``grad_fn`` and cut the graph silently."""
+    if torch.is_grad_enabled() and any(
+            t is not None and t.requires_grad for t in tensors):
+        raise RuntimeError(f"{name} kernel has no gradient: call it under "
+                           "torch.no_grad() or on inputs that do not require grad")
+
+
+def plain_backward(ctx, g, plain, n_args: int):
+    """The backward of an ``autograd.Function`` whose forward is a kernel
+    and whose gradient is autograd of the kernel's plain version: recompute
+    ``plain`` on the saved tensors (``ctx.args`` its keyword arguments) and
+    return the gradients of those that need one, then None for the
+    ``n_args`` non-tensor arguments of ``forward``."""
+    with torch.enable_grad():
+        ins = [t.detach().requires_grad_(need)
+               for t, need in zip(ctx.saved_tensors, ctx.needs_input_grad)]
+        want = [t for t in ins if t.requires_grad]
+        got = iter(torch.autograd.grad(plain(*ins, **ctx.args), want, g))
+    return tuple(next(got) if t.requires_grad else None for t in ins) + (None,) * n_args
 
 
 DTYPE_CODES = {"float32": 0, "bfloat16": 1}

@@ -8,7 +8,8 @@ dequantized in registers; the K loop walks whole quantization groups
 group size, which must be a multiple of 64 (the tiling and the K split
 live in the source). A CPU tensor takes the plain version;
 ``launches`` counts calls that launch the kernel (with its split-K
-reduce, when K is split).
+reduce, when K is split). It has no gradient: where autograd would
+record it, it raises (``_build.refuse_grad``).
 """
 
 from __future__ import annotations
@@ -44,6 +45,7 @@ def awq_matmul(x, qw, scales, zeros, *, bits: int = 4, group_size: int = 128):
     """x (M, K) float32/bfloat16; qw (K/8, N) int32; scales, zeros
     (K/group_size, N) float32 -> (M, N) in x's dtype."""
     global launches
+    _build.refuse_grad("awq_matmul", x, scales, zeros)
     if x.device.type == "cpu":
         return plain(x, qw, scales, zeros, bits=bits, group_size=group_size)
     if x.device.type != "cuda":

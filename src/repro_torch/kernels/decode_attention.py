@@ -5,7 +5,8 @@ addressing) and its plain PyTorch version.
 Replaces the JAX package's Pallas ``kernels/decode_attention.py::
 decode_attention`` (``_dec_kernel``). Same design as the paged kernel,
 with K/V tiles of 16 positions read by stride. A CPU tensor takes the
-plain version; ``launches`` counts kernel launches.
+plain version; ``launches`` counts kernel launches. It has no gradient:
+where autograd would record it, it raises (``_build.refuse_grad``).
 """
 
 from __future__ import annotations
@@ -30,6 +31,7 @@ def decode_attention(q, k, v, *, kv_len, scale=None, logit_soft_cap: float = 0.0
     """q (B, Hq, 1, D); k, v (B, Hkv, S, D) of q's dtype; kv_len int or
     (B,) -> (B, Hq, 1, D)."""
     global launches
+    _build.refuse_grad("decode_attention", q, k, v)
     dev = q.device
     if dev.type == "cpu":
         return plain(q, k, v, kv_len=kv_len, scale=scale, logit_soft_cap=logit_soft_cap)

@@ -1,13 +1,15 @@
 """Kernel entry points the models call.
 
-``rmsnorm``, ``decode_attention``, ``paged_attention`` (pages in q's
-dtype, or int8/fp8 codes with ``k_scales``/``v_scales``),
-``awq_matmul`` and ``ssd`` (the Mamba-2 chunked scan) are the kernels'
-wrappers, which dispatch by device: a
-tensor on the CPU goes to the plain PyTorch version, a CUDA tensor
-launches the hand-written Hopper kernel, or the wrapper raises. There is
-no switch to pick one or the other, and no fallback from a kernel that
-fails to build or launch.
+``rmsnorm``, ``flash_attention`` (whole-prompt prefill and training),
+``decode_attention``, ``paged_attention`` (pages in q's dtype, or
+int8/fp8 codes with ``k_scales``/``v_scales``), ``awq_matmul`` and
+``ssd`` (the Mamba-2 chunked scan) are the kernels' wrappers, which
+dispatch by device: a tensor on the CPU goes to the plain PyTorch
+version, a CUDA tensor launches the hand-written Hopper kernel, or the
+wrapper raises. There is no switch to pick one or the other, and no
+fallback from a kernel that fails to build or launch. ``rmsnorm`` and
+``flash_attention`` are differentiable (the backward is autograd of the
+plain version); the other four raise where autograd would record them.
 
 ``chunk_attention``, ``gather_kv_pages``, ``gather_dequant_kv_pages``,
 ``kv_qmax``, ``quantize_kv``, ``dequantize_kv`` and ``ssd_step`` (the
@@ -19,6 +21,7 @@ from __future__ import annotations
 from repro_torch.kernels import ref as _ref
 from repro_torch.kernels.awq_matmul import awq_matmul  # noqa: F401
 from repro_torch.kernels.decode_attention import decode_attention  # noqa: F401
+from repro_torch.kernels.flash_attention import flash_attention  # noqa: F401
 from repro_torch.kernels.paged_attention import paged_attention  # noqa: F401
 from repro_torch.kernels.ref import (dequantize_kv, gather_dequant_kv_pages,  # noqa: F401
                                      gather_kv_pages, kv_qmax, quantize_kv, ssd_step)

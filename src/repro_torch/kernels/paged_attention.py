@@ -10,6 +10,8 @@ registers. One block per (slot, kv head) walks only the slot's live
 pages through its block-table row; see the source for the design. A CPU
 tensor takes the plain version; ``launches`` counts launches of the
 unquantized body and ``launches_quant`` those of the quantized body.
+It has no gradient: where autograd would record it, it raises
+(``_build.refuse_grad``).
 """
 
 from __future__ import annotations
@@ -63,6 +65,7 @@ def paged_attention(q, k_pages, v_pages, *, block_tables, kv_len, scale=None,
     (P, Hkv, page) float32; block_tables (B, n_pages) int32; kv_len,
     pos_offset int or (B,) -> (B, Hq, 1, D)."""
     global launches, launches_quant
+    _build.refuse_grad("paged_attention", q, k_pages, v_pages, k_scales, v_scales)
     dev = q.device
     if dev.type == "cpu":
         return plain(q, k_pages, v_pages, block_tables=block_tables, kv_len=kv_len,

@@ -1,4 +1,4 @@
-"""Plain PyTorch versions of the kernels on the serving path.
+"""Plain PyTorch versions of the port's kernels.
 
 These are the port's semantic ground truth, one for one with the JAX
 package's ``kernels/ref.py``: the CPU path runs them, the CPU tests hold
@@ -64,6 +64,21 @@ def mha(q, k, v, *, causal: bool = True, kv_len=None, q_offset=None,
     p = torch.softmax(logits, dim=-1)
     out = torch.einsum("bhgqk,bhkd->bhgqd", p, v.float())
     return out.reshape(B, Hq, Sq, D).to(q.dtype)
+
+
+def mha_chunked(q, k, v, *, causal: bool = True, scale=None,
+                logit_soft_cap: float = 0.0, chunk_q: int = 512):
+    """Exact attention in query chunks: the (Sq, Skv) score matrix never
+    exists beyond (chunk_q, Skv). Chunk i's causal offset is
+    ``i * chunk_q + (Skv - Sq)``."""
+    Sq, Skv = q.shape[2], k.shape[2]
+    if Sq <= chunk_q:
+        return mha(q, k, v, causal=causal, scale=scale, logit_soft_cap=logit_soft_cap)
+    return torch.cat([
+        mha(q[:, :, s:s + chunk_q], k, v, causal=causal,
+            q_offset=s + Skv - Sq if causal else None, scale=scale,
+            logit_soft_cap=logit_soft_cap)
+        for s in range(0, Sq, chunk_q)], dim=2)
 
 
 def decode_attention(q, k, v, *, kv_len, scale=None, logit_soft_cap: float = 0.0):

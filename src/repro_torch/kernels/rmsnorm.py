@@ -4,8 +4,15 @@ and its plain PyTorch version.
 Replaces the JAX package's Pallas ``kernels/rmsnorm.py::rmsnorm``. The
 wrapper takes the plain version for a CPU tensor and launches the kernel
 for a CUDA tensor, on PyTorch's current stream, without synchronising;
-``launches`` counts its launches so a run can show that the serving
-path went through the kernel.
+``launches`` counts its launches so a run can show that a path went
+through the kernel.
+
+Gradient: the JAX package trains with the plain ``ref.rmsnorm`` under
+XLA's autodiff (its Pallas kernel has no ``custom_vjp``). On the card,
+``_RMSNorm``'s forward is the kernel and its backward recomputes the
+plain version on the saved (x, w) and returns PyTorch autograd's
+gradient of it: the counterpart of that autodiff. On the CPU the plain
+version is differentiated directly.
 """
 
 from __future__ import annotations
@@ -25,19 +32,9 @@ _ARGS = (ctypes.c_void_p, ctypes.c_void_p, ctypes.c_void_p, ctypes.c_int,
          ctypes.c_void_p)
 
 
-def rmsnorm(x, w, *, eps: float = 1e-5, gemma_style: bool = False):
-    """x (..., D) float32/bfloat16, w (D,) -> y like x."""
+def _launch(x, w, eps, gemma_style):
     global launches
-    if x.device.type == "cpu":
-        return plain(x, w, eps=eps, gemma_style=gemma_style)
-    if x.device.type != "cuda" or w.device != x.device:
-        raise ValueError(f"rmsnorm kernel needs x and w on one CUDA device, "
-                         f"got {x.device} and {w.device}")
     D = x.shape[-1]
-    if w.shape != (D,):
-        raise ValueError(f"w must be ({D},), got {tuple(w.shape)}")
-    if not (x.is_contiguous() and w.is_contiguous()):
-        raise ValueError("rmsnorm kernel needs contiguous x and w")
     y = torch.empty_like(x)
     rows = x.numel() // D if D else 0
     if rows == 0:
@@ -49,3 +46,35 @@ def rmsnorm(x, w, *, eps: float = 1e-5, gemma_style: bool = False):
     _build.check(err, "rmsnorm")
     launches += 1
     return y
+
+
+class _RMSNorm(torch.autograd.Function):
+    """Forward: the kernel. Backward: autograd of the plain version,
+    recomputed on the saved inputs."""
+
+    @staticmethod
+    def forward(ctx, x, w, eps, gemma_style):
+        ctx.save_for_backward(x, w)
+        ctx.args = dict(eps=eps, gemma_style=gemma_style)
+        return _launch(x, w, eps, gemma_style)
+
+    @staticmethod
+    def backward(ctx, g):
+        return _build.plain_backward(ctx, g, plain, 2)
+
+
+def rmsnorm(x, w, *, eps: float = 1e-5, gemma_style: bool = False):
+    """x (..., D) float32/bfloat16, w (D,) -> y like x."""
+    if x.device.type == "cpu":
+        return plain(x, w, eps=eps, gemma_style=gemma_style)
+    if x.device.type != "cuda" or w.device != x.device:
+        raise ValueError(f"rmsnorm kernel needs x and w on one CUDA device, "
+                         f"got {x.device} and {w.device}")
+    D = x.shape[-1]
+    if w.shape != (D,):
+        raise ValueError(f"w must be ({D},), got {tuple(w.shape)}")
+    if not (x.is_contiguous() and w.is_contiguous()):
+        raise ValueError("rmsnorm kernel needs contiguous x and w")
+    if torch.is_grad_enabled() and (x.requires_grad or w.requires_grad):
+        return _RMSNorm.apply(x, w, eps, gemma_style)
+    return _launch(x, w, eps, gemma_style)

@@ -6,7 +6,9 @@ Replaces the JAX package's Pallas ``kernels/ssm_scan.py::ssd``
 kernel refuses but its serving caller passes: it computes what
 ``kernels/ref.py::ssd`` computes. One block per (batch, head) walks the
 chunks in order with the (P, N) state in shared memory. A CPU tensor
-takes the plain version; ``launches`` counts kernel launches.
+takes the plain version; ``launches`` counts kernel launches. It has no gradient
+yet (the hybrid family does not train): where autograd would record it,
+it raises (``_build.refuse_grad``).
 """
 
 from __future__ import annotations
@@ -28,6 +30,7 @@ def ssd(x, dt, A, B, C, D, *, chunk: int = 64, h0=None):
     h0 (b, H, P, N) float32; B, C (b, T, N) of x's dtype; T a multiple of
     ``chunk`` -> y (b, T, H, P) in x's dtype, h_final (b, H, P, N) f32."""
     global launches
+    _build.refuse_grad("ssd", x, dt, A, B, C, D, h0)
     dev = x.device
     if dev.type == "cpu":
         return plain(x, dt, A, B, C, D, chunk=chunk, h0=h0)

@@ -3,7 +3,9 @@
 Protocol (see lm.TransformerLM, ssm.HybridLM): param_defs() / init(seed, device),
 init_cache(batch, max_seq, device) / cache_specs(),
 prefill_chunk(params, tokens, cache) -> (last_logits, cache),
-decode_step(params, token, cache) -> (logits, cache).
+decode_step(params, token, cache) -> (logits, cache); the dense model also
+has forward(params, tokens) -> logits, loss(params, batch) -> (loss,
+metrics) and prefill(params, tokens, cache) -> (last_logits, cache).
 """
 
 from __future__ import annotations

@@ -162,6 +162,23 @@ def flatten(tree, prefix=()):
     return [(prefix, tree)]
 
 
+def tree_unflatten(like, leaves):
+    """The nested dict of ``like``'s structure whose leaves are ``leaves``,
+    given in :func:`flatten`'s sorted key-path order."""
+    out: dict = {}
+    pairs = flatten(like)
+    if len(pairs) != len(leaves):
+        raise ValueError(f"{len(leaves)} leaves for a tree of {len(pairs)}")
+    if not isinstance(like, dict):
+        return leaves[0]
+    for (path, _), leaf in zip(pairs, leaves):
+        node = out
+        for k in path[:-1]:
+            node = node.setdefault(k, {})
+        node[path[-1]] = leaf
+    return out
+
+
 def tree_map(fn, tree):
     if isinstance(tree, dict):
         return {k: tree_map(fn, v) for k, v in tree.items()}

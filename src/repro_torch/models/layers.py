@@ -1,5 +1,5 @@
 """Core transformer layers of the dense path: norms, rope, embeddings,
-GQA attention, gated MLP.
+GQA attention, gated MLP -- for serving and training.
 
 Parameters are nested dicts of tensors built from ParamDef trees (see
 common.py), with the JAX package's key paths and ``(in, out)`` matmul
@@ -143,12 +143,17 @@ def update_cache_at(buf, new, idx, axis: int):
     return buf
 
 
-def attention(x, p, cfg: ModelConfig, *, positions, cache, cache_index,
+def attention(x, p, cfg: ModelConfig, *, positions, cache=None, cache_index=None,
               chunked=False, block_tables=None, pos_offset=None,
               paged_step=None, kv_len=None):
-    """GQA attention against a KV cache (the serving modes of the JAX
-    package's ``layers.attention``):
+    """GQA self-attention (the modes of the JAX package's
+    ``layers.attention``, cross-attention aside):
 
+      * cache-free (``cache`` None): causal attention over x through
+        ``ops.flash_attention`` -- the training forward.
+      * whole-prompt prefill (contiguous ``(ck, cv)``, S > 1, not
+        ``chunked``): K/V written at 0, causal ``ops.flash_attention``
+        over the prompt.
       * paged decode (``block_tables`` given, S == 1): ``cache`` is the
         layer's pool pages (P, Hkv, page, D); the token's K/V is written
         at ``paged_step`` (from :func:`paged_decode_step`) and the slots
@@ -186,6 +191,11 @@ def attention(x, p, cfg: ModelConfig, *, positions, cache, cache_index,
         cos, sin = rope_freqs(positions, Dh, cfg.rope_theta)
         q = apply_rope(q, cos, sin)
         k = apply_rope(k, cos, sin)
+
+    if cache is None:
+        out = ops.flash_attention(q.contiguous(), k.contiguous(), v.contiguous(),
+                                  causal=True)
+        return _matmul(_merge_heads(out), p["wo"], cfg)
 
     ck, cv, *qs = cache
     ks, vs = qs or (None, None)
@@ -245,8 +255,10 @@ def attention(x, p, cfg: ModelConfig, *, positions, cache, cache_index,
         out = ops.chunk_attention(q, ck, cv, q_offset=cache_index,
                                   kv_len=cache_index + S)
     else:
-        raise NotImplementedError("whole-prompt prefill (flash_attention) is "
-                                  "not ported yet; serving prefills in chunks")
+        update_cache_at(ck, k, 0, axis=2)
+        update_cache_at(cv, v, 0, axis=2)
+        out = ops.flash_attention(q.contiguous(), k.contiguous(), v.contiguous(),
+                                  causal=True)
 
     return _matmul(_merge_heads(out), p["wo"], cfg)
 

@@ -1,16 +1,19 @@
-"""TransformerLM, dense path: the serving entry points of the JAX
-package's ``models/lm.py`` for the dense GQA family (minitron-8b and
-its smoke config).
+"""TransformerLM, dense path: the serving and training entry points of
+the JAX package's ``models/lm.py`` for the dense GQA family (minitron-8b
+and its smoke config).
 
 The JAX package runs the layers under ``lax.scan`` over stacked params;
 here a Python loop walks the same ``(L, ...)`` leaves. Each layer's
 cache is a view into the ``(L, ...)`` cache or pool buffers and is
-written in place, so a decode tick never copies the pool.
+written in place, so a decode tick never copies the pool. The training
+forward recomputes each layer in the backward pass when ``cfg.remat``
+(``torch.utils.checkpoint``, the JAX package's ``jax.checkpoint``).
 """
 
 from __future__ import annotations
 
 import torch
+import torch.utils.checkpoint
 
 from repro_torch.models import layers
 from repro_torch.models.common import ModelConfig, ParamDef, init_params, tree_map
@@ -76,7 +79,7 @@ class TransformerLM:
                 "v": ("layers", "batch", "kv_heads", "kv_seq", None)}
 
     # ------------------------------------------------------------------ blocks
-    def _block(self, x, bp, *, positions, cache, cache_index, chunked=False,
+    def _block(self, x, bp, *, positions, cache=None, cache_index=None, chunked=False,
                block_tables=None, pos_offset=None, paged_step=None, kv_len=None):
         cfg = self.cfg
         h = layers.rmsnorm(x, bp["ln1"], cfg)
@@ -118,7 +121,43 @@ class TransformerLM:
         head = params["embed"] if self.cfg.tie_embeddings else params["lm_head"]
         return layers.unembed(x, head, self.cfg)
 
+    # ------------------------------------------------------------------ training
+    def forward(self, params, tokens, extra=None):
+        """Training forward (no cache): tokens (B, T) -> logits (B, T, V)
+        in the compute dtype."""
+        if extra:
+            raise NotImplementedError("vision/frames extras are not ported yet")
+        cfg = self.cfg
+        x = layers.embed(tokens, params["embed"], cfg)
+        positions = torch.arange(tokens.shape[1], device=tokens.device)
+
+        def block(x, bp):
+            return self._block(x, bp, positions=positions)
+
+        remat = cfg.remat and torch.is_grad_enabled()
+        for i in range(cfg.n_layers):
+            bp = _layer(params["blocks"], i)
+            x = (torch.utils.checkpoint.checkpoint(block, x, bp, use_reentrant=False)
+                 if remat else block(x, bp))
+        return self._head(params, x)
+
+    def loss(self, params, batch):
+        return _lm_loss(self, params, batch)
+
     # ------------------------------------------------------------------ serving
+    def prefill(self, params, tokens, cache, extra=None):
+        """Whole-prompt prefill into a fresh contiguous cache: K/V written
+        at 0, causal attention through ``ops.flash_attention``. Returns
+        the last position's logits (B, V) and the cache with ``pos`` = T."""
+        if extra:
+            raise NotImplementedError("vision/frames extras are not ported yet")
+        T = tokens.shape[1]
+        x = layers.embed(tokens, params["embed"], self.cfg)
+        positions = torch.arange(T, device=tokens.device)
+        x = self._run_cached(params, x, positions, cache, cache_index=0)
+        logits = self._head(params, x[:, -1:])[:, 0]
+        return logits, {**cache, "pos": T}
+
     def prefill_chunk(self, params, tokens, cache):
         """Prefill continuation: process a prompt chunk starting at
         ``cache["pos"]`` (an int), attending against the already-cached
@@ -149,3 +188,23 @@ class TransformerLM:
         x = self._run_cached(params, x, positions, cache, cache_index=pos)
         logits = self._head(params, x)[:, 0]
         return logits, {**cache, "pos": pos + 1}
+
+
+def _lm_loss(model, params, batch):
+    """Shared next-token loss (the JAX package's ``models/ssm.py::
+    _lm_loss``): batch = {tokens (B, T+1), loss_mask?}. Float32 logits,
+    padded vocab columns masked to -1e30. Returns (loss, {"nll": mean})."""
+    cfg = model.cfg
+    tokens = batch["tokens"]
+    logits = model.forward(params, tokens[:, :-1], batch.get("extra")).float()
+    labels = tokens[:, 1:].long()
+    if cfg.padded_vocab != cfg.vocab_size:
+        valid = torch.arange(cfg.padded_vocab, device=logits.device) < cfg.vocab_size
+        logits = torch.where(valid, logits, -1e30)
+    logp = torch.log_softmax(logits, dim=-1)
+    nll = -torch.gather(logp, -1, labels[..., None])[..., 0]
+    mask = batch.get("loss_mask")
+    if mask is not None:
+        mask = mask[:, 1:]
+        return (nll * mask).sum() / mask.sum().clamp(min=1.0), {"nll": nll.mean()}
+    return nll.mean(), {"nll": nll.mean()}

@@ -1,0 +1,88 @@
+"""Train-step factory: loss -> grads -> AdamW, with optional microbatch
+gradient accumulation (the JAX package's ``training/train.py``; the
+accumulation is a Python loop where the JAX package scans).
+
+The gradient is PyTorch autograd of ``model.loss``. On the card its
+forward runs the Hopper kernels (``flash_attention``, ``rmsnorm``),
+whose backward is autograd of their plain versions: the counterpart of
+the JAX package, which trains through XLA's autodiff of the plain code.
+"""
+
+from __future__ import annotations
+
+from dataclasses import dataclass
+from typing import Any
+
+import torch
+
+from repro_torch.models.common import flatten, torch_dtype, tree_map, tree_unflatten
+from repro_torch.serving.engine import resolve_device
+from repro_torch.training.optim import AdamWConfig, adamw_init, adamw_update
+
+
+@dataclass
+class TrainState:
+    params: Any
+    opt_state: Any
+
+
+def make_train_step(model, oc: AdamWConfig, *, accum_steps: int = 1,
+                    cast_params: str | None = None):
+    """Returns train_step(params, opt_state, batch) -> (params, opt_state,
+    metrics); params and opt_state are updated in place and returned.
+
+    batch: {"tokens": (B, T) integer tensor, optional "loss_mask"}. With
+    accum_steps > 1 the batch is split along dim 0 into that many
+    microbatches and their gradients averaged in float32.
+
+    cast_params: cast the float32 masters to this dtype once at the top of
+    the loss; gradients still reach the float32 leaves through the cast.
+    """
+
+    def grads_of(params, batch):
+        with torch.enable_grad():
+            live = tree_map(lambda p: p.detach().requires_grad_(), params)
+            used = live
+            if cast_params is not None:
+                dt = torch_dtype(cast_params)
+                used = tree_map(lambda p: p.to(dt), live)
+            loss, metrics = model.loss(used, batch)
+            grads = torch.autograd.grad(loss, [t for _, t in flatten(live)])
+        return (loss.detach(), {k: v.detach() for k, v in metrics.items()},
+                tree_unflatten(params, list(grads)))
+
+    def train_step(params, opt_state, batch):
+        if accum_steps == 1:
+            loss, metrics, grads = grads_of(params, batch)
+        else:
+            n = next(iter(batch.values())).shape[0] // accum_steps
+            grads, losses, ms = None, [], []
+            for i in range(accum_steps):
+                mb = tree_map(lambda x: x[i * n:(i + 1) * n], batch)
+                loss_i, m_i, g = grads_of(params, mb)
+                losses.append(loss_i)
+                ms.append(m_i)
+                if grads is None:
+                    grads = tree_map(lambda t: t.float(), g)
+                else:
+                    for (_, a), (_, b) in zip(flatten(grads), flatten(g)):
+                        a.add_(b)
+                del g
+            for _, a in flatten(grads):
+                a.div_(accum_steps)
+            loss = torch.stack(losses).mean()
+            metrics = {k: torch.stack([m[k] for m in ms]).mean() for k in ms[0]}
+        params, opt_state, stats = adamw_update(grads, opt_state, params, oc)
+        metrics = dict(metrics)
+        metrics.update(stats)
+        metrics["loss"] = loss
+        return params, opt_state, metrics
+
+    return train_step
+
+
+def init_train_state(model, seed: int = 0, device=None):
+    """Params from ``seed`` and fresh AdamW state, on ``device``: the CUDA
+    card by default, which must be present (``device="cpu"`` for the CPU)."""
+    params = model.init(seed, resolve_device(device))
+    return params, adamw_init(params)

@@ -24,6 +24,7 @@ torch = pytest.importorskip("torch")
 
 from repro_torch.kernels import awq_matmul as awq_k  # noqa: E402
 from repro_torch.kernels import decode_attention as dec_k  # noqa: E402
+from repro_torch.kernels import flash_attention as fa_k  # noqa: E402
 from repro_torch.kernels import paged_attention as pa_k  # noqa: E402
 from repro_torch.kernels import ref  # noqa: E402
 from repro_torch.kernels import rmsnorm as rms_k  # noqa: E402
@@ -221,3 +222,121 @@ def test_zamba2_width_attention_and_rmsnorm_on_card(dtype):
                                dec_k.plain(q, k, v, kv_len=kl), atol=atol, rtol=rtol)
     x, w = rn(8, 1, 3584), 1 + 0.1 * rn(3584)
     torch.testing.assert_close(rms_k.rmsnorm(x, w), rms_k.plain(x, w), atol=atol, rtol=rtol)
+
+
+# flash_attention at chip_smoke.py's shapes: (B, Hq, Hkv, Sq, Skv, D, causal, cap)
+FLASH_SHAPES = [
+    (2, 32, 8, 1023, 1023, 128, True, 0.0),      # training: T = seq - 1
+    (1, 32, 8, 250, 250, 128, True, 0.0),        # whole-prompt prefill
+    (1, 32, 8, 100, 250, 128, True, 0.0),        # Skv > Sq: the offset diagonal
+    (2, 32, 8, 130, 200, 128, False, 0.0),       # non-causal
+    (1, 32, 8, 300, 300, 128, True, 30.0),       # soft cap
+    (1, 32, 32, 250, 250, 112, True, 0.0),       # zamba2's shared block
+    (2, 4, 2, 63, 63, 16, True, 0.0),            # the smoke config's training shape
+]
+
+
+@pytest.mark.cuda
+@pytest.mark.parametrize("dtype", ["float32", "bfloat16"])
+@pytest.mark.parametrize("B,Hq,Hkv,Sq,Skv,D,causal,cap", FLASH_SHAPES)
+def test_flash_attention_matches_plain_on_card(dtype, B, Hq, Hkv, Sq, Skv, D, causal, cap):
+    _card()
+    dt = getattr(torch, dtype)
+    atol, rtol = _tol(dtype)
+    g = torch.Generator(device="cuda").manual_seed(5)
+    q = torch.randn((B, Hq, Sq, D), generator=g, device="cuda").to(dt)
+    k = torch.randn((B, Hkv, Skv, D), generator=g, device="cuda").to(dt)
+    v = torch.randn((B, Hkv, Skv, D), generator=g, device="cuda").to(dt)
+    before = fa_k.launches
+    got = fa_k.flash_attention(q, k, v, causal=causal, logit_soft_cap=cap)
+    torch.cuda.synchronize()
+    assert fa_k.launches == before + 1 and got.dtype == dt
+    torch.testing.assert_close(got, fa_k.plain(q, k, v, causal=causal, logit_soft_cap=cap),
+                               atol=atol, rtol=rtol)
+
+
+@pytest.mark.cuda
+@pytest.mark.parametrize("dtype", ["float32", "bfloat16"])
+def test_kernel_gradients_match_plain_autograd_on_card(dtype):
+    """flash_attention's and rmsnorm's autograd.Function: the forward is
+    the kernel, the gradient that of the plain version."""
+    _card()
+    dt = getattr(torch, dtype)
+    atol, rtol = _tol(dtype)
+    g = torch.Generator(device="cuda").manual_seed(6)
+
+    def rn(*s):
+        return torch.randn(s, generator=g, device="cuda").to(dt).requires_grad_()
+
+    for (B, Hq, Hkv, S, D) in ((2, 4, 2, 63, 16), (1, 32, 8, 130, 128)):
+        q, k, v = rn(B, Hq, S, D), rn(B, Hkv, S, D), rn(B, Hkv, S, D)
+        go = torch.randn((B, Hq, S, D), generator=g, device="cuda").to(dt)
+        before = fa_k.launches
+        out = fa_k.flash_attention(q, k, v)
+        assert fa_k.launches == before + 1 and out.grad_fn is not None
+        got = torch.autograd.grad(out, (q, k, v), go)
+        want = torch.autograd.grad(fa_k.plain(q, k, v), (q, k, v), go)
+        for a, b in zip(got, want):
+            torch.testing.assert_close(a, b, atol=atol, rtol=rtol)
+        # one input needing grad: the others get none
+        gk, = torch.autograd.grad(fa_k.flash_attention(q.detach(), k, v.detach()), (k,), go)
+        torch.testing.assert_close(gk, want[1], atol=atol, rtol=rtol)
+    x, w = rn(3, 4096), rn(4096)
+    gy = torch.randn((3, 4096), generator=g, device="cuda").to(dt)
+    before = rms_k.launches
+    y = rms_k.rmsnorm(x, w)
+    assert rms_k.launches == before + 1 and y.grad_fn is not None
+    got = torch.autograd.grad(y, (x, w), gy)
+    want = torch.autograd.grad(rms_k.plain(x, w), (x, w), gy)
+    for a, b in zip(got, want):
+        torch.testing.assert_close(a, b, atol=atol, rtol=rtol)
+
+
+@pytest.mark.cuda
+def test_kernels_without_a_gradient_refuse_inputs_that_require_grad_on_card():
+    _card()
+    g = torch.Generator(device="cuda").manual_seed(7)
+
+    def rn(*s, grad=False):
+        return torch.randn(s, generator=g, device="cuda").requires_grad_(grad)
+
+    q = rn(2, 4, 1, 16, grad=True)
+    kv = rn(2, 2, 32, 16)
+    kl = torch.tensor([5, 32], dtype=torch.int32, device="cuda")
+    pages = rn(5, 2, 16, 16)
+    bt = torch.tensor([[1, 2], [3, 4]], dtype=torch.int32, device="cuda")
+    qw = ref.awq_pack(torch.randint(0, 16, (64, 32), generator=g, device="cuda"))
+    sc, zr = torch.rand((1, 32), device="cuda"), torch.zeros((1, 32), device="cuda")
+    x = torch.randn((2, 16, 2, 16), device="cuda")
+    dt = torch.full((2, 16, 2), 0.01, device="cuda")
+    B = torch.randn((2, 16, 16), device="cuda")
+    calls = {
+        "decode_attention": lambda: dec_k.decode_attention(q, kv, kv, kv_len=kl),
+        "paged_attention": lambda: pa_k.paged_attention(q, pages, pages,
+                                                        block_tables=bt, kv_len=kl),
+        "awq_matmul": lambda: awq_k.awq_matmul(rn(4, 64, grad=True), qw, sc, zr,
+                                               group_size=64),
+        "ssd": lambda: ssd_k.ssd(x.requires_grad_(), dt, -torch.ones(2, device="cuda"),
+                                 B, B, torch.ones(2, device="cuda"), chunk=16),
+    }
+    for name, call in calls.items():
+        with pytest.raises(RuntimeError, match=f"{name} kernel has no gradient"):
+            call()
+        with torch.no_grad():
+            call()                            # the same call, outside autograd, runs
+    torch.cuda.synchronize()
+
+
+@pytest.mark.cuda
+def test_flash_attention_refuses_what_it_does_not_take_on_card():
+    """A head dim the kernel is not built for raises from the launch and
+    counts no launch; a causal call with fewer keys than queries raises."""
+    _card()
+    q, kv = torch.randn((1, 4, 8, 64), device="cuda"), torch.randn((1, 2, 8, 64), device="cuda")
+    before = fa_k.launches
+    with pytest.raises(RuntimeError, match="built for"):
+        fa_k.flash_attention(q, kv, kv)
+    assert fa_k.launches == before
+    short = kv[:, :, :4].contiguous()
+    with pytest.raises(ValueError, match="Skv >= Sq"):
+        fa_k.flash_attention(q, short, short)

@@ -1,6 +1,7 @@
 """The port stands alone: no file of ``src/repro_torch`` and not
-``chip_smoke.py`` imports JAX or the JAX package, and the port's entry
-points refuse to run without a CUDA card unless asked for the CPU."""
+``chip_smoke.py`` imports JAX, the JAX package or ``msgpack`` (which the
+card's machine lacks), and the port's entry points refuse to run
+without a CUDA card unless asked for the CPU."""
 
 import ast
 import os
@@ -33,6 +34,12 @@ def test_no_jax_or_reference_import(path):
     assert not bad, f"{path.relative_to(ROOT)} imports {bad}"
 
 
+@pytest.mark.parametrize("path", PORT_FILES, ids=lambda p: str(p.relative_to(ROOT)))
+def test_no_msgpack_import(path):
+    assert "msgpack" not in set(_imported_roots(path)), \
+        f"{path.relative_to(ROOT)} imports msgpack"
+
+
 def test_importing_the_port_loads_no_jax():
     code = ("import sys, repro_torch.core, repro_torch.serving, repro_torch.models, "
             "repro_torch.kernels.ops, repro_torch.kernels.rmsnorm, "
@@ -40,9 +47,11 @@ def test_importing_the_port_loads_no_jax():
             "repro_torch.kernels.awq_matmul, repro_torch.kernels.ssm_scan, "
             "repro_torch.models.ssm, repro_torch.configs.zamba2_7b, "
             "repro_torch.serving.quantize, "
-            "repro_torch.serving.prng, repro_torch.launch.serve; "
+            "repro_torch.serving.prng, repro_torch.launch.serve, "
+            "repro_torch.training, repro_torch.kernels.flash_attention, "
+            "repro_torch.launch.train; "
             "bad = sorted(m for m in sys.modules if m.split('.')[0] in "
-            "('jax', 'jaxlib', 'repro')); print(bad); assert not bad")
+            "('jax', 'jaxlib', 'repro', 'msgpack')); print(bad); assert not bad")
     env = dict(os.environ, PYTHONPATH=str(ROOT / "src"))
     out = subprocess.run([sys.executable, "-c", code], env=env, capture_output=True,
                          text=True, timeout=120)

@@ -131,19 +131,22 @@ def test_free_guards(engines):
 
 def test_unported_paths_refuse(engines):
     """Unaligned max_seq and prefix_pages=0 take the contiguous splice
-    path (tests/test_torch_contiguous.py); what is still unported -- the
-    whole-prompt prefill that needs flash_attention, the paged verify
-    window of speculative decoding -- refuses."""
+    path (tests/test_torch_contiguous.py), and the whole-prompt prefill
+    branch runs (through flash_attention; held against the reference in
+    tests/test_torch_flash.py); what is still unported -- the paged
+    verify window of speculative decoding -- refuses."""
     _, port = engines
     assert not ContinuousBatcher(port, slots=2, max_seq=90, prefix_pages=32).paged
     assert not ContinuousBatcher(port, slots=2, max_seq=96, prefix_pages=0).paged
     cfg, p = port.cfg, port.params["blocks"]
     attn = {k: v[0] for k, v in p["attn"].items()}
-    x = torch.zeros((1, 4, cfg.d_model))
+    x = torch.randn((1, 4, cfg.d_model), generator=torch.Generator().manual_seed(0))
     kv = torch.zeros((1, cfg.n_kv_heads, 16, cfg.head_dim))
-    with pytest.raises(NotImplementedError, match="flash_attention"):
-        layers.attention(x, attn, cfg, positions=torch.arange(4), cache=(kv, kv),
+    ck, cv = kv.clone(), kv.clone()
+    y = layers.attention(x, attn, cfg, positions=torch.arange(4), cache=(ck, cv),
                          cache_index=0)
+    assert y.shape == x.shape and bool(y.isfinite().all())
+    assert bool((ck[:, :, :4] != 0).any()) and not bool(ck[:, :, 4:].any())
     pages = torch.zeros((3, cfg.n_kv_heads, 16, cfg.head_dim))
     with pytest.raises(NotImplementedError, match="speculative verify"):
         layers.attention(x, attn, cfg, positions=torch.arange(4), cache=(pages, pages),
