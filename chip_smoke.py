@@ -48,9 +48,10 @@ Phases, each of which fails the run when it fails:
      which must resume at step 6 with the data stream where it stopped.
 The kernel phase also holds flash_attention against its plain version at
 the training shape (2, 32/8, 1023, 128), the prefill shape, an offset
-(Skv > Sq), a non-causal, a soft-cap and a D = 112 case, and its gradient
-(plain recompute) against plain autograd; it times forward and backward
-beside SDPA's. The reference phase also trains a small float32 minitron 3
+(Skv > Sq), a non-causal, a soft-cap, a D = 112 and a causal Skv < Sq
+case, and its gradient (plain recompute) against plain autograd; it times
+forward (bf16: the wgmma body, with its achieved TFLOP/s; float32: the
+CUDA-core body) and backward beside SDPA's. The reference phase also trains a small float32 minitron 3
 steps on card and CPU (losses and params must agree). The dense path,
 before it is freed, holds the whole-prompt prefill (flash_attention)
 against the chunked one over a 250-token prompt.
@@ -59,7 +60,8 @@ piece of the model alone. The kernel phase also holds ssd (the Mamba-2
 chunked scan) against its plain version at the smoke chunk (16, float32,
 with and without h0) and at zamba2-7b's prefill piece (T = 256 with 32
 live steps, and T = 512, bf16, with h0), decode attention at zamba2's
-shared block (B = 8, 32/32 heads of D = 112) and rmsnorm at width 3584;
+shared block (B = 8, 32/32 heads of D = 112; timed, like B = 1, with its
+split count beside SDPA) and rmsnorm at width 3584;
 the reference phase also serves a small float32 zamba2 on card and CPU.
 In the kernels JSON, ``launches`` is a kernel's count summed over the
 three serving paths and the training path (each zeroed just before its
@@ -111,7 +113,7 @@ KERNELS = {
                         "src/repro/kernels/paged_attention.py:91"),
     "paged_attention_quant": ("src/repro_torch/kernels/csrc/attention.cu",
                               "src/repro/kernels/paged_attention.py:85"),
-    "decode_attention": ("src/repro_torch/kernels/csrc/attention.cu",
+    "decode_attention": ("src/repro_torch/kernels/csrc/decode_attention.cu",
                          "src/repro/kernels/decode_attention.py:65"),
     "awq_matmul": ("src/repro_torch/kernels/csrc/awq_matmul.cu",
                    "src/repro/kernels/awq_matmul.py:52"),
@@ -124,11 +126,12 @@ SSD_REL = 1e-5     # ssd's float32 outputs: max abs err <= SSD_REL * max(1, max 
 # flash_attention at (B, Hq, Hkv, Sq, Skv, D, causal, cap): the training
 # shape first (minitron-8b heads, T = seq - 1 = 1023), whole-prompt
 # prefill, the offset diagonal (Skv > Sq), non-causal, soft cap, zamba2's
-# D = 112 and the smoke config's training shape
+# D = 112, the smoke config's training shape and a causal Skv < Sq (rows
+# that see no key: the mean of V)
 FLASH_SHAPES = ((2, 32, 8, 1023, 1023, 128, True, 0.0), (1, 32, 8, 250, 250, 128, True, 0.0),
                 (1, 32, 8, 100, 250, 128, True, 0.0), (2, 32, 8, 130, 200, 128, False, 0.0),
                 (1, 32, 8, 300, 300, 128, True, 30.0), (1, 32, 32, 250, 250, 112, True, 0.0),
-                (2, 4, 2, 63, 63, 16, True, 0.0))
+                (2, 4, 2, 63, 63, 16, True, 0.0), (1, 32, 8, 300, 200, 128, True, 0.0))
 # training: full-width minitron-8b cut to 4 of its 32 layers (float32
 # params, bf16 compute), batch 2 x seq 1024, the driver's AdamW schedule
 # (warmup 5, decay over 10) at a peak lr for this width: at the driver's
@@ -417,18 +420,6 @@ def kernel_phase(torch, timer):
                     dec_k.decode_attention(q, k, v, kv_len=kl, logit_soft_cap=cap),
                     dec_k.plain(q, k, v, kv_len=kl, logit_soft_cap=cap), dname)
                 rows.setdefault(("decode_attention", dname), []).append(err)
-            if dname == "bfloat16" and bb == 1:
-                t_k = timer.ms(lambda: dec_k.decode_attention(q, k, v, kv_len=kl))
-                t_p = timer.ms(lambda: dec_k.plain(q, k, v, kv_len=kl))
-                ke = k.repeat_interleave(HQ // HKV, dim=1)
-                ve = v.repeat_interleave(HQ // HKV, dim=1)
-                t_l = timer.ms(lambda: F.scaled_dot_product_attention(q, ke, ve))
-                elt = q.element_size()
-                keys = sum(lens)
-                nbytes = 2 * q.numel() * elt + 2 * keys * HKV * D * elt + 4 * bb
-                bms, by = bound_ms(nbytes, 4 * D * HQ * keys, dname)
-                rows["decode_attention"] = dict(ms=t_k, plain_ms=t_p, library_ms=t_l,
-                                                bound_ms=bms, bound_by=by)
     # ---- zamba2-7b's shared block: decode attention at B=8, 32/32 heads of
     # D=112 over a ragged 256-position contiguous cache; rmsnorm at 3584
     zl = [1, 5, 16, 17, 100, 128, 255, 256]
@@ -446,22 +437,44 @@ def kernel_phase(torch, timer):
             "rmsnorm 8x3584", rms_k.rmsnorm(x, w), rms_k.plain(x, w), dname))
         if dname != "bfloat16":
             continue
-        mask = (torch.arange(MAX_SEQ, device="cuda")[None, :] < kl[:, None])[:, None, None, :]
         elt = q.element_size()
-        for what, fk, fp, fl, nbytes, flops in (
-                ("decode_attention zamba2 B=8 32/32 D=112 S=256",
-                 lambda: dec_k.decode_attention(q, k, v, kv_len=kl),
-                 lambda: dec_k.plain(q, k, v, kv_len=kl),
-                 lambda: F.scaled_dot_product_attention(q, k, v, attn_mask=mask),
-                 2 * q.numel() * elt + 2 * sum(zl) * 32 * 112 * elt + 4 * B,
-                 4 * 112 * 32 * sum(zl)),
-                ("rmsnorm zamba2 8x3584", lambda: rms_k.rmsnorm(x, w),
-                 lambda: rms_k.plain(x, w), lambda: F.rms_norm(x, (3584,), w, eps=1e-5),
-                 2 * x.numel() * elt + w.numel() * elt, 4 * x.numel())):
-            t_k, t_p, t_l = timer.ms(fk), timer.ms(fp), timer.ms(fl)
-            bms, by = bound_ms(nbytes, flops, dname)
-            log(f"time {what}: kernel {t_k:.4f} ms  plain {t_p:.4f} ms  library "
-                f"{t_l:.4f} ms  bound {bms:.6f} ms ({by})")
+        t_k, t_p = timer.ms(lambda: rms_k.rmsnorm(x, w)), timer.ms(lambda: rms_k.plain(x, w))
+        t_l = timer.ms(lambda: F.rms_norm(x, (3584,), w, eps=1e-5))
+        bms, by = bound_ms(2 * x.numel() * elt + w.numel() * elt, 4 * x.numel(), dname)
+        log(f"time rmsnorm zamba2 8x3584: kernel {t_k:.4f} ms  plain {t_p:.4f} ms  library "
+            f"{t_l:.4f} ms  bound {bms:.6f} ms ({by})")
+
+    # decode attention timed at both main-path shapes (bf16): minitron-8b at
+    # B=1 (warmup and generate()), zamba2-7b's shared block at B=8, ragged;
+    # the yardstick is SDPA over K/V expanded to the query heads
+    shapes = []
+    for what, (bb, hq, hkv, d, lens) in (
+            ("B=1 32/8 D=128 S=256", (1, HQ, HKV, D, [256])),
+            ("zamba2 B=8 32/32 D=112 S=256 ragged", (B, 32, 32, 112, zl))):
+        dt = torch.bfloat16
+        q = randn(bb, hq, 1, d, dtype=dt)
+        k, v = randn(bb, hkv, MAX_SEQ, d, dtype=dt), randn(bb, hkv, MAX_SEQ, d, dtype=dt)
+        kl = torch.tensor(lens, dtype=torch.int32, device="cuda")
+        ke = k.repeat_interleave(hq // hkv, dim=1)
+        ve = v.repeat_interleave(hq // hkv, dim=1)
+        mask = None
+        if min(lens) < MAX_SEQ:
+            mask = (torch.arange(MAX_SEQ, device="cuda")[None, :] < kl[:, None])[:, None, None, :]
+        t_k = timer.ms(lambda: dec_k.decode_attention(q, k, v, kv_len=kl))
+        t_p = timer.ms(lambda: dec_k.plain(q, k, v, kv_len=kl))
+        t_l = timer.ms(lambda: F.scaled_dot_product_attention(q, ke, ve, attn_mask=mask))
+        elt = q.element_size()
+        keys = sum(lens)
+        nbytes = 2 * q.numel() * elt + 2 * keys * hkv * d * elt + 4 * bb
+        bms, by = bound_ms(nbytes, 4 * d * hq * keys, "bfloat16")
+        n_split, chunk = dec_k.splits(bb, hkv, MAX_SEQ,
+                                      torch.cuda.get_device_properties(0).multi_processor_count)
+        shapes.append(dict(shape=what, n_split=n_split, ms=t_k, plain_ms=t_p, library_ms=t_l,
+                           bound_ms=bms, bound_by=by))
+        log(f"time decode_attention {what} bf16: kernel {t_k:.4f} ms  plain {t_p:.4f} ms  "
+            f"library (SDPA) {t_l:.4f} ms  bound {bms:.6f} ms ({by}); {n_split} splits of "
+            f"{chunk} keys, {bb * hkv * n_split} blocks")
+    rows["decode_attention"] = dict(shapes[0], shapes=shapes)
 
     # ---- ssd: the smoke chunk (16) in float32, with and without h0; then
     # zamba2-7b's prefill piece -- a 32-token piece padded to one 256-step
@@ -563,12 +576,28 @@ def flash_phase(torch, timer, rows, randn):
     t_bl = timer.ms(lambda: torch.autograd.grad(sdpa, (qg, kg, vg), go, retain_graph=True),
                     n=20)
     rows["flash_attention_bwd"] = dict(ms=t_bk, library_ms=t_bl)
-    log(f"time flash_attention {(b, hq, hkv, sq, skv, d)} bf16 causal: {pairs} visible "
-        f"(query, key) pairs a head, {4 * b * hq * d * pairs / 1e9:.2f} GFLOP, "
-        f"{nbytes / 1e6:.1f} MB; forward kernel {t_k:.4f} ms, plain {t_p:.4f} ms, SDPA "
-        f"{t_l:.4f} ms, bound {bms:.5f} ms ({by}); backward (autograd.Function: plain "
-        f"recompute) {t_bk:.4f} ms, SDPA's backward {t_bl:.4f} ms")
+    flops = 4 * b * hq * d * pairs
+    log(f"time flash_attention {(b, hq, hkv, sq, skv, d)} bf16 causal (wgmma body): {pairs} "
+        f"visible (query, key) pairs a head, {flops / 1e9:.2f} GFLOP, {nbytes / 1e6:.1f} MB; "
+        f"forward kernel {t_k:.4f} ms ({flops / t_k / 1e9:.1f} TFLOP/s, "
+        f"{flops / t_k / 1e9 / (PEAK_FLOPS['bfloat16'] / 1e12):.1%} of the bf16 peak), "
+        f"plain {t_p:.4f} ms, SDPA {t_l:.4f} ms ({flops / t_l / 1e9:.1f} TFLOP/s), bound "
+        f"{bms:.5f} ms ({by}); backward (autograd.Function: plain recompute) {t_bk:.4f} ms, "
+        f"SDPA's backward {t_bl:.4f} ms")
     del out, sdpa, got, want
+    # the whole-prompt prefill's shape (32 launches in the prefill check),
+    # and the float32 body at the training shape
+    for (b, hq, hkv, sq, skv, d, _, _), dt in ((FLASH_SHAPES[1], torch.bfloat16),
+                                               (FLASH_SHAPES[0], torch.float32)):
+        q, k, v = randn(b, hq, sq, d, dtype=dt), randn(b, hkv, skv, d, dtype=dt), \
+            randn(b, hkv, skv, d, dtype=dt)
+        t_k = timer.ms(lambda: fa_k.flash_attention(q, k, v))
+        t_l = timer.ms(lambda: F.scaled_dot_product_attention(q, k, v, is_causal=True,
+                                                              enable_gqa=True))
+        pairs = sum(min(skv, skv - sq + i + 1) for i in range(sq))
+        flops = 4 * b * hq * d * pairs
+        log(f"time flash_attention {(b, hq, hkv, sq, skv, d)} {str(dt)[6:]} causal: kernel "
+            f"{t_k:.4f} ms ({flops / t_k / 1e9:.1f} TFLOP/s), SDPA {t_l:.4f} ms")
 
 
 # ---------------------------------------------------------------- reference
@@ -1223,7 +1252,8 @@ def main() -> int:
                         + train_launches[name],
                         "max_abs_err": r["max_abs_err"], "ms": r["ms"],
                         "plain_ms": r["plain_ms"], "bound_ms": r["bound_ms"],
-                        "bound_by": r["bound_by"], "library_ms": r["library_ms"]})
+                        "bound_by": r["bound_by"], "library_ms": r["library_ms"],
+                        **({"shapes": r["shapes"]} if "shapes" in r else {})})
     log(f"{card}: training path (minitron-8b, {TRAIN_LAYERS} layers, batch {TRAIN_BATCH} x "
         f"seq {TRAIN_SEQ}): step {train['step_ms']:.1f} ms, {train['tok_s']:.0f} tokens/s, "
         f"device {train['dev_ms']:.1f} ms, busy {train['busy'] * 100:.0f}%, peak "

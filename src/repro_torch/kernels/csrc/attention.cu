@@ -1,16 +1,14 @@
 // Single-token decode attention for Hopper (sm_90a), bound with ctypes.
-// One source, templated on the element type of q/out (float, bf16), on the
-// element type of the K/V pages (the same, or int8 / fp8 e4m3 codes with a
-// float32 scale per (page, kv head, position)) and on how K/V is addressed:
-// through a block table into a shared page pool (paged) or by stride into
-// a per-slot contiguous cache.
+// One source, templated on the element type of q/out (float, bf16) and on
+// the element type of the K/V pages (the same, or int8 / fp8 e4m3 codes
+// with a float32 scale per (page, kv head, position)); K/V is addressed
+// through a block table into a shared page pool. (The contiguous-cache
+// decode kernel is decode_attention.cu.)
 //
 // Replaces:
 //   src/repro/kernels/paged_attention.py::paged_attention
 //     (Pallas bodies _paged_kernel and, for int8/fp8 pools,
 //     _paged_kernel_quant)
-//   src/repro/kernels/decode_attention.py::decode_attention
-//     (Pallas body _dec_kernel)
 //
 // What bounds it on the card: bytes. A decode step does 4*D flops per live
 // key per query head and reads 2*D elements of K/V per key per kv head:
@@ -21,8 +19,8 @@
 // Design, aimed at reading each live K/V byte from device memory once:
 //  * one block per (slot, kv head) handles the slot's whole G-head query
 //    group, so a K/V tile loaded once serves all G heads;
-//  * the block walks only the slot's live keys, in tiles of one page (paged)
-//    or 16 positions (contiguous); pages past kv_len - pos_offset, among
+//  * the block walks only the slot's live keys, in tiles of one page;
+//    pages past kv_len - pos_offset, among
 //    them the trash page 0 that pads an active slot's table row, are never
 //    read (a parked slot, kv_len 1 on an all-zero row, reads one tile of
 //    page 0, as the Pallas kernel does; the caller discards its output);
@@ -38,8 +36,9 @@
 //    unquantized pool. Scales are read only for live positions t < nvalid,
 //    so a dead page's scales are never touched either.
 // Known limits, left to later work: B*Hkv blocks (64 at the serving
-// batch of 8) leave most of the 132 SMs idle -- a split-K over SMs would
-// fill them; loads are scalar, not 16-byte vectors, cp.async or TMA.
+// batch of 8) leave most of the 132 SMs idle -- the split over SMs of
+// decode_attention.cu would fill them; loads are scalar, not 16-byte
+// vectors, cp.async or TMA.
 
 #include <cuda_bf16.h>
 #include <cuda_fp8.h>
@@ -75,18 +74,17 @@ __device__ __forceinline__ float warp_sum(float v) {
   return v;
 }
 
-// q, out: (B, Hq, 1, D). Paged: k, v are pools (P, Hkv, tile, D) and
+// q, out: (B, Hq, 1, D); k, v are pools (P, Hkv, tile, D) and
 // block_tables is (B, n_tiles_max); for KT other than T, ks and vs are the
 // (P, Hkv, tile) float32 scales of the codes in k and v (null otherwise).
-// Contiguous: k, v are (B, Hkv, S, D). s_cap is the number of addressable
-// key positions per slot.
-template <typename T, typename KT, bool PAGED>
+// s_cap is the number of addressable key positions per slot.
+template <typename T, typename KT>
 __global__ void __launch_bounds__(THREADS) decode_attn_kernel(
     const T* __restrict__ q, const KT* __restrict__ k, const KT* __restrict__ v,
     const float* __restrict__ ks, const float* __restrict__ vs,
     const int* __restrict__ block_tables, const int* __restrict__ kv_len,
     const int* __restrict__ pos_offset, T* __restrict__ out, int Hq, int Hkv, int D,
-    int tile, int n_tiles_max, int S, int s_cap, float scale, float soft_cap) {
+    int tile, int n_tiles_max, int s_cap, float scale, float soft_cap) {
   constexpr bool QUANT = !std::is_same<KT, T>::value;
   extern __shared__ float smem[];
   const int G = Hq / Hkv;
@@ -103,8 +101,7 @@ __global__ void __launch_bounds__(THREADS) decode_attn_kernel(
   float* l_s = m_s + G;           // G running denominator
   float* a_s = l_s + G;           // G rescale factor of the current tile
 
-  int len = kv_len[b];
-  if (PAGED) len -= pos_offset[b];
+  int len = kv_len[b] - pos_offset[b];
   len = min(len, s_cap);
   const int n_tiles = len > 0 ? (len + tile - 1) / tile : 0;
 
@@ -122,14 +119,9 @@ __global__ void __launch_bounds__(THREADS) decode_attn_kernel(
   for (int it = 0; it < n_tiles; ++it) {
     const int t0 = it * tile;
     const int nvalid = min(tile, len - t0);
-    size_t base, sbase = 0;
-    if (PAGED) {
-      const int pid = block_tables[(size_t)b * n_tiles_max + it];
-      sbase = ((size_t)pid * Hkv + h) * (size_t)tile;
-      base = sbase * D;
-    } else {
-      base = (((size_t)b * Hkv + h) * S + t0) * (size_t)D;
-    }
+    const int pid = block_tables[(size_t)b * n_tiles_max + it];
+    const size_t sbase = ((size_t)pid * Hkv + h) * (size_t)tile;
+    const size_t base = sbase * D;
     for (int i = tid; i < tile * D; i += THREADS) {
       const int t = i / D, d = i - t * D;
       float kk = 0.f, vv = 0.f;
@@ -203,53 +195,48 @@ static size_t smem_bytes(int G, int D, int tile) {
   return sizeof(float) * (size_t)(2 * G * D + 2 * tile * (D + 1) + G * tile + 3 * G);
 }
 
-template <typename T, typename KT, bool PAGED>
+template <typename T, typename KT>
 static void launch_typed(const void* q, const void* k, const void* v, const void* ks,
                          const void* vs, const void* bt, const void* kv_len,
                          const void* pos_offset, void* out, int B, int Hq, int Hkv, int D,
-                         int tile, int n_tiles_max, int S, int s_cap, float scale,
+                         int tile, int n_tiles_max, int s_cap, float scale,
                          float soft_cap, cudaStream_t s) {
   const size_t smem = smem_bytes(Hq / Hkv, D, tile);
-  decode_attn_kernel<T, KT, PAGED><<<B * Hkv, THREADS, smem, s>>>(
+  decode_attn_kernel<T, KT><<<B * Hkv, THREADS, smem, s>>>(
       (const T*)q, (const KT*)k, (const KT*)v, (const float*)ks, (const float*)vs,
       (const int*)bt, (const int*)kv_len, (const int*)pos_offset, (T*)out, Hq, Hkv, D,
-      tile, n_tiles_max, S, s_cap, scale, soft_cap);
+      tile, n_tiles_max, s_cap, scale, soft_cap);
 }
 
 // dtype codes: 0 = float32, 1 = bfloat16 (q, out and unquantized pages);
 // kv codes: 0 = pages in q's dtype, 2 = int8, 3 = float8 e4m3.
-template <bool PAGED>
 static int launch(const void* q, const void* k, const void* v, const void* ks,
                   const void* vs, const void* bt, const void* kv_len,
                   const void* pos_offset, void* out, int B, int Hq, int Hkv, int D,
-                  int tile, int n_tiles_max, int S, int s_cap, float scale,
-                  float soft_cap, int dtype, int kv, void* stream) {
+                  int tile, int n_tiles_max, int s_cap, float scale, float soft_cap,
+                  int dtype, int kv, void* stream) {
   cudaStream_t s = (cudaStream_t)stream;
 #define ARGS q, k, v, ks, vs, bt, kv_len, pos_offset, out, B, Hq, Hkv, D, tile, \
-             n_tiles_max, S, s_cap, scale, soft_cap, s
-  if (dtype == 0 && kv == 0) {
-    launch_typed<float, float, PAGED>(ARGS);
-  } else if (dtype == 1 && kv == 0) {
-    launch_typed<__nv_bfloat16, __nv_bfloat16, PAGED>(ARGS);
-  } else if constexpr (PAGED) {  // quantized pages exist only in page pools
-    if (dtype == 0 && kv == 2)
-      launch_typed<float, int8_t, true>(ARGS);
-    else if (dtype == 1 && kv == 2)
-      launch_typed<__nv_bfloat16, int8_t, true>(ARGS);
-    else if (dtype == 0 && kv == 3)
-      launch_typed<float, __nv_fp8_e4m3, true>(ARGS);
-    else if (dtype == 1 && kv == 3)
-      launch_typed<__nv_bfloat16, __nv_fp8_e4m3, true>(ARGS);
-    else
-      return (int)cudaErrorInvalidValue;
-  } else {
+             n_tiles_max, s_cap, scale, soft_cap, s
+  if (dtype == 0 && kv == 0)
+    launch_typed<float, float>(ARGS);
+  else if (dtype == 1 && kv == 0)
+    launch_typed<__nv_bfloat16, __nv_bfloat16>(ARGS);
+  else if (dtype == 0 && kv == 2)
+    launch_typed<float, int8_t>(ARGS);
+  else if (dtype == 1 && kv == 2)
+    launch_typed<__nv_bfloat16, int8_t>(ARGS);
+  else if (dtype == 0 && kv == 3)
+    launch_typed<float, __nv_fp8_e4m3>(ARGS);
+  else if (dtype == 1 && kv == 3)
+    launch_typed<__nv_bfloat16, __nv_fp8_e4m3>(ARGS);
+  else
     return (int)cudaErrorInvalidValue;
-  }
 #undef ARGS
   return (int)cudaGetLastError();
 }
 
-// Each returns cudaGetLastError().
+// Returns cudaGetLastError().
 // k_pages, v_pages hold elements of q's dtype (kv = 0; k_scales and v_scales
 // null), or int8 (kv = 2) or float8 e4m3 (kv = 3) codes whose (P, Hkv, page)
 // float32 scales are k_scales, v_scales.
@@ -262,19 +249,9 @@ extern "C" int paged_attention_launch(const void* q, const void* k_pages,
                                       int kv, void* stream) {
   if ((kv != 0) != (k_scales != nullptr) || (kv != 0) != (v_scales != nullptr))
     return (int)cudaErrorInvalidValue;
-  return launch<true>(q, k_pages, v_pages, k_scales, v_scales, block_tables, kv_len,
-                      pos_offset, out, B, Hq, Hkv, D, page, n_pages, 0, n_pages * page,
-                      scale, soft_cap, dtype, kv, stream);
-}
-
-extern "C" int decode_attention_launch(const void* q, const void* k, const void* v,
-                                       const void* kv_len, void* out, int B, int Hq,
-                                       int Hkv, int S, int D, float scale, float soft_cap,
-                                       int dtype, void* stream) {
-  const int tile = 16;
-  return launch<false>(q, k, v, nullptr, nullptr, nullptr, kv_len, nullptr, out, B, Hq,
-                       Hkv, D, tile, (S + tile - 1) / tile, S, S, scale, soft_cap, dtype,
-                       0, stream);
+  return launch(q, k_pages, v_pages, k_scales, v_scales, block_tables, kv_len, pos_offset,
+                out, B, Hq, Hkv, D, page, n_pages, n_pages * page, scale, soft_cap, dtype, kv,
+                stream);
 }
 
 extern "C" size_t attention_smem_bytes(int G, int D, int tile) {

@@ -1,25 +1,29 @@
 // Blocked GQA flash attention (causal or not, optional logit soft cap) for
-// Hopper (sm_90a), bound with ctypes.
+// Hopper (sm_90a), bound with ctypes: two bodies, chosen by dtype alone.
 //
 // Replaces: src/repro/kernels/flash_attention.py::flash_attention (Pallas
 // body _fa_kernel). It computes what that kernel computes:
 //   q (B, Hq, Sq, D), k and v (B, Hkv, Skv, D), out (B, Hq, Sq, D) in q's
 //   type; query head hq reads kv head hq / (Hq / Hkv); s = scale q.k, then
 //   cap tanh(s / cap) when cap > 0, then the causal mask, with query row i
-//   at absolute position i + (Skv - Sq); float32 math throughout.
+//   at absolute position i + (Skv - Sq); out = acc / max(l, 1e-30).
 // Unlike the Pallas kernel, which asserts that Sq and Skv divide its
 // blocks, this one masks the ragged tail of both axes: training feeds
-// T = seq - 1 positions.
+// T = seq - 1 positions. Causal calls may have Skv < Sq: a row that sees
+// no key (i + Skv - Sq < 0) outputs the mean of V over all Skv keys, as
+// the plain version and the JAX package's reference do (every logit of
+// such a row is the mask value, so its softmax is uniform).
 //
 // What bounds it on the card: operations. A call does 4 D flops per
 // (query, visible key) pair -- two products, q.k and p.v -- on
 // (2 Sq Hq + 2 Skv Hkv) D elements. At the training shape (2, 32/8, 1023,
 // 128) that is 17.2 GFLOP on 42 MB: ~17 us at the bf16 tensor-core peak
-// against ~13 us of bytes. This bring-up design runs float32 CUDA-core
-// fmas (67 TFLOP/s peak, so >= 0.26 ms at that shape) from shared memory;
-// tensor cores (wgmma) and TMA are later work.
+// against ~13 us of bytes.
 //
-// Design (simple and right first):
+// Body 1, float32 (fa_kernel): CUDA-core fmas, exact float32, since the
+// card-vs-CPU training of the small float32 model needs float32 attention
+// (TF32 keeps about three digits). 67 TFLOP/s peak, so >= 0.26 ms at the
+// training shape:
 //  * one block of 256 threads per (64-row query tile, b * Hq + hq); the
 //    query tiles with the most causal work are scheduled first;
 //  * the Pallas grid's sequential k axis becomes a loop over 32-key
@@ -30,20 +34,58 @@
 //    (i < 4), score columns tc + 16 j and output columns tc + 16 c: the 16
 //    lanes of a half-warp share a row, so its running max and sum are
 //    reduced with four shuffles and kept, replicated, in registers;
-//  * masked entries get p = 0 explicitly, never exp(-1e30 - m): while a
-//    row's max is still the -1e30 sentinel, exp(s - m) of a masked s
-//    would be 1 (the key tail of every ragged row hits this);
 //  * Q and K rows are padded to D + 4 floats and read as float4, the P
 //    tile to 48 floats, so every shared-memory access is free of bank
 //    conflicts; ~79 KB of dynamic shared memory at D = 128 (two blocks per
 //    SM), above the 48 KB static limit, so each instantiation lifts its
 //    cap once (cudaFuncAttributeMaxDynamicSharedMemorySize).
+//
+// Body 2, bfloat16 (fa_wgmma_kernel): both products on the tensor cores.
+//  * one warpgroup (128 threads) per (64 query rows, b * Hq + hq): 64 rows
+//    is one wgmma M. Grid (B * Hq, query tiles), the heaviest causal tiles
+//    in the first wave (blockIdx.y = 0 is the last tile). At the prefill
+//    shape (1, 32/8, 250) that is 128 blocks on 132 SMs; at the training
+//    shape 1024 blocks, two resident a SM;
+//  * Q (64 rows) and a ring of two stages of K and V tiles of 64 keys
+//    live in shared memory as bf16 in the 128-byte swizzle (16-byte chunk
+//    c of row r at chunk c ^ (r % 8) of its 128-byte row), as D / 64
+//    column blocks of 64 values. D = 112 is padded to 128, D = 16 to 64,
+//    with zero columns that are never stored. cp.async copies 16 bytes a
+//    thread, its zero-fill form covering rows past Sq or Skv and the pad;
+//    tile j + 1 is in flight while tile j is computed. 81 KB at D = 128;
+//  * S = Q K^T is wgmma m64n64k16 with Q and K read from shared memory,
+//    both K-major (D contiguous): descriptor SBO 1024 B between 8-row
+//    groups, the k-step advancing 32 B within the swizzled row;
+//  * the online softmax runs on S's accumulator fragment in registers, in
+//    float32 and base 2: a thread holds rows r and r + 8 of its warp's 16,
+//    and the four lanes that share a row reduce its max with two shuffles
+//    (the row sum is reduced once, at the end);
+//  * O += P V is wgmma m64nDPk16 with P from registers: the m64n64 f32
+//    accumulator fragment of S maps onto four k16 A fragments (keys
+//    16 kk .. 16 kk + 15 are S's n8 blocks 2 kk and 2 kk + 1), so P is
+//    rounded to bf16 and packed in place. V is the B operand with the
+//    reduction over keys, MN-major (D contiguous, transpose flag set):
+//    LBO is the stride between 64-wide column blocks, SBO 1024 B between
+//    8-key groups. The JAX kernel and the plain version keep P in float32:
+//    rounding it to bf16 (relative error <= 2^-9 a term, the row sum l
+//    taken over the unrounded p) stays well inside the bf16 tolerance of
+//    atol 1e-2 + rtol 1.6e-2;
+//  * tiles where no key can be masked skip the mask arithmetic (one FFMA
+//    and one ex2 a score), and O is rescaled only when a row max moved:
+//    the CUDA-core softmax, not the tensor cores, bounded a first version.
+// Both bodies:
+//  * masked entries get p = 0 explicitly, never exp(-1e30 - m): while a
+//    row's max is still the -1e30 sentinel, exp(s - m) of a masked s
+//    would be 1 (the key tail of every ragged row hits this);
+//  * tiles above the offset diagonal are skipped (but for a tile with a
+//    row that sees no key, which reads all Skv keys).
 // D is a template parameter (compile-time trip counts, no guarded
 // register loops), built for 16 (smoke), 112 (zamba2's shared block) and
 // 128 (minitron-8b); another D fails at launch with cudaErrorInvalidValue.
 
 #include <cuda_bf16.h>
 #include <cuda_runtime.h>
+#include <stdint.h>
 
 #define THREADS 256
 #define BQ 64           // query rows per block
@@ -51,16 +93,11 @@
 #define NJ (BK / 16)    // score columns per thread
 #define PS (BK + 16)    // P tile row stride (floats)
 
+// the CUDA-core body is instantiated for float only (bf16 takes the wgmma body)
 template <typename T> __device__ __forceinline__ float to_f(T v);
 template <> __device__ __forceinline__ float to_f<float>(float v) { return v; }
-template <> __device__ __forceinline__ float to_f<__nv_bfloat16>(__nv_bfloat16 v) {
-  return __bfloat162float(v);
-}
 template <typename T> __device__ __forceinline__ T from_f(float v);
 template <> __device__ __forceinline__ float from_f<float>(float v) { return v; }
-template <> __device__ __forceinline__ __nv_bfloat16 from_f<__nv_bfloat16>(float v) {
-  return __float2bfloat16(v);  // round to nearest even, as torch's .to(bfloat16)
-}
 
 template <int D> struct Smem {
   static constexpr int QS = D + 4;  // Q and K row stride (floats)
@@ -106,8 +143,9 @@ fa_kernel(const T* __restrict__ q, const T* __restrict__ k, const T* __restrict_
     for (int c = 0; c < NC; ++c) acc[i][c] = 0.f;
   }
 
-  // keys past the last one this tile's last query sees are never loaded
-  const int kend = causal ? min(Skv, off + q0 + qrows) : Skv;
+  // keys past the last one this tile's last query sees are never loaded;
+  // a tile with a row that sees no key (off + q0 < 0) reads all of them
+  const int kend = causal && off + q0 >= 0 ? min(Skv, off + q0 + qrows) : Skv;
   for (int k0 = 0; k0 < kend; k0 += BK) {
     __syncthreads();  // the previous tile's K, V and P are consumed
     const int krows = min(BK, Skv - k0);
@@ -150,6 +188,7 @@ fa_kernel(const T* __restrict__ q, const T* __restrict__ k, const T* __restrict_
 #pragma unroll
     for (int i = 0; i < 4; ++i) {
       const int qpos = off + q0 + tr + 16 * i;
+      const bool none = causal && qpos < 0;  // sees no key: V's mean over all keys
       bool ok[NJ];
       float mx = -1e30f;
 #pragma unroll
@@ -157,8 +196,8 @@ fa_kernel(const T* __restrict__ q, const T* __restrict__ k, const T* __restrict_
         const int kpos = k0 + tc + 16 * j;
         float x = s[i][j] * scale;
         if (cap > 0.f) x = cap * tanhf(x / cap);
-        s[i][j] = x;
-        ok[j] = kpos < Skv && (!causal || kpos <= qpos);
+        s[i][j] = none ? 0.f : x;
+        ok[j] = kpos < Skv && (!causal || none || kpos <= qpos);
         if (ok[j]) mx = fmaxf(mx, x);
       }
 #pragma unroll
@@ -228,30 +267,355 @@ static int launch(const void* q, const void* k, const void* v, void* o, int B, i
   return (int)cudaGetLastError();
 }
 
-template <typename T>
-static int launch_d(int D, const void* q, const void* k, const void* v, void* o, int B,
-                    int Hq, int Hkv, int Sq, int Skv, float scale, float cap, int causal,
-                    cudaStream_t s) {
-  switch (D) {
-    case 16: return launch<T, 16>(q, k, v, o, B, Hq, Hkv, Sq, Skv, scale, cap, causal, s);
-    case 112: return launch<T, 112>(q, k, v, o, B, Hq, Hkv, Sq, Skv, scale, cap, causal, s);
-    case 128: return launch<T, 128>(q, k, v, o, B, Hq, Hkv, Sq, Skv, scale, cap, causal, s);
-    default: return (int)cudaErrorInvalidValue;
+// ------------------------------------------------------------ bf16: wgmma
+namespace wg {
+
+constexpr int BR = 64;       // query rows per block: one wgmma M
+constexpr int BN = 64;       // keys per tile
+constexpr float LOG2E = 1.4426950408889634f;
+
+__device__ __forceinline__ uint32_t smem_u32(const void* p) {
+  return (uint32_t)__cvta_generic_to_shared(p);
+}
+
+// wgmma shared-memory descriptor, 128-byte swizzle; offsets in bytes
+__device__ __forceinline__ uint64_t desc(uint32_t addr, uint32_t lbo, uint32_t sbo) {
+  return (uint64_t)((addr & 0x3FFFF) >> 4) | ((uint64_t)((lbo & 0x3FFFF) >> 4) << 16) |
+         ((uint64_t)((sbo & 0x3FFFF) >> 4) << 32) | (1ull << 62);
+}
+
+__device__ __forceinline__ void fence() {
+  asm volatile("wgmma.fence.sync.aligned;\n" ::: "memory");
+}
+__device__ __forceinline__ void commit() {
+  asm volatile("wgmma.commit_group.sync.aligned;\n" ::: "memory");
+}
+__device__ __forceinline__ void wait0() {
+  asm volatile("wgmma.wait_group.sync.aligned 0;\n" ::: "memory");
+}
+// keep the compiler from moving accumulator accesses across the async mma
+template <int N>
+__device__ __forceinline__ void pin(float* r) {
+#pragma unroll
+  for (int i = 0; i < N; ++i) asm volatile("" : "+f"(r[i])::"memory");
+}
+
+__device__ __forceinline__ float ex2(float x) {  // 2^x, one MUFU op
+  float y;
+  asm("ex2.approx.ftz.f32 %0, %1;" : "=f"(y) : "f"(x));
+  return y;
+}
+
+__device__ __forceinline__ uint32_t pack_bf16(float lo, float hi) {
+  const __nv_bfloat162 h = __floats2bfloat162_rn(lo, hi);  // .x (low half) = lo
+  return *reinterpret_cast<const uint32_t*>(&h);
+}
+
+// Copy rows [r0, r0 + 64) of a (rows, D) bf16 matrix into a 64 x DP tile
+// in the 128-byte swizzle, column blocks of 64 values (8 KB each); rows
+// at or past nrows and columns at or past D are zero-filled.
+template <int D, int DP>
+__device__ __forceinline__ void load_tile(uint32_t dst, const __nv_bfloat16* g, int r0,
+                                          int nrows) {
+  constexpr int CPR = DP / 8;  // 16-byte chunks a padded row
+  // thread t copies chunk cc = t % CPR of rows t / CPR + (128 / CPR) u: the
+  // same chunk and row % 8 on every pass, so one swizzled offset serves all
+  const int cc = threadIdx.x % CPR, rr = threadIdx.x / CPR;
+  const uint32_t a0 = dst + (cc >> 3) * (64 * 128) + rr * 128 + (((cc & 7) ^ (rr & 7)) << 4);
+  const bool col = cc * 8 < D;
+#pragma unroll
+  for (int u = 0; u < 64 * CPR / 128; ++u) {
+    const int r = rr + u * (128 / CPR);
+    const bool in = col && r0 + r < nrows;
+    const __nv_bfloat16* src = in ? g + (size_t)(r0 + r) * D + cc * 8 : g;
+    const uint32_t a = a0 + u * (128 / CPR) * 128;
+    asm volatile("cp.async.cg.shared.global [%0], [%1], 16, %2;\n" ::"r"(a), "l"(src),
+                 "r"(in ? 16 : 0)
+                 : "memory");
   }
 }
 
-// dtype code of q, k, v and out: 0 = float32, 1 = bfloat16. Returns
-// cudaGetLastError(), or cudaErrorInvalidValue for a head dim, type or grid
-// the kernel does not take.
+// d (m64n64 f32 fragment) += A (smem, K-major) x B (smem, K-major)
+__device__ __forceinline__ void wgmma_m64n64k16_ss(float* d, uint64_t da, uint64_t db,
+                                                    int accumulate) {
+  asm volatile(
+      "{\n.reg .pred p;\nsetp.ne.b32 p, %34, 0;\n"
+      "wgmma.mma_async.sync.aligned.m64n64k16.f32.bf16.bf16 "
+      "{%0, %1, %2, %3, %4, %5, %6, %7, %8, %9, %10, %11, %12, %13, %14, %15, %16, "
+      "%17, %18, %19, %20, %21, %22, %23, %24, %25, %26, %27, %28, %29, %30, %31}, "
+      "%32, %33, p, 1, 1, 0, 0;\n}\n"
+      : "+f"(d[0]), "+f"(d[1]), "+f"(d[2]), "+f"(d[3]), "+f"(d[4]), "+f"(d[5]), "+f"(d[6]),
+        "+f"(d[7]), "+f"(d[8]), "+f"(d[9]), "+f"(d[10]), "+f"(d[11]), "+f"(d[12]),
+        "+f"(d[13]), "+f"(d[14]), "+f"(d[15]), "+f"(d[16]), "+f"(d[17]), "+f"(d[18]),
+        "+f"(d[19]), "+f"(d[20]), "+f"(d[21]), "+f"(d[22]), "+f"(d[23]), "+f"(d[24]),
+        "+f"(d[25]), "+f"(d[26]), "+f"(d[27]), "+f"(d[28]), "+f"(d[29]), "+f"(d[30]),
+        "+f"(d[31])
+      : "l"(da), "l"(db), "r"(accumulate));
+}
+
+// d (m64n64 f32 fragment) += A (registers: four bf16x2) x B (smem, MN-major)
+__device__ __forceinline__ void wgmma_m64n64k16_rs(float* d, const uint32_t* a, uint64_t db,
+                                                    int accumulate) {
+  asm volatile(
+      "{\n.reg .pred p;\nsetp.ne.b32 p, %37, 0;\n"
+      "wgmma.mma_async.sync.aligned.m64n64k16.f32.bf16.bf16 "
+      "{%0, %1, %2, %3, %4, %5, %6, %7, %8, %9, %10, %11, %12, %13, %14, %15, %16, "
+      "%17, %18, %19, %20, %21, %22, %23, %24, %25, %26, %27, %28, %29, %30, %31}, "
+      "{%32, %33, %34, %35}, %36, p, 1, 1, 1;\n}\n"
+      : "+f"(d[0]), "+f"(d[1]), "+f"(d[2]), "+f"(d[3]), "+f"(d[4]), "+f"(d[5]), "+f"(d[6]),
+        "+f"(d[7]), "+f"(d[8]), "+f"(d[9]), "+f"(d[10]), "+f"(d[11]), "+f"(d[12]),
+        "+f"(d[13]), "+f"(d[14]), "+f"(d[15]), "+f"(d[16]), "+f"(d[17]), "+f"(d[18]),
+        "+f"(d[19]), "+f"(d[20]), "+f"(d[21]), "+f"(d[22]), "+f"(d[23]), "+f"(d[24]),
+        "+f"(d[25]), "+f"(d[26]), "+f"(d[27]), "+f"(d[28]), "+f"(d[29]), "+f"(d[30]),
+        "+f"(d[31])
+      : "r"(a[0]), "r"(a[1]), "r"(a[2]), "r"(a[3]), "l"(db), "r"(accumulate));
+}
+
+// d (m64n128 f32 fragment) += A (registers: four bf16x2) x B (smem, MN-major)
+__device__ __forceinline__ void wgmma_m64n128k16_rs(float* d, const uint32_t* a, uint64_t db,
+                                                    int accumulate) {
+  asm volatile(
+      "{\n.reg .pred p;\nsetp.ne.b32 p, %69, 0;\n"
+      "wgmma.mma_async.sync.aligned.m64n128k16.f32.bf16.bf16 "
+      "{%0, %1, %2, %3, %4, %5, %6, %7, %8, %9, %10, %11, %12, %13, %14, %15, %16, "
+      "%17, %18, %19, %20, %21, %22, %23, %24, %25, %26, %27, %28, %29, %30, %31, %32, "
+      "%33, %34, %35, %36, %37, %38, %39, %40, %41, %42, %43, %44, %45, %46, %47, %48, "
+      "%49, %50, %51, %52, %53, %54, %55, %56, %57, %58, %59, %60, %61, %62, %63}, "
+      "{%64, %65, %66, %67}, %68, p, 1, 1, 1;\n}\n"
+      : "+f"(d[0]), "+f"(d[1]), "+f"(d[2]), "+f"(d[3]), "+f"(d[4]), "+f"(d[5]), "+f"(d[6]),
+        "+f"(d[7]), "+f"(d[8]), "+f"(d[9]), "+f"(d[10]), "+f"(d[11]), "+f"(d[12]),
+        "+f"(d[13]), "+f"(d[14]), "+f"(d[15]), "+f"(d[16]), "+f"(d[17]), "+f"(d[18]),
+        "+f"(d[19]), "+f"(d[20]), "+f"(d[21]), "+f"(d[22]), "+f"(d[23]), "+f"(d[24]),
+        "+f"(d[25]), "+f"(d[26]), "+f"(d[27]), "+f"(d[28]), "+f"(d[29]), "+f"(d[30]),
+        "+f"(d[31]), "+f"(d[32]), "+f"(d[33]), "+f"(d[34]), "+f"(d[35]), "+f"(d[36]),
+        "+f"(d[37]), "+f"(d[38]), "+f"(d[39]), "+f"(d[40]), "+f"(d[41]), "+f"(d[42]),
+        "+f"(d[43]), "+f"(d[44]), "+f"(d[45]), "+f"(d[46]), "+f"(d[47]), "+f"(d[48]),
+        "+f"(d[49]), "+f"(d[50]), "+f"(d[51]), "+f"(d[52]), "+f"(d[53]), "+f"(d[54]),
+        "+f"(d[55]), "+f"(d[56]), "+f"(d[57]), "+f"(d[58]), "+f"(d[59]), "+f"(d[60]),
+        "+f"(d[61]), "+f"(d[62]), "+f"(d[63])
+      : "r"(a[0]), "r"(a[1]), "r"(a[2]), "r"(a[3]), "l"(db), "r"(accumulate));
+}
+
+
+template <int DP>
+__device__ __forceinline__ void pv(float* o, const uint32_t* a, uint64_t db);
+template <>
+__device__ __forceinline__ void pv<64>(float* o, const uint32_t* a, uint64_t db) {
+  wgmma_m64n64k16_rs(o, a, db, 1);
+}
+template <>
+__device__ __forceinline__ void pv<128>(float* o, const uint32_t* a, uint64_t db) {
+  wgmma_m64n128k16_rs(o, a, db, 1);
+}
+
+template <int D> struct Geo {
+  static constexpr int DP = (D + 63) / 64 * 64;  // padded width in shared memory
+  static constexpr int TILE = 64 * DP * 2;       // bytes of a 64-row tile
+  static constexpr size_t bytes = 5 * (size_t)TILE + 1024;  // Q, 2 x (K, V), alignment
+};
+
+}  // namespace wg
+
+template <int D>
+__global__ void __launch_bounds__(128)
+fa_wgmma_kernel(const __nv_bfloat16* __restrict__ q, const __nv_bfloat16* __restrict__ k,
+                const __nv_bfloat16* __restrict__ v, __nv_bfloat16* __restrict__ o, int Hq,
+                int G, int Sq, int Skv, float scale, float cap, int causal) {
+  using namespace wg;
+  constexpr int DP = Geo<D>::DP, TILE = Geo<D>::TILE;
+  constexpr int NKS = D / 16;   // k-steps of Q K^T (the pad columns are skipped)
+  constexpr int NO = DP / 2;    // O fragment floats a thread (m64nDP)
+  extern __shared__ uint8_t smem_raw[];
+  const uint32_t sQ = (smem_u32(smem_raw) + 1023u) & ~1023u;  // swizzle atoms: 1 KB
+
+  const int tid = threadIdx.x, warp = tid >> 5, lane = tid & 31, tq = lane & 3;
+  const int bh = blockIdx.x;  // b * Hq + hq
+  const int q0 = (gridDim.y - 1 - blockIdx.y) * BR;
+  const int bkv = (bh / Hq) * (Hq / G) + (bh % Hq) / G;
+  const int off = Skv - Sq;
+  const int qrows = min(BR, Sq - q0);
+  const __nv_bfloat16* kp = k + (size_t)bkv * Skv * D;
+  const __nv_bfloat16* vp = v + (size_t)bkv * Skv * D;
+  const int kend = causal && off + q0 >= 0 ? min(Skv, off + q0 + qrows) : Skv;
+  const int nt = (kend + BN - 1) / BN;
+
+  load_tile<D, DP>(sQ, q + (size_t)bh * Sq * D, q0, Sq);
+  load_tile<D, DP>(sQ + TILE, kp, 0, Skv);
+  load_tile<D, DP>(sQ + 2 * TILE, vp, 0, Skv);
+  asm volatile("cp.async.commit_group;\n" ::: "memory");
+
+  // rows of this thread in the tile: warp * 16 + lane / 4 (+ 8)
+  const int row0 = warp * 16 + (lane >> 2);
+  float m[2] = {-1e30f, -1e30f}, l[2] = {0.f, 0.f};
+  float acc[NO];
+#pragma unroll
+  for (int i = 0; i < NO; ++i) acc[i] = 0.f;
+  const float sl2 = scale * LOG2E;
+
+  for (int j = 0; j < nt; ++j) {
+    const int k0 = j * BN;
+    const uint32_t sK = sQ + TILE * (1 + 2 * (j & 1)), sV = sK + TILE;
+    if (j + 1 < nt) {  // the next tile into the other stage, freed at the end of j - 1
+      const uint32_t nK = sQ + TILE * (1 + 2 * ((j + 1) & 1));
+      load_tile<D, DP>(nK, kp, k0 + BN, Skv);
+      load_tile<D, DP>(nK + TILE, vp, k0 + BN, Skv);
+    }
+    asm volatile("cp.async.commit_group;\n" ::: "memory");
+    asm volatile("cp.async.wait_group 1;\n" ::: "memory");          // tile j has landed
+    asm volatile("fence.proxy.async.shared::cta;\n" ::: "memory");  // visible to wgmma
+    __syncthreads();
+
+    float s[32];
+#pragma unroll
+    for (int i = 0; i < 32; ++i) s[i] = 0.f;
+    pin<32>(s);
+    fence();
+#pragma unroll
+    for (int kk = 0; kk < NKS; ++kk) {
+      const uint32_t o8 = (kk >> 2) * (64 * 128) + (kk & 3) * 32;
+      wgmma_m64n64k16_ss(s, desc(sQ + o8, 16, 1024), desc(sK + o8, 16, 1024), kk > 0);
+    }
+    commit();
+    wait0();
+    pin<32>(s);
+
+    // online softmax in base 2 on the fragment: s[4 n + 2 h + e] is row
+    // row0 + 8 h, key k0 + 8 n + 2 tq + e
+    const bool edge = k0 + BN > Skv || (causal && k0 + BN - 1 > off + q0);
+    // every key visible, no cap: p = 2^(s sl2 - m), one FFMA and one ex2
+    const bool fast = !edge && cap <= 0.f && sl2 > 0.f;
+    float alpha[2];
+#pragma unroll
+    for (int h = 0; h < 2; ++h) {
+      float mx = -1e30f;
+      if (fast) {
+#pragma unroll
+        for (int n = 0; n < 8; ++n)
+          mx = fmaxf(mx, fmaxf(s[4 * n + 2 * h], s[4 * n + 2 * h + 1]));
+        mx *= sl2;
+      } else {
+        const int qpos = off + q0 + row0 + 8 * h;
+        const bool none = causal && qpos < 0;  // sees no key: V's mean over all keys
+#pragma unroll
+        for (int n = 0; n < 8; ++n)
+#pragma unroll
+          for (int e = 0; e < 2; ++e) {
+            const int i = 4 * n + 2 * h + e;
+            const int kpos = k0 + 8 * n + 2 * tq + e;
+            float x = cap > 0.f ? cap * tanhf(s[i] * scale / cap) * LOG2E : s[i] * sl2;
+            if (none) x = 0.f;
+            // masked entries: the sentinel here, p = 0 explicitly below
+            if (!(kpos < Skv && (!causal || none || kpos <= qpos))) x = -INFINITY;
+            s[i] = x;
+            mx = fmaxf(mx, x);
+          }
+      }
+      mx = fmaxf(mx, __shfl_xor_sync(0xffffffffu, mx, 1));
+      mx = fmaxf(mx, __shfl_xor_sync(0xffffffffu, mx, 2));
+      const float mnew = fmaxf(m[h], mx);
+      alpha[h] = ex2(m[h] - mnew);
+      float rs = 0.f;
+      if (fast) {
+#pragma unroll
+        for (int n = 0; n < 8; ++n)
+#pragma unroll
+          for (int e = 0; e < 2; ++e) {
+            const int i = 4 * n + 2 * h + e;
+            s[i] = ex2(fmaf(s[i], sl2, -mnew));
+            rs += s[i];
+          }
+      } else {
+#pragma unroll
+        for (int n = 0; n < 8; ++n)
+#pragma unroll
+          for (int e = 0; e < 2; ++e) {
+            const int i = 4 * n + 2 * h + e;
+            s[i] = s[i] == -INFINITY ? 0.f : ex2(s[i] - mnew);
+            rs += s[i];
+          }
+      }
+      l[h] = l[h] * alpha[h] + rs;  // this lane's share of the row sum
+      m[h] = mnew;
+    }
+    if (alpha[0] != 1.f || alpha[1] != 1.f) {  // a row max moved: rescale O
+#pragma unroll
+      for (int n = 0; n < DP / 8; ++n) {
+        acc[4 * n] *= alpha[0];
+        acc[4 * n + 1] *= alpha[0];
+        acc[4 * n + 2] *= alpha[1];
+        acc[4 * n + 3] *= alpha[1];
+      }
+    }
+
+    // O += P V: P's k16 fragments straight from S's accumulator fragment
+    uint32_t a[4][4];
+#pragma unroll
+    for (int kk = 0; kk < 4; ++kk)
+#pragma unroll
+      for (int r = 0; r < 4; ++r)
+        a[kk][r] = pack_bf16(s[8 * kk + 2 * r], s[8 * kk + 2 * r + 1]);
+    pin<NO>(acc);
+    fence();
+#pragma unroll
+    for (int kk = 0; kk < 4; ++kk) pv<DP>(acc, a[kk], desc(sV + kk * 2048, 64 * 128, 1024));
+    commit();
+    wait0();
+    pin<NO>(acc);
+    __syncthreads();  // stage j & 1 is free for tile j + 2
+  }
+
+  __nv_bfloat16* op = o + ((size_t)bh * Sq + q0) * D;
+#pragma unroll
+  for (int h = 0; h < 2; ++h) {
+    float ls = l[h];
+    ls += __shfl_xor_sync(0xffffffffu, ls, 1);
+    ls += __shfl_xor_sync(0xffffffffu, ls, 2);
+    const float inv = 1.f / fmaxf(ls, 1e-30f);
+    const int r = row0 + 8 * h;
+    if (r >= qrows) continue;
+#pragma unroll
+    for (int n = 0; n < DP / 8; ++n) {
+      const int c = 8 * n + 2 * tq;
+      if (c < D)
+        *reinterpret_cast<__nv_bfloat162*>(op + (size_t)r * D + c) =
+            __floats2bfloat162_rn(acc[4 * n + 2 * h] * inv, acc[4 * n + 2 * h + 1] * inv);
+    }
+  }
+}
+
+template <int D>
+static int launch_bf16(const void* q, const void* k, const void* v, void* o, int B, int Hq,
+                       int Hkv, int Sq, int Skv, float scale, float cap, int causal,
+                       cudaStream_t s) {
+  constexpr size_t bytes = wg::Geo<D>::bytes;
+  static const cudaError_t allowed = cudaFuncSetAttribute(
+      fa_wgmma_kernel<D>, cudaFuncAttributeMaxDynamicSharedMemorySize, (int)bytes);
+  if (allowed != cudaSuccess) return (int)allowed;
+  const dim3 grid(B * Hq, (Sq + wg::BR - 1) / wg::BR);
+  fa_wgmma_kernel<D><<<grid, 128, bytes, s>>>(
+      (const __nv_bfloat16*)q, (const __nv_bfloat16*)k, (const __nv_bfloat16*)v,
+      (__nv_bfloat16*)o, Hq, Hq / Hkv, Sq, Skv, scale, cap, causal);
+  return (int)cudaGetLastError();
+}
+
+// dtype code of q, k, v and out: 0 = float32 (CUDA-core body), 1 =
+// bfloat16 (wgmma body). Returns cudaGetLastError(), or
+// cudaErrorInvalidValue for a head dim, type or grid the kernel does not
+// take.
 extern "C" int flash_attention_launch(const void* q, const void* k, const void* v, void* o,
                                       int B, int Hq, int Hkv, int Sq, int Skv, int D,
                                       float scale, float cap, int causal, int dtype,
                                       void* stream) {
-  if (Hkv <= 0 || Hq % Hkv != 0 || B * Hq > 65535 || Sq <= 0 || Skv <= 0)
+  if (Hkv <= 0 || Hq % Hkv != 0 || B * Hq > 65535 || Sq <= 0 || Skv <= 0 ||
+      (dtype != 0 && dtype != 1))
     return (int)cudaErrorInvalidValue;
   cudaStream_t s = (cudaStream_t)stream;
-  if (dtype == 0) return launch_d<float>(D, q, k, v, o, B, Hq, Hkv, Sq, Skv, scale, cap, causal, s);
-  if (dtype == 1)
-    return launch_d<__nv_bfloat16>(D, q, k, v, o, B, Hq, Hkv, Sq, Skv, scale, cap, causal, s);
-  return (int)cudaErrorInvalidValue;
+#define ARGS q, k, v, o, B, Hq, Hkv, Sq, Skv, scale, cap, causal, s
+  switch (D) {
+    case 16: return dtype == 0 ? launch<float, 16>(ARGS) : launch_bf16<16>(ARGS);
+    case 112: return dtype == 0 ? launch<float, 112>(ARGS) : launch_bf16<112>(ARGS);
+    case 128: return dtype == 0 ? launch<float, 128>(ARGS) : launch_bf16<128>(ARGS);
+    default: return (int)cudaErrorInvalidValue;
+  }
+#undef ARGS
 }

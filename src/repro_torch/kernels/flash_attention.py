@@ -4,7 +4,10 @@ PyTorch version.
 
 Replaces the JAX package's Pallas ``kernels/flash_attention.py::
 flash_attention`` (``_fa_kernel``), and masks the ragged tail of both
-sequence axes where the Pallas kernel asserts they divide its blocks. A
+sequence axes where the Pallas kernel asserts they divide its blocks.
+The kernel has two bodies, chosen by dtype alone: bfloat16 runs both
+products on the tensor cores (``wgmma``), float32 on CUDA cores in exact
+float32 math. A
 CPU tensor takes the plain version -- ``ref.mha``, or ``ref.mha_chunked``
 in 512-query chunks past 1024 queries, as the JAX package's
 ``ops.flash_attention`` dispatches its reference -- and a CUDA tensor
@@ -78,8 +81,8 @@ class _FlashAttention(torch.autograd.Function):
 def flash_attention(q, k, v, *, causal=True, scale=None, logit_soft_cap=0.0):
     """q (B, Hq, Sq, D); k, v (B, Hkv, Skv, D) of q's dtype, float32 or
     bfloat16 -> (B, Hq, Sq, D). Causal with query row i at absolute
-    position i + (Skv - Sq); the kernel takes Skv >= Sq when causal (a
-    row with no visible key is the plain version's uniform average)."""
+    position i + (Skv - Sq); with Skv < Sq a row that sees no key is the
+    mean of V over all Skv keys, as in the plain version."""
     dev = q.device
     if dev.type == "cpu":
         return plain(q, k, v, causal=causal, scale=scale, logit_soft_cap=logit_soft_cap)
@@ -90,14 +93,12 @@ def flash_attention(q, k, v, *, causal=True, scale=None, logit_soft_cap=0.0):
     if Bk != B or Dk != D or v.shape != k.shape or Hkv == 0 or Hq % Hkv:
         raise ValueError(f"bad shapes q {tuple(q.shape)}, k {tuple(k.shape)}, "
                          f"v {tuple(v.shape)}")
-    if causal and Skv < Sq:
-        raise ValueError(f"causal flash_attention kernel needs Skv >= Sq, got "
-                         f"Sq={Sq}, Skv={Skv}")
     if k.dtype != q.dtype or v.dtype != q.dtype:
         raise TypeError("k and v must be in q's dtype")
     for t in (q, k, v):
-        if t.device != dev or not t.is_contiguous():
-            raise ValueError("flash_attention kernel needs contiguous q, k, v on one device")
+        if t.device != dev or not t.is_contiguous() or t.data_ptr() % 16:
+            raise ValueError("flash_attention kernel needs contiguous, 16-byte aligned "
+                             "q, k, v on one device")
     scale = scale if scale is not None else 1.0 / math.sqrt(D)
     if torch.is_grad_enabled() and (q.requires_grad or k.requires_grad or v.requires_grad):
         return _FlashAttention.apply(q, k, v, causal, scale, logit_soft_cap)

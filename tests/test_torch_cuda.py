@@ -233,6 +233,7 @@ FLASH_SHAPES = [
     (1, 32, 8, 300, 300, 128, True, 30.0),       # soft cap
     (1, 32, 32, 250, 250, 112, True, 0.0),       # zamba2's shared block
     (2, 4, 2, 63, 63, 16, True, 0.0),            # the smoke config's training shape
+    (1, 32, 8, 300, 200, 128, True, 0.0),        # causal Skv < Sq
 ]
 
 
@@ -328,15 +329,82 @@ def test_kernels_without_a_gradient_refuse_inputs_that_require_grad_on_card():
 
 
 @pytest.mark.cuda
-def test_flash_attention_refuses_what_it_does_not_take_on_card():
+@pytest.mark.parametrize("dtype", ["float32", "bfloat16"])
+def test_flash_attention_refuses_what_it_does_not_take_on_card(dtype):
     """A head dim the kernel is not built for raises from the launch and
-    counts no launch; a causal call with fewer keys than queries raises."""
+    counts no launch; a causal call with fewer keys than queries matches
+    the plain version (rows that see no key: the mean of V)."""
     _card()
-    q, kv = torch.randn((1, 4, 8, 64), device="cuda"), torch.randn((1, 2, 8, 64), device="cuda")
+    dt = getattr(torch, dtype)
+    atol, rtol = _tol(dtype)
+    q = torch.randn((1, 4, 8, 64), device="cuda").to(dt)
+    kv = torch.randn((1, 2, 8, 64), device="cuda").to(dt)
     before = fa_k.launches
     with pytest.raises(RuntimeError, match="built for"):
         fa_k.flash_attention(q, kv, kv)
     assert fa_k.launches == before
-    short = kv[:, :, :4].contiguous()
-    with pytest.raises(ValueError, match="Skv >= Sq"):
-        fa_k.flash_attention(q, short, short)
+    g = torch.Generator(device="cuda").manual_seed(8)
+    q = torch.randn((1, 4, 8, 16), generator=g, device="cuda").to(dt)
+    k, v = (torch.randn((1, 2, 4, 16), generator=g, device="cuda").to(dt) for _ in "kv")
+    got = fa_k.flash_attention(q, k, v)
+    torch.cuda.synchronize()
+    assert fa_k.launches == before + 1
+    torch.testing.assert_close(got, fa_k.plain(q, k, v), atol=atol, rtol=rtol)
+    torch.testing.assert_close(got[:, :, :4].float(),
+                               v.float().mean(2, keepdim=True).repeat_interleave(
+                                   2, 1).expand(1, 4, 4, 16), atol=atol, rtol=rtol)
+
+
+# decode_attention at (B, Hq, Hkv, S, D, kv_len, cap)
+DECODE_CASES = [
+    (1, 32, 8, 256, 128, [256], 0.0),                              # minitron-8b, B=1
+    (8, 32, 32, 256, 112, [1, 5, 16, 17, 100, 128, 255, 256], 0.0),  # zamba2's shared block
+    (2, 4, 2, 48, 16, [20, 41], 0.0),                              # smoke minitron: G 2
+    (2, 4, 4, 48, 16, [1, 48], 0.0),                               # smoke zamba2: G 1
+    (37, 4, 2, 37, 16, list(range(1, 38)), 0.0),                   # every length 1..S
+    (37, 32, 8, 37, 128, list(range(1, 38)), 0.0),
+    (8, 32, 8, 256, 128, [1, 17, 40, 64, 100, 150, 200, 256], 30.0),  # soft cap
+    (8, 32, 32, 256, 112, [3, 9, 60, 61, 129, 200, 254, 256], 20.0),
+]
+
+
+@pytest.mark.cuda
+@pytest.mark.parametrize("dtype", ["float32", "bfloat16"])
+@pytest.mark.parametrize("B,Hq,Hkv,S,D,lens,cap", DECODE_CASES)
+def test_decode_attention_split_matches_plain_on_card(dtype, B, Hq, Hkv, S, D, lens, cap):
+    """The split kernel and its merge against the plain version: one call,
+    one count, whatever the number of splits."""
+    _card()
+    dt = getattr(torch, dtype)
+    atol, rtol = _tol(dtype)
+    g = torch.Generator(device="cuda").manual_seed(9)
+    q = torch.randn((B, Hq, 1, D), generator=g, device="cuda").to(dt)
+    k = torch.randn((B, Hkv, S, D), generator=g, device="cuda").to(dt)
+    v = torch.randn((B, Hkv, S, D), generator=g, device="cuda").to(dt)
+    kl = torch.tensor(lens, dtype=torch.int32, device="cuda")
+    before = dec_k.launches
+    got = dec_k.decode_attention(q, k, v, kv_len=kl, logit_soft_cap=cap)
+    torch.cuda.synchronize()
+    assert dec_k.launches == before + 1 and got.dtype == dt
+    torch.testing.assert_close(got, dec_k.plain(q, k, v, kv_len=kl, logit_soft_cap=cap),
+                               atol=atol, rtol=rtol)
+
+
+@pytest.mark.cuda
+@pytest.mark.parametrize("D", [16, 112, 128])
+@pytest.mark.parametrize("Sq,Skv,causal,cap", [
+    (200, 200, True, 0.0), (65, 300, True, 0.0), (130, 70, True, 0.0),
+    (100, 190, False, 0.0), (129, 129, True, 25.0), (1, 64, True, 0.0)])
+def test_flash_attention_bf16_wgmma_body_matches_plain_on_card(D, Sq, Skv, causal, cap):
+    """The bf16 body (wgmma) at each head dim it is built for: ragged
+    tiles of both axes, the offset diagonal both ways, non-causal, cap."""
+    _card()
+    g = torch.Generator(device="cuda").manual_seed(10)
+    Hq, Hkv = (32, 32) if D == 112 else (32, 8)
+    q = torch.randn((2, Hq, Sq, D), generator=g, device="cuda").bfloat16()
+    k, v = (torch.randn((2, Hkv, Skv, D), generator=g, device="cuda").bfloat16()
+            for _ in "kv")
+    got = fa_k.flash_attention(q, k, v, causal=causal, logit_soft_cap=cap)
+    torch.cuda.synchronize()
+    torch.testing.assert_close(got, fa_k.plain(q, k, v, causal=causal, logit_soft_cap=cap),
+                               atol=1e-2, rtol=1.6e-2)

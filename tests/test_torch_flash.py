@@ -73,6 +73,8 @@ def test_plain_matches_pallas_interpret(B, Hq, Hkv, Sq, Skv, D, causal, cap):
     (17, 250, True, 0.0), (33, 70, False, 0.0), (63, 63, True, 20.0),
     (1100, 1100, True, 0.0),                 # past 1024 queries: 512-query chunks
     (1030, 1500, True, 0.0),
+    (48, 16, True, 0.0),                     # causal Skv < Sq: rows that see no key
+    (100, 63, True, 20.0),
 ])
 def test_plain_matches_reference_at_ragged_lengths(Sq, Skv, causal, cap):
     q, k, v = _qkv(Sq, 1, 4, 2, Sq, Skv, 16)
