@@ -42,17 +42,25 @@ Phases, each of which fails the run when it fails:
      trains 6 steps of the synthetic stream (batch 2 x seq 1024) through
      make_train_step with the driver's AdamW schedule at a peak lr of 2e-5,
      the last step under the profiler; losses finite and falling, the counters of
-     flash_attention and rmsnorm, zeroed just before, must grow;
+     flash_attention, its backward kernel and rmsnorm, zeroed just before, must
+     grow;
   8. the training driver (python -m repro_torch.launch.train --smoke
      --device cuda): 6 steps with a checkpoint every 3, then again to 8,
      which must resume at step 6 with the data stream where it stopped.
 The kernel phase also holds flash_attention against its plain version at
 the training shape (2, 32/8, 1023, 128), the prefill shape, an offset
 (Skv > Sq), a non-causal, a soft-cap, a D = 112 and a causal Skv < Sq
-case, and its gradient (plain recompute) against plain autograd; it times
-forward (bf16: the wgmma body, with its achieved TFLOP/s; float32: the
-CUDA-core body) and backward beside SDPA's. The reference phase also trains a small float32 minitron 3
-steps on card and CPU (losses and params must agree). The dense path,
+case, in both types, and at each its gradient (the backward kernel)
+against plain autograd and against plain_bwd, two backward calls
+bit-equal; it times the forward (bf16: the wgmma body, with its achieved
+TFLOP/s; float32: the CUDA-core body) beside SDPA and the backward beside
+the plain recompute and SDPA's backward, with its share of the bound.
+Paged attention is also held at every head group the kernel takes (G 6,
+8 and 48, the smoke 4/2, D = 112) over pages in q's type and int8 / fp8
+codes, with a parked slot, and timed with its split plan; the kernels'
+device times (profiler) are printed beside SDPA's. The reference phase
+also trains a small float32 minitron 3 steps on card and CPU (losses and
+params must agree). The dense path,
 before it is freed, holds the whole-prompt prefill (flash_attention)
 against the chunked one over a 250-token prompt.
 Every breakdown profiles one B=8 decode step and one 16-token prefill
@@ -78,6 +86,7 @@ import gc
 import json
 import math
 import os
+import re
 import subprocess
 import sys
 import threading
@@ -121,7 +130,12 @@ KERNELS = {
             "src/repro/kernels/ssm_scan.py:72"),
     "flash_attention": ("src/repro_torch/kernels/csrc/flash_attention.cu",
                         "src/repro/kernels/flash_attention.py:81"),
+    "flash_attention_bwd": ("src/repro_torch/kernels/csrc/flash_attention_bwd.cu",
+                            "src/repro/kernels/ref.py:33 (XLA autodiff of mha)"),
 }
+# paged attention beyond the main path's heads: (Hq, Hkv, D), pages in q's
+# type and int8 / fp8 codes, over a table with a parked slot
+PAGED_HEADS = ((48, 8, 128), (48, 1, 128), (64, 8, 128), (4, 2, 16), (32, 32, 112))
 SSD_REL = 1e-5     # ssd's float32 outputs: max abs err <= SSD_REL * max(1, max |plain|)
 # flash_attention at (B, Hq, Hkv, Sq, Skv, D, causal, cap): the training
 # shape first (minitron-8b heads, T = seq - 1 = 1023), whole-prompt
@@ -211,6 +225,27 @@ def check_ssd(name, got, want):
     if not bool(got.isfinite().all()) or not err <= lim:
         raise AssertionError(f"{name}: max_abs_err {err:.3e} beyond {lim:.3e}")
     return err
+
+
+def device_ms(torch, fn, n=20):
+    """Device time a call of ``fn`` takes, by kernel (profiler, n calls
+    after one warm-up), as text: host time and the L2 state of the
+    per-call timer do not enter it."""
+    from torch.profiler import ProfilerActivity, profile
+    fn()
+    torch.cuda.synchronize()
+    with profile(activities=[ProfilerActivity.CUDA]) as prof:
+        for _ in range(n):
+            fn()
+        torch.cuda.synchronize()
+    evs = sorted((e for e in prof.key_averages()
+                  if getattr(e, "self_device_time_total", 0) > 0),
+                 key=lambda e: -e.self_device_time_total)
+    total = sum(e.self_device_time_total for e in evs) / n / 1e3
+    names = [re.search(r"[A-Za-z]\w*kernel\w*", e.key) for e in evs[:4]]
+    return f"{total:.4f} ms (" + "; ".join(
+        f"{m.group(0) if m else e.key[:40]} {e.self_device_time_total / n / 1e3:.4f}"
+        for m, e in zip(names, evs)) + ")"
 
 
 def bound_ms(nbytes, flops, dtype):
@@ -306,6 +341,14 @@ def kernel_phase(torch, timer):
             bms, by = bound_ms(nbytes, 4 * D * HQ * n_live_keys, dname)
             rows["paged_attention"] = dict(ms=t_k, plain_ms=t_p, library_ms=t_l,
                                            bound_ms=bms, bound_by=by)
+            log(f"time paged_attention B={B} {HQ}/{HKV} D={D} bf16 pages: kernel {t_k:.4f} ms"
+                f"  plain {t_p:.4f} ms  library (SDPA) {t_l:.4f} ms  bound {bms:.6f} ms "
+                f"({by}); {paged_plan(torch, B, HQ, HKV, n_pages, False)}")
+            log("device time paged_attention B=8 bf16 pages: kernel " + device_ms(
+                torch, lambda: pa_k.paged_attention(q, kp, vp, block_tables=bt, kv_len=kv_len,
+                                                    pos_offset=poff))
+                + ", SDPA " + device_ms(torch, lambda: F.scaled_dot_product_attention(
+                    q, gk, gv, attn_mask=mask)))
 
     # ---- quantized paged attention: int8 / fp8 pages, the same tables;
     # saturated codes in the trash page, and scales of 1e6 in the trash
@@ -351,6 +394,16 @@ def kernel_phase(torch, timer):
                 bms, by = bound_ms(nbytes, 4 * D * HQ * n_live_keys, dname)
                 rows["paged_attention_quant"] = dict(ms=t_k, plain_ms=t_p, library_ms=t_l,
                                                      bound_ms=bms, bound_by=by)
+                log(f"time paged_attention_quant B={B} {HQ}/{HKV} D={D} int8 pages, bf16 q: "
+                    f"kernel {t_k:.4f} ms  plain {t_p:.4f} ms  library (SDPA) {t_l:.4f} ms  "
+                    f"bound {bms:.6f} ms ({by}); "
+                    f"{paged_plan(torch, B, HQ, HKV, n_pages, True)}")
+                log("device time paged_attention_quant B=8 int8 pages: kernel " + device_ms(
+                    torch, lambda: pa_k.paged_attention(q, kq, vq, **qkw))
+                    + ", SDPA " + device_ms(torch, lambda: F.scaled_dot_product_attention(
+                        q, gk, gv, attn_mask=mask)))
+
+    paged_heads_phase(torch, timer, rows, randn, g)
 
     # ---- awq_matmul: a decode step's four W4A16 shapes per layer
     for (wname, (M, K, N)) in AWQ_SHAPES.items():
@@ -532,21 +585,113 @@ def kernel_phase(torch, timer):
     return rows
 
 
+def paged_plan(torch, b, hq, hkv, n_pages, quant):
+    """The split plan the paged wrapper makes for these heads, as text."""
+    from repro_torch.kernels import paged_attention as pa_k
+    gb = pa_k.heads_per_block(hq // hkv, quant)
+    n_split, chunk = pa_k.splits(b, hq // gb, n_pages, PAGE,
+                                 torch.cuda.get_device_properties(0).multi_processor_count)
+    return (f"{n_split} splits of {chunk} keys, {gb} query heads a block, "
+            f"{b * hq // gb * n_split} blocks")
+
+
+def paged_heads_phase(torch, timer, rows, randn, g):
+    """Paged attention at every head group the kernel takes (PAGED_HEADS:
+    grok's 48/8, granite's 48/1, deepseek-67b's 64/8, the smoke 4/2,
+    zamba2's D = 112) over pages in q's type and int8 / fp8 codes, with
+    and without a soft cap: ragged kv_len from 1 to the table's length,
+    rolled-out offsets, a parked slot (kv_len 1 on an all-zero row, its
+    output finite and discarded), garbage in the trash page and 1e6 scales
+    in dead pages. G = 48 and G = 6 are timed (bf16 pages) with their
+    split plans."""
+    from repro_torch.kernels import paged_attention as pa_k
+    from repro_torch.kernels import ref
+    n_pages, P, bb = MAX_SEQ // PAGE, 160, 9
+    lens = torch.tensor([1, 2, 16, 17, 40, 100, 200, 256, 1], dtype=torch.int32,
+                        device="cuda")
+    poff = torch.tensor([0, 0, 0, 16, 0, 32, 48, 0, 0], dtype=torch.int32, device="cuda")
+    bt = (torch.randperm(P - 1, generator=g, device="cuda")[:bb * n_pages] + 1).reshape(
+        bb, n_pages).to(torch.int32)
+    live = ((lens - poff + PAGE - 1) // PAGE).tolist()
+    for b in range(bb):
+        bt[b, live[b]:] = 0
+    bt[bb - 1] = 0                                # parked
+    bt = bt.contiguous()
+    dead = torch.tensor(sorted(set(range(P)) - {int(p) for p in bt.flatten().tolist()})
+                        + [0], device="cuda")
+    kw = dict(block_tables=bt, kv_len=lens, pos_offset=poff)
+    for (hq, hkv, d) in PAGED_HEADS:
+        for dname in ("float32", "bfloat16"):
+            dt = getattr(torch, dname)
+            q = randn(bb, hq, 1, d, dtype=dt)
+            for kv in (None, "int8", "float8_e4m3fn"):
+                kp = randn(P, hkv, PAGE, d, dtype=torch.float32)
+                vp = randn(P, hkv, PAGE, d, dtype=torch.float32)
+                if kv is None:
+                    kp, vp, extra, name = kp.to(dt), vp.to(dt), {}, "paged_attention"
+                    kp[0], vp[0] = 1e4, -1e4
+                else:
+                    kp, ks = ref.quantize_kv(kp, getattr(torch, kv))
+                    vp, vs = ref.quantize_kv(vp, getattr(torch, kv))
+                    ks[dead], vs[dead] = 1e6, 1e6
+                    extra, name = dict(k_scales=ks, v_scales=vs), "paged_attention_quant"
+                for cap in (0.0, 30.0):
+                    got = pa_k.paged_attention(q, kp, vp, logit_soft_cap=cap, **kw, **extra)
+                    if not bool(got[-1].isfinite().all()):
+                        raise AssertionError(f"paged_attention {hq}/{hkv}: parked slot")
+                    rows[(name, dname)].append(check_close(
+                        f"{name} {hq}/{hkv} D={d} {kv or 'pages in q type'} cap={cap}",
+                        got[:-1], pa_k.plain(q, kp, vp, logit_soft_cap=cap, **kw,
+                                             **extra)[:-1], dname))
+                if dname == "bfloat16" and kv is None and hkv != hq and hq // hkv in (6, 48):
+                    t_k = timer.ms(lambda: pa_k.paged_attention(q, kp, vp, **kw))
+                    t_p = timer.ms(lambda: pa_k.plain(q, kp, vp, **kw))
+                    log(f"time paged_attention B={bb} (a parked slot) {hq}/{hkv} D={d} G="
+                        f"{hq // hkv} bf16 pages: kernel {t_k:.4f} ms  plain {t_p:.4f} ms; "
+                        f"{paged_plan(torch, bb, hq, hkv, n_pages, False)}")
+
+
 def flash_phase(torch, timer, rows, randn):
     """flash_attention against its plain version at FLASH_SHAPES in both
-    types; at the training shape (bf16) the forward timed beside SDPA and
-    the gradient (autograd.Function: plain recompute) beside SDPA's."""
+    types, forward and gradient: the backward kernel's (dq, dk, dv)
+    against plain autograd and against ``plain_bwd`` on the kernel's own
+    out and lse, under TOL, and two backward calls bit-equal. At the
+    training shape (bf16) the forward is timed beside SDPA, and the
+    backward (autograd.grad through the kernels) beside the plain
+    recompute (autograd of the plain version, forward included: the
+    backward before this kernel) and SDPA's backward."""
     import torch.nn.functional as F
     from repro_torch.kernels import flash_attention as fa_k
+
+    def grads(fn, q, k, v, go, **kw):
+        leaves = [t.detach().clone().requires_grad_() for t in (q, k, v)]
+        return torch.autograd.grad(fn(*leaves, **kw), leaves, go)
+
     for dname in ("float32", "bfloat16"):
         dt = getattr(torch, dname)
         for (b, hq, hkv, sq, skv, d, causal, cap) in FLASH_SHAPES:
             q, k, v = randn(b, hq, sq, d, dtype=dt), randn(b, hkv, skv, d, dtype=dt), \
                 randn(b, hkv, skv, d, dtype=dt)
+            what = f"flash_attention {(b, hq, hkv, sq, skv, d)} causal={causal} cap={cap}"
+            kw = dict(causal=causal, logit_soft_cap=cap)
             rows.setdefault(("flash_attention", dname), []).append(check_close(
-                f"flash_attention {(b, hq, hkv, sq, skv, d)} causal={causal} cap={cap}",
-                fa_k.flash_attention(q, k, v, causal=causal, logit_soft_cap=cap),
-                fa_k.plain(q, k, v, causal=causal, logit_soft_cap=cap), dname))
+                what, fa_k.flash_attention(q, k, v, **kw), fa_k.plain(q, k, v, **kw), dname))
+            go = randn(b, hq, sq, d, dtype=dt)
+            got = grads(fa_k.flash_attention, q, k, v, go, **kw)
+            again = grads(fa_k.flash_attention, q, k, v, go, **kw)
+            want = grads(fa_k.plain, q, k, v, go, **kw)
+            with torch.no_grad():
+                out, lse, out_lo = fa_k._launch(q, k, v, causal, 1.0 / math.sqrt(d), cap, True)
+                if out_lo is not None:           # bf16: the float32 output
+                    out = out.float() + out_lo.float()
+                mine = fa_k.plain_bwd(q, k, v, out, lse, go, **kw)
+            errs = rows.setdefault(("flash_attention_bwd", dname), [])
+            for name, a, a2, w, m in zip("qkv", got, again, want, mine):
+                if not torch.equal(a, a2):
+                    raise AssertionError(f"{what} d{name}: two backward calls differ")
+                errs.append(check_close(f"{what} d{name} vs plain autograd", a, w, dname))
+                errs.append(check_close(f"{what} d{name} vs plain_bwd", a, m, dname))
+            del got, again, want, mine
     b, hq, hkv, sq, skv, d, _, _ = FLASH_SHAPES[0]
     dt = torch.bfloat16
     q, k, v = randn(b, hq, sq, d, dtype=dt), randn(b, hkv, skv, d, dtype=dt), \
@@ -558,35 +703,60 @@ def flash_phase(torch, timer, rows, randn):
     off = skv - sq
     pairs = sum(min(skv, off + i + 1) for i in range(sq))        # visible (query, key)
     nbytes = (2 * q.numel() + k.numel() + v.numel()) * q.element_size()
-    bms, by = bound_ms(nbytes, 4 * b * hq * d * pairs, "bfloat16")
+    flops = 4 * b * hq * d * pairs
+    bms, by = bound_ms(nbytes, flops, "bfloat16")
     rows["flash_attention"] = dict(ms=t_k, plain_ms=t_p, library_ms=t_l,
                                    bound_ms=bms, bound_by=by)
-    # the gradient at the training shape: equal to plain autograd, then timed
+    # the backward at the training shape: through autograd, as training calls it
     qg, kg, vg = (t.clone().requires_grad_() for t in (q, k, v))
     go = randn(b, hq, sq, d, dtype=dt)
     out = fa_k.flash_attention(qg, kg, vg)
-    got = torch.autograd.grad(out, (qg, kg, vg), go, retain_graph=True)
-    want = torch.autograd.grad(fa_k.plain(qg, kg, vg), (qg, kg, vg), go)
-    for name, a, w in zip("qkv", got, want):
-        rows[("flash_attention", "bfloat16")].append(check_close(
-            f"flash_attention grad d{name} at the training shape", a, w, "bfloat16"))
     sdpa = F.scaled_dot_product_attention(qg, kg, vg, is_causal=True, enable_gqa=True)
-    t_bk = timer.ms(lambda: torch.autograd.grad(out, (qg, kg, vg), go, retain_graph=True),
+    t_bk = timer.ms(lambda: torch.autograd.grad(out, (qg, kg, vg), go, retain_graph=True))
+    t_bp = timer.ms(lambda: torch.autograd.grad(fa_k.plain(qg, kg, vg), (qg, kg, vg), go),
                     n=20)
-    t_bl = timer.ms(lambda: torch.autograd.grad(sdpa, (qg, kg, vg), go, retain_graph=True),
-                    n=20)
-    rows["flash_attention_bwd"] = dict(ms=t_bk, library_ms=t_bl)
-    flops = 4 * b * hq * d * pairs
+    t_bl = timer.ms(lambda: torch.autograd.grad(sdpa, (qg, kg, vg), go, retain_graph=True))
+    with torch.no_grad():
+        o, lse, o_lo = fa_k._launch(q, k, v, True, 1.0 / math.sqrt(d), 0.0, True)
+    t_raw = timer.ms(lambda: fa_k._launch_bwd(q, k, v, o, o_lo, lse, go, True,
+                                              1.0 / math.sqrt(d), 0.0, True, True))
+    # five products of the forward's size; read q, k, v, out, out_lo, dout
+    # and lse once, write dq, dk, dv once
+    b_flops = 10 * b * hq * d * pairs
+    b_bytes = (5 * q.numel() + 4 * k.numel()) * q.element_size() + 4 * lse.numel()
+    b_bms, b_by = bound_ms(b_bytes, b_flops, "bfloat16")
+    rows["flash_attention_bwd"] = dict(ms=t_bk, plain_ms=t_bp, library_ms=t_bl,
+                                       bound_ms=b_bms, bound_by=b_by)
+    peak = PEAK_FLOPS["bfloat16"] / 1e12
     log(f"time flash_attention {(b, hq, hkv, sq, skv, d)} bf16 causal (wgmma body): {pairs} "
         f"visible (query, key) pairs a head, {flops / 1e9:.2f} GFLOP, {nbytes / 1e6:.1f} MB; "
         f"forward kernel {t_k:.4f} ms ({flops / t_k / 1e9:.1f} TFLOP/s, "
-        f"{flops / t_k / 1e9 / (PEAK_FLOPS['bfloat16'] / 1e12):.1%} of the bf16 peak), "
-        f"plain {t_p:.4f} ms, SDPA {t_l:.4f} ms ({flops / t_l / 1e9:.1f} TFLOP/s), bound "
-        f"{bms:.5f} ms ({by}); backward (autograd.Function: plain recompute) {t_bk:.4f} ms, "
-        f"SDPA's backward {t_bl:.4f} ms")
-    del out, sdpa, got, want
+        f"{flops / t_k / 1e9 / peak:.1%} of the bf16 peak), plain {t_p:.4f} ms, SDPA "
+        f"{t_l:.4f} ms ({flops / t_l / 1e9:.1f} TFLOP/s), bound {bms:.5f} ms ({by})")
+    log(f"time flash_attention_bwd {(b, hq, hkv, sq, skv, d)} bf16 causal: "
+        f"{b_flops / 1e9:.2f} GFLOP (five products; the bf16 kernels do ten), "
+        f"{b_bytes / 1e6:.1f} MB; backward through autograd {t_bk:.4f} ms "
+        f"({b_flops / t_bk / 1e9:.1f} TFLOP/s, {b_bms / t_bk:.1%} of the bound "
+        f"{b_bms:.5f} ms ({b_by})), the kernel launch alone {t_raw:.4f} ms; plain recompute "
+        f"{t_bp:.4f} ms; SDPA's backward {t_bl:.4f} ms ({b_flops / t_bl / 1e9:.1f} TFLOP/s)")
+    # device time by kernel (profiler): the backward's three launches and
+    # SDPA's backward, the forward with and without what the backward
+    # needs (lse, out_lo) and SDPA's forward
+    for what, fn in (
+            ("backward kernel", lambda: fa_k._launch_bwd(q, k, v, o, o_lo, lse, go, True,
+                                                         1.0 / math.sqrt(d), 0.0, True, True)),
+            ("SDPA's backward", lambda: torch.autograd.grad(sdpa, (qg, kg, vg), go,
+                                                            retain_graph=True)),
+            ("forward writing lse and out_lo",
+             lambda: fa_k._launch(q, k, v, True, 1.0 / math.sqrt(d), 0.0, True)),
+            ("forward", lambda: fa_k._launch(q, k, v, True, 1.0 / math.sqrt(d), 0.0, False)),
+            ("SDPA's forward", lambda: F.scaled_dot_product_attention(
+                q, k, v, is_causal=True, enable_gqa=True))):
+        log(f"device time flash_attention {(b, hq, hkv, sq, skv, d)} {what}: "
+            f"{device_ms(torch, fn)}")
+    del out, sdpa, o, o_lo, lse
     # the whole-prompt prefill's shape (32 launches in the prefill check),
-    # and the float32 body at the training shape
+    # and the float32 bodies at the training shape
     for (b, hq, hkv, sq, skv, d, _, _), dt in ((FLASH_SHAPES[1], torch.bfloat16),
                                                (FLASH_SHAPES[0], torch.float32)):
         q, k, v = randn(b, hq, sq, d, dtype=dt), randn(b, hkv, skv, d, dtype=dt), \
@@ -596,8 +766,17 @@ def flash_phase(torch, timer, rows, randn):
                                                               enable_gqa=True))
         pairs = sum(min(skv, skv - sq + i + 1) for i in range(sq))
         flops = 4 * b * hq * d * pairs
+        extra = ""
+        if dt == torch.float32:
+            go = randn(b, hq, sq, d, dtype=dt)
+            with torch.no_grad():
+                o, lse, _ = fa_k._launch(q, k, v, True, 1.0 / math.sqrt(d), 0.0, True)
+            t_b = timer.ms(lambda: fa_k._launch_bwd(q, k, v, o, None, lse, go, True,
+                                                    1.0 / math.sqrt(d), 0.0, True, True),
+                           n=20)
+            extra = f"; backward kernel {t_b:.4f} ms ({2.5 * flops / t_b / 1e9:.1f} TFLOP/s)"
         log(f"time flash_attention {(b, hq, hkv, sq, skv, d)} {str(dt)[6:]} causal: kernel "
-            f"{t_k:.4f} ms ({flops / t_k / 1e9:.1f} TFLOP/s), SDPA {t_l:.4f} ms")
+            f"{t_k:.4f} ms ({flops / t_k / 1e9:.1f} TFLOP/s), SDPA {t_l:.4f} ms{extra}")
 
 
 # ---------------------------------------------------------------- reference
@@ -691,7 +870,7 @@ def training_reference_phase(torch):
     gpu = model.init(0, "cuda")
     cpu = tree_map(lambda t: t.to("cpu", copy=True), gpu)     # the step updates in place
     runs = {}
-    n_fa, n_rms = fa_k.launches, rms_k.launches
+    n_fa, n_bwd, n_rms = fa_k.launches, fa_k.launches_bwd, rms_k.launches
     for name, params in (("card", gpu), ("cpu", cpu)):
         data = SyntheticLMData(cfg.vocab_size, 2, 64, seed=0)         # T = 63: ragged
         step = make_train_step(model, oc)
@@ -702,8 +881,9 @@ def training_reference_phase(torch):
                                   {"tokens": torch.from_numpy(data.next()["tokens"]).to(dev)})
             losses.append(float(m["loss"]))
         runs[name] = (params, opt, losses)
-    if fa_k.launches == n_fa or rms_k.launches == n_rms:
-        raise AssertionError("reference training did not launch flash_attention and rmsnorm")
+    if fa_k.launches == n_fa or fa_k.launches_bwd == n_bwd or rms_k.launches == n_rms:
+        raise AssertionError("reference training did not launch flash_attention (forward "
+                             "and backward) and rmsnorm")
     (pg, _, lg), (pc, oc_cpu, lc) = runs["card"], runs["cpu"]
     if not np.allclose(lg, lc, atol=TRAIN_LOSS_ATOL, rtol=0):
         raise AssertionError(f"training losses differ card vs CPU: {lg} vs {lc}")
@@ -842,7 +1022,7 @@ def training_phase(torch):
     top = sorted(evs, key=lambda e: -getattr(e, "self_device_time_total", 0))[:10]
     if not (all(np.isfinite(losses)) and losses[-1] < losses[0]):
         raise AssertionError(f"training losses {losses}: not finite, or not falling")
-    for name in ("flash_attention", "rmsnorm"):
+    for name in ("flash_attention", "flash_attention_bwd", "rmsnorm"):
         if launches[name] <= 0:
             raise AssertionError(f"training path: kernel {name} was not launched")
     steady = sorted(walls[1:-1])[len(walls[1:-1]) // 2]
@@ -903,6 +1083,7 @@ def counters():
                                      paged_attention, rmsnorm, ssm_scan)
     return {"rmsnorm": (rmsnorm, "launches"),
             "flash_attention": (flash_attention, "launches"),
+            "flash_attention_bwd": (flash_attention, "launches_bwd"),
             "paged_attention": (paged_attention, "launches"),
             "paged_attention_quant": (paged_attention, "launches_quant"),
             "decode_attention": (decode_attention, "launches"),
@@ -1259,7 +1440,8 @@ def main() -> int:
         f"device {train['dev_ms']:.1f} ms, busy {train['busy'] * 100:.0f}%, peak "
         f"{train['peak_gib']:.2f} GiB; flash_attention backward at the training shape "
         f"{rows['flash_attention_bwd']['ms']:.4f} ms (SDPA's "
-        f"{rows['flash_attention_bwd']['library_ms']:.4f} ms)")
+        f"{rows['flash_attention_bwd']['library_ms']:.4f} ms, bound "
+        f"{rows['flash_attention_bwd']['bound_ms']:.5f} ms)")
     if not all(math.isfinite(k[key]) for k in kernels
                for key in ("ms", "plain_ms", "bound_ms", "max_abs_err")):
         raise AssertionError("a kernel figure is not finite")

@@ -1,3 +1,4 @@
-from repro_torch.configs.registry import ARCHS, PORTED, get_config, get_smoke_config
+from repro_torch.configs.registry import (ARCHS, PORTED, get_config, get_smoke_config,
+                                          list_archs)
 
-__all__ = ["ARCHS", "PORTED", "get_config", "get_smoke_config"]
+__all__ = ["ARCHS", "PORTED", "get_config", "get_smoke_config", "list_archs"]

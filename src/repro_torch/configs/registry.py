@@ -44,3 +44,8 @@ def get_smoke_config(arch: str, **overrides):
     cfg = _load(arch).SMOKE
     return cfg.replace(**overrides) if overrides else cfg
 
+
+def list_archs():
+    """Every architecture the JAX package supports (``get_config`` raises
+    for those not ported yet)."""
+    return list(ARCHS)

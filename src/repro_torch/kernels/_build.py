@@ -1,10 +1,11 @@
 """Build the Hopper kernels from ``csrc/`` and load them with ctypes.
 
 Each ``csrc/<name>.cu`` exposes a plain C interface and compiles on its
-own with ``nvcc`` for ``sm_90a`` into ``build/kernels/`` at the root of
-the checkout (listed in ``.gitignore``). The library name carries a hash
-of the source and flags, so an edited source rebuilds and an unchanged
-one loads straight away. Builds happen at first use, never at import:
+own (with the ``csrc/*.cuh`` headers it includes) with ``nvcc`` for
+``sm_90a`` into ``build/kernels/`` at the root of the checkout (listed in
+``.gitignore``). The library name carries a hash of the source, the
+headers and the flags, so an edited source rebuilds and an unchanged one
+loads straight away. Builds happen at first use, never at import:
 the CPU tests import every module on a machine with no ``nvcc``.
 """
 
@@ -23,8 +24,8 @@ import torch
 
 CSRC = Path(__file__).resolve().parent / "csrc"
 BUILD_DIR = Path(__file__).resolve().parents[3] / "build" / "kernels"
-SOURCES = ("attention", "awq_matmul", "decode_attention", "flash_attention", "rmsnorm",
-           "ssd")
+SOURCES = ("attention", "awq_matmul", "decode_attention", "flash_attention",
+           "flash_attention_bwd", "rmsnorm", "ssd")
 NVCC_FLAGS = ("-gencode", "arch=compute_90a,code=sm_90a", "-std=c++17", "-O3",
               "-shared", "-Xcompiler", "-fPIC")
 
@@ -42,6 +43,8 @@ def _nvcc() -> str:
 
 def _target(name: str) -> Path:
     h = hashlib.sha256((CSRC / f"{name}.cu").read_bytes())
+    for header in sorted(CSRC.glob("*.cuh")):     # shared headers rebuild every user
+        h.update(header.read_bytes())
     h.update(" ".join(NVCC_FLAGS).encode())
     return BUILD_DIR / f"lib{name}-{h.hexdigest()[:16]}.so"
 

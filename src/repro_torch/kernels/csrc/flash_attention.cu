@@ -74,6 +74,11 @@
 //    and one ex2 a score), and O is rescaled only when a row max moved:
 //    the CUDA-core softmax, not the tensor cores, bounded a first version.
 // Both bodies:
+//  * when asked (autograd records the call), write the float32
+//    log-sum-exp of each row's logits, in natural units (ln), for the
+//    backward kernel (flash_attention_bwd.cu): m + log l, the wgmma body's
+//    base-2 (m, l) converted; a row that sees no key gets log(Skv). The
+//    bf16 body then also writes out's rounding remainder (olo, bf16);
 //  * masked entries get p = 0 explicitly, never exp(-1e30 - m): while a
 //    row's max is still the -1e30 sentinel, exp(s - m) of a masked s
 //    would be 1 (the key tail of every ragged row hits this);
@@ -86,6 +91,8 @@
 #include <cuda_bf16.h>
 #include <cuda_runtime.h>
 #include <stdint.h>
+
+#include "wgmma.cuh"
 
 #define THREADS 256
 #define BQ 64           // query rows per block
@@ -108,8 +115,8 @@ template <int D> struct Smem {
 template <typename T, int D>
 __global__ void __launch_bounds__(THREADS)
 fa_kernel(const T* __restrict__ q, const T* __restrict__ k, const T* __restrict__ v,
-          T* __restrict__ o, int Hq, int G, int Sq, int Skv, float scale, float cap,
-          int causal) {
+          T* __restrict__ o, float* __restrict__ lse, int Hq, int G, int Sq, int Skv,
+          float scale, float cap, int causal) {
   constexpr int QS = Smem<D>::QS;
   constexpr int NC = D / 16;  // output columns per thread
   extern __shared__ float4 smem4[];
@@ -249,168 +256,30 @@ fa_kernel(const T* __restrict__ q, const T* __restrict__ k, const T* __restrict_
     const float den = fmaxf(l[i], 1e-30f);
 #pragma unroll
     for (int c = 0; c < NC; ++c) op[(size_t)r * D + tc + 16 * c] = from_f<T>(acc[i][c] / den);
+    if (lse != nullptr && tc == 0) lse[(size_t)bh * Sq + q0 + r] = m[i] + logf(l[i]);
   }
 }
 
 // Lift each instantiation's dynamic shared-memory cap once, then launch it.
 template <typename T, int D>
-static int launch(const void* q, const void* k, const void* v, void* o, int B, int Hq,
-                  int Hkv, int Sq, int Skv, float scale, float cap, int causal,
+static int launch(const void* q, const void* k, const void* v, void* o, float* lse, int B,
+                  int Hq, int Hkv, int Sq, int Skv, float scale, float cap, int causal,
                   cudaStream_t s) {
   static const cudaError_t allowed = cudaFuncSetAttribute(
       fa_kernel<T, D>, cudaFuncAttributeMaxDynamicSharedMemorySize, (int)Smem<D>::bytes);
   if (allowed != cudaSuccess) return (int)allowed;
   const dim3 grid((Sq + BQ - 1) / BQ, B * Hq);
   fa_kernel<T, D><<<grid, THREADS, Smem<D>::bytes, s>>>(
-      (const T*)q, (const T*)k, (const T*)v, (T*)o, Hq, Hq / Hkv, Sq, Skv, scale, cap,
-      causal);
+      (const T*)q, (const T*)k, (const T*)v, (T*)o, lse, Hq, Hq / Hkv, Sq, Skv, scale,
+      cap, causal);
   return (int)cudaGetLastError();
 }
 
-// ------------------------------------------------------------ bf16: wgmma
 namespace wg {
 
-constexpr int BR = 64;       // query rows per block: one wgmma M
-constexpr int BN = 64;       // keys per tile
-constexpr float LOG2E = 1.4426950408889634f;
-
-__device__ __forceinline__ uint32_t smem_u32(const void* p) {
-  return (uint32_t)__cvta_generic_to_shared(p);
-}
-
-// wgmma shared-memory descriptor, 128-byte swizzle; offsets in bytes
-__device__ __forceinline__ uint64_t desc(uint32_t addr, uint32_t lbo, uint32_t sbo) {
-  return (uint64_t)((addr & 0x3FFFF) >> 4) | ((uint64_t)((lbo & 0x3FFFF) >> 4) << 16) |
-         ((uint64_t)((sbo & 0x3FFFF) >> 4) << 32) | (1ull << 62);
-}
-
-__device__ __forceinline__ void fence() {
-  asm volatile("wgmma.fence.sync.aligned;\n" ::: "memory");
-}
-__device__ __forceinline__ void commit() {
-  asm volatile("wgmma.commit_group.sync.aligned;\n" ::: "memory");
-}
-__device__ __forceinline__ void wait0() {
-  asm volatile("wgmma.wait_group.sync.aligned 0;\n" ::: "memory");
-}
-// keep the compiler from moving accumulator accesses across the async mma
-template <int N>
-__device__ __forceinline__ void pin(float* r) {
-#pragma unroll
-  for (int i = 0; i < N; ++i) asm volatile("" : "+f"(r[i])::"memory");
-}
-
-__device__ __forceinline__ float ex2(float x) {  // 2^x, one MUFU op
-  float y;
-  asm("ex2.approx.ftz.f32 %0, %1;" : "=f"(y) : "f"(x));
-  return y;
-}
-
-__device__ __forceinline__ uint32_t pack_bf16(float lo, float hi) {
-  const __nv_bfloat162 h = __floats2bfloat162_rn(lo, hi);  // .x (low half) = lo
-  return *reinterpret_cast<const uint32_t*>(&h);
-}
-
-// Copy rows [r0, r0 + 64) of a (rows, D) bf16 matrix into a 64 x DP tile
-// in the 128-byte swizzle, column blocks of 64 values (8 KB each); rows
-// at or past nrows and columns at or past D are zero-filled.
-template <int D, int DP>
-__device__ __forceinline__ void load_tile(uint32_t dst, const __nv_bfloat16* g, int r0,
-                                          int nrows) {
-  constexpr int CPR = DP / 8;  // 16-byte chunks a padded row
-  // thread t copies chunk cc = t % CPR of rows t / CPR + (128 / CPR) u: the
-  // same chunk and row % 8 on every pass, so one swizzled offset serves all
-  const int cc = threadIdx.x % CPR, rr = threadIdx.x / CPR;
-  const uint32_t a0 = dst + (cc >> 3) * (64 * 128) + rr * 128 + (((cc & 7) ^ (rr & 7)) << 4);
-  const bool col = cc * 8 < D;
-#pragma unroll
-  for (int u = 0; u < 64 * CPR / 128; ++u) {
-    const int r = rr + u * (128 / CPR);
-    const bool in = col && r0 + r < nrows;
-    const __nv_bfloat16* src = in ? g + (size_t)(r0 + r) * D + cc * 8 : g;
-    const uint32_t a = a0 + u * (128 / CPR) * 128;
-    asm volatile("cp.async.cg.shared.global [%0], [%1], 16, %2;\n" ::"r"(a), "l"(src),
-                 "r"(in ? 16 : 0)
-                 : "memory");
-  }
-}
-
-// d (m64n64 f32 fragment) += A (smem, K-major) x B (smem, K-major)
-__device__ __forceinline__ void wgmma_m64n64k16_ss(float* d, uint64_t da, uint64_t db,
-                                                    int accumulate) {
-  asm volatile(
-      "{\n.reg .pred p;\nsetp.ne.b32 p, %34, 0;\n"
-      "wgmma.mma_async.sync.aligned.m64n64k16.f32.bf16.bf16 "
-      "{%0, %1, %2, %3, %4, %5, %6, %7, %8, %9, %10, %11, %12, %13, %14, %15, %16, "
-      "%17, %18, %19, %20, %21, %22, %23, %24, %25, %26, %27, %28, %29, %30, %31}, "
-      "%32, %33, p, 1, 1, 0, 0;\n}\n"
-      : "+f"(d[0]), "+f"(d[1]), "+f"(d[2]), "+f"(d[3]), "+f"(d[4]), "+f"(d[5]), "+f"(d[6]),
-        "+f"(d[7]), "+f"(d[8]), "+f"(d[9]), "+f"(d[10]), "+f"(d[11]), "+f"(d[12]),
-        "+f"(d[13]), "+f"(d[14]), "+f"(d[15]), "+f"(d[16]), "+f"(d[17]), "+f"(d[18]),
-        "+f"(d[19]), "+f"(d[20]), "+f"(d[21]), "+f"(d[22]), "+f"(d[23]), "+f"(d[24]),
-        "+f"(d[25]), "+f"(d[26]), "+f"(d[27]), "+f"(d[28]), "+f"(d[29]), "+f"(d[30]),
-        "+f"(d[31])
-      : "l"(da), "l"(db), "r"(accumulate));
-}
-
-// d (m64n64 f32 fragment) += A (registers: four bf16x2) x B (smem, MN-major)
-__device__ __forceinline__ void wgmma_m64n64k16_rs(float* d, const uint32_t* a, uint64_t db,
-                                                    int accumulate) {
-  asm volatile(
-      "{\n.reg .pred p;\nsetp.ne.b32 p, %37, 0;\n"
-      "wgmma.mma_async.sync.aligned.m64n64k16.f32.bf16.bf16 "
-      "{%0, %1, %2, %3, %4, %5, %6, %7, %8, %9, %10, %11, %12, %13, %14, %15, %16, "
-      "%17, %18, %19, %20, %21, %22, %23, %24, %25, %26, %27, %28, %29, %30, %31}, "
-      "{%32, %33, %34, %35}, %36, p, 1, 1, 1;\n}\n"
-      : "+f"(d[0]), "+f"(d[1]), "+f"(d[2]), "+f"(d[3]), "+f"(d[4]), "+f"(d[5]), "+f"(d[6]),
-        "+f"(d[7]), "+f"(d[8]), "+f"(d[9]), "+f"(d[10]), "+f"(d[11]), "+f"(d[12]),
-        "+f"(d[13]), "+f"(d[14]), "+f"(d[15]), "+f"(d[16]), "+f"(d[17]), "+f"(d[18]),
-        "+f"(d[19]), "+f"(d[20]), "+f"(d[21]), "+f"(d[22]), "+f"(d[23]), "+f"(d[24]),
-        "+f"(d[25]), "+f"(d[26]), "+f"(d[27]), "+f"(d[28]), "+f"(d[29]), "+f"(d[30]),
-        "+f"(d[31])
-      : "r"(a[0]), "r"(a[1]), "r"(a[2]), "r"(a[3]), "l"(db), "r"(accumulate));
-}
-
-// d (m64n128 f32 fragment) += A (registers: four bf16x2) x B (smem, MN-major)
-__device__ __forceinline__ void wgmma_m64n128k16_rs(float* d, const uint32_t* a, uint64_t db,
-                                                    int accumulate) {
-  asm volatile(
-      "{\n.reg .pred p;\nsetp.ne.b32 p, %69, 0;\n"
-      "wgmma.mma_async.sync.aligned.m64n128k16.f32.bf16.bf16 "
-      "{%0, %1, %2, %3, %4, %5, %6, %7, %8, %9, %10, %11, %12, %13, %14, %15, %16, "
-      "%17, %18, %19, %20, %21, %22, %23, %24, %25, %26, %27, %28, %29, %30, %31, %32, "
-      "%33, %34, %35, %36, %37, %38, %39, %40, %41, %42, %43, %44, %45, %46, %47, %48, "
-      "%49, %50, %51, %52, %53, %54, %55, %56, %57, %58, %59, %60, %61, %62, %63}, "
-      "{%64, %65, %66, %67}, %68, p, 1, 1, 1;\n}\n"
-      : "+f"(d[0]), "+f"(d[1]), "+f"(d[2]), "+f"(d[3]), "+f"(d[4]), "+f"(d[5]), "+f"(d[6]),
-        "+f"(d[7]), "+f"(d[8]), "+f"(d[9]), "+f"(d[10]), "+f"(d[11]), "+f"(d[12]),
-        "+f"(d[13]), "+f"(d[14]), "+f"(d[15]), "+f"(d[16]), "+f"(d[17]), "+f"(d[18]),
-        "+f"(d[19]), "+f"(d[20]), "+f"(d[21]), "+f"(d[22]), "+f"(d[23]), "+f"(d[24]),
-        "+f"(d[25]), "+f"(d[26]), "+f"(d[27]), "+f"(d[28]), "+f"(d[29]), "+f"(d[30]),
-        "+f"(d[31]), "+f"(d[32]), "+f"(d[33]), "+f"(d[34]), "+f"(d[35]), "+f"(d[36]),
-        "+f"(d[37]), "+f"(d[38]), "+f"(d[39]), "+f"(d[40]), "+f"(d[41]), "+f"(d[42]),
-        "+f"(d[43]), "+f"(d[44]), "+f"(d[45]), "+f"(d[46]), "+f"(d[47]), "+f"(d[48]),
-        "+f"(d[49]), "+f"(d[50]), "+f"(d[51]), "+f"(d[52]), "+f"(d[53]), "+f"(d[54]),
-        "+f"(d[55]), "+f"(d[56]), "+f"(d[57]), "+f"(d[58]), "+f"(d[59]), "+f"(d[60]),
-        "+f"(d[61]), "+f"(d[62]), "+f"(d[63])
-      : "r"(a[0]), "r"(a[1]), "r"(a[2]), "r"(a[3]), "l"(db), "r"(accumulate));
-}
-
-
-template <int DP>
-__device__ __forceinline__ void pv(float* o, const uint32_t* a, uint64_t db);
-template <>
-__device__ __forceinline__ void pv<64>(float* o, const uint32_t* a, uint64_t db) {
-  wgmma_m64n64k16_rs(o, a, db, 1);
-}
-template <>
-__device__ __forceinline__ void pv<128>(float* o, const uint32_t* a, uint64_t db) {
-  wgmma_m64n128k16_rs(o, a, db, 1);
-}
-
 template <int D> struct Geo {
-  static constexpr int DP = (D + 63) / 64 * 64;  // padded width in shared memory
-  static constexpr int TILE = 64 * DP * 2;       // bytes of a 64-row tile
+  static constexpr int DP = Tile<D>::DP;         // padded width in shared memory
+  static constexpr int TILE = Tile<D>::BYTES;    // bytes of a 64-row tile
   static constexpr size_t bytes = 5 * (size_t)TILE + 1024;  // Q, 2 x (K, V), alignment
 };
 
@@ -419,8 +288,9 @@ template <int D> struct Geo {
 template <int D>
 __global__ void __launch_bounds__(128)
 fa_wgmma_kernel(const __nv_bfloat16* __restrict__ q, const __nv_bfloat16* __restrict__ k,
-                const __nv_bfloat16* __restrict__ v, __nv_bfloat16* __restrict__ o, int Hq,
-                int G, int Sq, int Skv, float scale, float cap, int causal) {
+                const __nv_bfloat16* __restrict__ v, __nv_bfloat16* __restrict__ o,
+                float* __restrict__ lse, __nv_bfloat16* __restrict__ olo, int Hq, int G, int Sq,
+                int Skv, float scale, float cap, int causal) {
   using namespace wg;
   constexpr int DP = Geo<D>::DP, TILE = Geo<D>::TILE;
   constexpr int NKS = D / 16;   // k-steps of Q K^T (the pad columns are skipped)
@@ -564,7 +434,7 @@ fa_wgmma_kernel(const __nv_bfloat16* __restrict__ q, const __nv_bfloat16* __rest
     __syncthreads();  // stage j & 1 is free for tile j + 2
   }
 
-  __nv_bfloat16* op = o + ((size_t)bh * Sq + q0) * D;
+  const size_t obase = ((size_t)bh * Sq + q0) * D;
 #pragma unroll
   for (int h = 0; h < 2; ++h) {
     float ls = l[h];
@@ -573,20 +443,27 @@ fa_wgmma_kernel(const __nv_bfloat16* __restrict__ q, const __nv_bfloat16* __rest
     const float inv = 1.f / fmaxf(ls, 1e-30f);
     const int r = row0 + 8 * h;
     if (r >= qrows) continue;
+    if (lse != nullptr && tq == 0)  // m is in base 2: lse = (m + log2 l) ln 2
+      lse[(size_t)bh * Sq + q0 + r] = (m[h] + log2f(ls)) * 0.6931471805599453f;
 #pragma unroll
     for (int n = 0; n < DP / 8; ++n) {
       const int c = 8 * n + 2 * tq;
-      if (c < D)
-        *reinterpret_cast<__nv_bfloat162*>(op + (size_t)r * D + c) =
-            __floats2bfloat162_rn(acc[4 * n + 2 * h] * inv, acc[4 * n + 2 * h + 1] * inv);
+      if (c >= D) continue;
+      const float x0 = acc[4 * n + 2 * h] * inv, x1 = acc[4 * n + 2 * h + 1] * inv;
+      const __nv_bfloat162 hi = __floats2bfloat162_rn(x0, x1);
+      const size_t at = obase + (size_t)r * D + c;
+      *reinterpret_cast<__nv_bfloat162*>(o + at) = hi;
+      if (olo != nullptr)  // what rounding to bf16 took off
+        *reinterpret_cast<__nv_bfloat162*>(olo + at) =
+            __floats2bfloat162_rn(x0 - __low2float(hi), x1 - __high2float(hi));
     }
   }
 }
 
 template <int D>
-static int launch_bf16(const void* q, const void* k, const void* v, void* o, int B, int Hq,
-                       int Hkv, int Sq, int Skv, float scale, float cap, int causal,
-                       cudaStream_t s) {
+static int launch_bf16(const void* q, const void* k, const void* v, void* o, float* lse,
+                       void* olo, int B, int Hq, int Hkv, int Sq, int Skv, float scale,
+                       float cap, int causal, cudaStream_t s) {
   constexpr size_t bytes = wg::Geo<D>::bytes;
   static const cudaError_t allowed = cudaFuncSetAttribute(
       fa_wgmma_kernel<D>, cudaFuncAttributeMaxDynamicSharedMemorySize, (int)bytes);
@@ -594,28 +471,36 @@ static int launch_bf16(const void* q, const void* k, const void* v, void* o, int
   const dim3 grid(B * Hq, (Sq + wg::BR - 1) / wg::BR);
   fa_wgmma_kernel<D><<<grid, 128, bytes, s>>>(
       (const __nv_bfloat16*)q, (const __nv_bfloat16*)k, (const __nv_bfloat16*)v,
-      (__nv_bfloat16*)o, Hq, Hq / Hkv, Sq, Skv, scale, cap, causal);
+      (__nv_bfloat16*)o, lse, (__nv_bfloat16*)olo, Hq, Hq / Hkv, Sq, Skv, scale, cap, causal);
   return (int)cudaGetLastError();
 }
 
 // dtype code of q, k, v and out: 0 = float32 (CUDA-core body), 1 =
-// bfloat16 (wgmma body). Returns cudaGetLastError(), or
-// cudaErrorInvalidValue for a head dim, type or grid the kernel does not
-// take.
+// bfloat16 (wgmma body). lse, when not null, receives the (B, Hq, Sq)
+// float32 log-sum-exp of each row's logits in natural units (ln), for
+// the backward kernel; a row that sees no key gets log(Skv), the
+// log-sum-exp of the zero logits it is given. olo, when not null (bf16
+// only), receives out's rounding remainder: the float32 output is out +
+// olo to about 16 bits, which the backward's Delta = rowsum(dO o O)
+// needs (from the rounded out alone, the gradient missed the bf16
+// tolerance). Returns cudaGetLastError(), or cudaErrorInvalidValue for a
+// head dim, type or grid the kernel does not take.
 extern "C" int flash_attention_launch(const void* q, const void* k, const void* v, void* o,
-                                      int B, int Hq, int Hkv, int Sq, int Skv, int D,
-                                      float scale, float cap, int causal, int dtype,
-                                      void* stream) {
+                                      float* lse, void* olo, int B, int Hq, int Hkv, int Sq,
+                                      int Skv, int D, float scale, float cap, int causal,
+                                      int dtype, void* stream) {
   if (Hkv <= 0 || Hq % Hkv != 0 || B * Hq > 65535 || Sq <= 0 || Skv <= 0 ||
-      (dtype != 0 && dtype != 1))
+      (dtype != 0 && dtype != 1) || (dtype == 0 && olo != nullptr))
     return (int)cudaErrorInvalidValue;
   cudaStream_t s = (cudaStream_t)stream;
-#define ARGS q, k, v, o, B, Hq, Hkv, Sq, Skv, scale, cap, causal, s
+#define ARGS q, k, v, o, lse, B, Hq, Hkv, Sq, Skv, scale, cap, causal, s
+#define ARGS_BF16 q, k, v, o, lse, olo, B, Hq, Hkv, Sq, Skv, scale, cap, causal, s
   switch (D) {
-    case 16: return dtype == 0 ? launch<float, 16>(ARGS) : launch_bf16<16>(ARGS);
-    case 112: return dtype == 0 ? launch<float, 112>(ARGS) : launch_bf16<112>(ARGS);
-    case 128: return dtype == 0 ? launch<float, 128>(ARGS) : launch_bf16<128>(ARGS);
+    case 16: return dtype == 0 ? launch<float, 16>(ARGS) : launch_bf16<16>(ARGS_BF16);
+    case 112: return dtype == 0 ? launch<float, 112>(ARGS) : launch_bf16<112>(ARGS_BF16);
+    case 128: return dtype == 0 ? launch<float, 128>(ARGS) : launch_bf16<128>(ARGS_BF16);
     default: return (int)cudaErrorInvalidValue;
   }
+#undef ARGS_BF16
 #undef ARGS
 }

@@ -1,0 +1,927 @@
+// Backward of blocked GQA flash attention (causal or not, optional logit
+// soft cap) for Hopper (sm_90a), bound with ctypes: two bodies, chosen by
+// dtype alone, like the forward (flash_attention.cu).
+//
+// Replaces: the gradient the JAX package takes of its attention by XLA's
+// autodiff of the plain src/repro/kernels/ref.py::mha (its Pallas
+// flash_attention has no custom_vjp, so it trains through that
+// reference). It computes that gradient:
+//   x = scale q.k, then cap tanh(x / cap) when cap > 0; causal with query
+//   row i at i + (Skv - Sq); P = softmax(x) over the keys a row sees;
+//   dV = P^T dO, dP = dO V^T, Delta_i = rowsum(dO_i o O_i) (for bf16, O
+//   is the forward's out plus its rounding remainder olo: the float32
+//   output to about 16 bits, as the plain version's autograd has it),
+//   dS = P o (dP - Delta) o dx/ds, dQ = scale dS K, dK = scale dS^T Q,
+//   dK and dV summed over the G = Hq / Hkv query heads of each kv head.
+// P is recomputed from the forward's log-sum-exp (lse, float32, natural
+// units): P = exp(x - lse), so no (Sq, Skv) tensor exists. A causal row
+// that sees no key (i + Skv - Sq < 0) is what the plain version makes of
+// an all-masked row: its softmax is uniform and the mask cuts the
+// gradient to every one of its logits, so the row gives dQ = 0, nothing
+// to dK, and dO_i / Skv to dV at every key. The kernels give it x = 0 on
+// every key (the forward stored lse = log Skv for it, so P = 1 / Skv)
+// and dS = 0 explicitly: exp(-1e30 - lse) of the plain version's
+// sentinel logits could not be reproduced from an lse in float32.
+//
+// What bounds it on the card: operations. The gradient needs five
+// products of the forward's size (Q K^T recomputed, dO V^T, and the three
+// gradient products): 2.5 x 17.2 = 42.9 GFLOP at the training shape
+// (2, 32/8, 1023, 128), 43 us at the bf16 tensor-core peak. The bf16 body
+// does ten: the dK/dV kernel and the dQ kernel each recompute S and dP,
+// so that neither needs atomics nor a second pass over dS in device
+// memory, and the result is the same bits on every run; and each of the
+// three gradient products runs twice, over the bf16 halves hi and lo of
+// P or dS (hi + lo keeps about 16 bits). With P and dS rounded once to
+// bf16, as the forward rounds P, the gradient missed the bf16 tolerance
+// (atol 1e-2 + rtol 1.6e-2 against the plain version's float32 math) on
+// one or two elements in a million at the training shape on the H100.
+//
+// Three launches, in order on the caller's stream:
+//  * Delta: a row's 16-byte vectors of O and dO over a few lanes, float32
+//    fmas, a shuffle sum;
+//  * dK/dV: for each (b * Hkv + kv head, 64-key tile), blocks walk the
+//    query tiles that see its keys (for a causal call, the tiles from the
+//    diagonal on, plus those holding rows that see no key) for the G query
+//    heads of the kv head, keeping dK and dV for the 64 keys in registers.
+//    The bf16 body shares the G heads out over a thread block cluster of
+//    C <= 8 blocks (C the largest divisor of G up to 8), which sum their
+//    float32 dK and dV through distributed shared memory in rank order
+//    (the same sum on every run): one block per key tile walked up to 4 x
+//    16 (head, query tile) steps at the training shape, against 34 on
+//    average, and its time set the kernel's; the float32 body walks all G
+//    heads in one block. Each output is written once, dK times scale;
+//  * dQ: one block per (b * Hq + q head, 64-query tile), the heaviest
+//    causal tiles first, walks the key tiles its rows see, as the forward.
+//
+// Body 1, float32 (CUDA cores, exact float32: fmaf, expf, tanhf), in the
+// structure of the forward's fa_kernel: 256 threads, thread (tr, tc) owns
+// rows tr + 16 i and columns tc + 16 j of the score tile, rows padded to
+// D + 4 floats and read as float4; P and dS go through shared memory to
+// the products with dO, Q and K. The card-vs-CPU training of the small
+// float32 model needs float32 gradients (TF32 keeps about three digits).
+//
+// Body 2, bfloat16 (wgmma, one warpgroup of 128 threads a block), with the
+// forward's building blocks (wgmma.cuh): bf16 tiles of 64 rows in the
+// 128-byte swizzle, copied by cp.async into a two-stage ring (the next
+// tile in flight while this one is computed), D = 112 and 16 padded to
+// 128 and 64 with zero columns.
+//  * dK/dV: S^T = K Q^T and dP^T = V dO^T, m64n64k16 with both operands
+//    K-major in shared memory; P^T and dS^T are formed on the accumulator
+//    fragments in float32 and split into bf16 halves in registers as the
+//    A operands of dV += P^T dO and dK += dS^T Q (m64nDPk16, Q and dO
+//    read MN-major); the query tile's lse and Delta ride the ring as
+//    4-byte cp.async copies;
+//  * dQ: S = Q K^T and dP = dO V^T (_ss), then dQ += dS K with dS's
+//    halves from registers and K read MN-major.
+// Registers: at D = 128, dK and dV hold 64 + 64 floats a thread, S^T and
+// dP^T 32 + 32, one pair of bf16 halves 16 + 16 (dV's products finish
+// before dS is split).
+// Both bodies: D is a template parameter, built for 16 (smoke), 112
+// (zamba2's shared block) and 128 (minitron-8b); another D fails at launch
+// with cudaErrorInvalidValue.
+
+#include <cooperative_groups.h>
+#include <cuda_bf16.h>
+#include <cuda_runtime.h>
+#include <stdint.h>
+
+#include "wgmma.cuh"
+
+namespace cg = cooperative_groups;
+
+// The launch's arguments, one block: flash_attention.py packs it with
+// the same layout (struct format "<11Q8i2fQ", 136 bytes).
+struct BwdArgs {
+  const void *q, *k, *v, *o, *olo;
+  const float* lse;
+  const void* dout;
+  float* delta;
+  void *dq, *dk, *dv;
+  int B, Hq, Hkv, Sq, Skv, D, causal, dtype;
+  float scale, cap;
+  void* stream;
+};
+static_assert(sizeof(BwdArgs) == 136, "BwdArgs layout");
+
+namespace {
+
+template <typename T> __device__ __forceinline__ float to_f(T v);
+template <> __device__ __forceinline__ float to_f<float>(float v) { return v; }
+template <> __device__ __forceinline__ float to_f<__nv_bfloat16>(__nv_bfloat16 v) {
+  return __bfloat162float(v);
+}
+
+// ------------------------------------------------------------------ Delta
+// Delta_i = dO_i . O_i in float32: L lanes a row, each reading one 16-byte
+// vector of O and of dO (4 float32 or 8 bf16), 32 / L rows a warp; for
+// bf16, O is out + olo, the forward's output and its rounding remainder
+__device__ __forceinline__ void vec_f(const float* p, float* f) {
+  const float4 v = __ldg(reinterpret_cast<const float4*>(p));
+  f[0] = v.x; f[1] = v.y; f[2] = v.z; f[3] = v.w;
+}
+__device__ __forceinline__ void vec_f(const __nv_bfloat16* p, float* f) {
+  const uint4 v = __ldg(reinterpret_cast<const uint4*>(p));
+  const uint32_t w[4] = {v.x, v.y, v.z, v.w};
+#pragma unroll
+  for (int i = 0; i < 4; ++i) {
+    f[2 * i] = __uint_as_float(w[i] << 16);
+    f[2 * i + 1] = __uint_as_float(w[i] & 0xffff0000u);
+  }
+}
+
+template <typename T, int D>
+__global__ void __launch_bounds__(256)
+delta_kernel(const T* __restrict__ o, const T* __restrict__ olo, const T* __restrict__ dout,
+             float* __restrict__ delta, int rows) {
+  constexpr int VEC = 16 / (int)sizeof(T), NCH = D / VEC;
+  constexpr int L = NCH <= 2 ? 2 : NCH <= 4 ? 4 : NCH <= 8 ? 8 : NCH <= 16 ? 16 : 32;
+  const int lane = threadIdx.x & 31, c = lane % L;
+  const int row = (blockIdx.x * 8 + (threadIdx.x >> 5)) * (32 / L) + lane / L;
+  float s = 0.f;
+  if (row < rows && c < NCH) {
+    float a[VEC], b[VEC];
+    vec_f(o + (size_t)row * D + c * VEC, a);
+    if (olo != nullptr) {
+      float r[VEC];
+      vec_f(olo + (size_t)row * D + c * VEC, r);
+#pragma unroll
+      for (int e = 0; e < VEC; ++e) a[e] += r[e];
+    }
+    vec_f(dout + (size_t)row * D + c * VEC, b);
+#pragma unroll
+    for (int e = 0; e < VEC; ++e) s = fmaf(a[e], b[e], s);
+  }
+#pragma unroll
+  for (int w = L / 2; w > 0; w >>= 1) s += __shfl_xor_sync(0xffffffffu, s, w);
+  if (row < rows && c == 0) delta[row] = s;
+}
+
+template <typename T, int D>
+static void launch_delta(const void* o, const void* olo, const void* dout, float* delta,
+                         int rows, cudaStream_t s) {
+  constexpr int NCH = D / (16 / (int)sizeof(T));
+  constexpr int L = NCH <= 2 ? 2 : NCH <= 4 ? 4 : NCH <= 8 ? 8 : NCH <= 16 ? 16 : 32;
+  const int per_block = 8 * (32 / L);
+  delta_kernel<T, D><<<(rows + per_block - 1) / per_block, 256, 0, s>>>(
+      (const T*)o, (const T*)olo, (const T*)dout, delta, rows);
+}
+
+// p and dS of one (query, key) pair, float32: s = q.k, dp = dO.v; lse in
+// natural units; vis: the row attends the key; none: the row sees no key
+__device__ __forceinline__ void p_ds(float s, float dp, float lse, float delta, float scale,
+                                     float cap, bool vis, bool none, float& p, float& ds) {
+  float x = s * scale, capf = 1.f;
+  if (cap > 0.f) {
+    const float th = tanhf(x / cap);
+    x = cap * th;
+    capf = 1.f - th * th;
+  }
+  if (none) x = 0.f;
+  p = vis ? expf(x - lse) : 0.f;
+  ds = vis && !none ? p * (dp - delta) * capf : 0.f;
+}
+
+// ------------------------------------------------------ float32: CUDA cores
+constexpr int THREADS = 256;
+constexpr int PS = 48;  // P / dS tile row stride (floats): 32 columns + 16
+
+template <int D> struct F32 {
+  static constexpr int QS = D + 4;  // row stride of the staged Q, dO, K, V (floats)
+  // dQ: Q and dO (64 rows), K and V (32 rows), dS (64 x 32)
+  static constexpr size_t dq_bytes = sizeof(float) * (2 * 64 * QS + 2 * 32 * QS + 64 * PS);
+  // dK/dV: K and V (64 rows), Q and dO (32 rows), P and dS (64 x 32), lse and Delta (32)
+  static constexpr size_t dkv_bytes =
+      sizeof(float) * (2 * 64 * QS + 2 * 32 * QS + 2 * 64 * PS + 2 * 32);
+};
+
+// copy rows [r0, r0 + n) of a (rows, D) float32 matrix into a tile of row
+// stride QS; rows past nrows are zeros
+template <int D>
+__device__ __forceinline__ void stage(float* dst, const float* src, int r0, int n, int nrows) {
+  constexpr int QS = F32<D>::QS;
+  for (int i = threadIdx.x; i < n * D; i += THREADS) {
+    const int r = i / D, c = i % D;
+    dst[r * QS + c] = r0 + r < nrows ? src[(size_t)(r0 + r) * D + c] : 0.f;
+  }
+}
+
+template <int D>
+__global__ void __launch_bounds__(THREADS)
+dq_f32_kernel(const float* __restrict__ q, const float* __restrict__ k,
+              const float* __restrict__ v, const float* __restrict__ dout,
+              const float* __restrict__ lse, const float* __restrict__ delta,
+              float* __restrict__ dq, int Hq, int G, int Sq, int Skv, float scale, float cap,
+              int causal) {
+  constexpr int QS = F32<D>::QS, NC = D / 16;
+  extern __shared__ float4 smem4[];
+  float* sQ = reinterpret_cast<float*>(smem4);
+  float* sG = sQ + 64 * QS;
+  float* sK = sG + 64 * QS;
+  float* sV = sK + 32 * QS;
+  float* sS = sV + 32 * QS;
+
+  const int tid = threadIdx.x, tr = tid >> 4, tc = tid & 15;
+  const int q0 = (gridDim.x - 1 - blockIdx.x) * 64;
+  const int bh = blockIdx.y;  // b * Hq + hq
+  const int bkv = (bh / Hq) * (Hq / G) + (bh % Hq) / G;
+  const int off = Skv - Sq;
+  const int qrows = min(64, Sq - q0);
+  const float* kp = k + (size_t)bkv * Skv * D;
+  const float* vp = v + (size_t)bkv * Skv * D;
+  stage<D>(sQ, q + (size_t)bh * Sq * D, q0, 64, Sq);
+  stage<D>(sG, dout + (size_t)bh * Sq * D, q0, 64, Sq);
+  float rl[4], rd[4], acc[4][NC];
+#pragma unroll
+  for (int i = 0; i < 4; ++i) {
+    const int r = tr + 16 * i;
+    rl[i] = r < qrows ? lse[(size_t)bh * Sq + q0 + r] : 0.f;
+    rd[i] = r < qrows ? delta[(size_t)bh * Sq + q0 + r] : 0.f;
+#pragma unroll
+    for (int c = 0; c < NC; ++c) acc[i][c] = 0.f;
+  }
+
+  // rows that see no key give dS = 0: only the keys the tile's rows see
+  const int kend = causal ? min(Skv, max(0, off + q0 + qrows)) : Skv;
+  for (int k0 = 0; k0 < kend; k0 += 32) {
+    __syncthreads();  // the previous tile's K and dS are consumed
+    stage<D>(sK, kp, k0, 32, Skv);
+    stage<D>(sV, vp, k0, 32, Skv);
+    __syncthreads();
+    float s[4][2], dp[4][2];
+#pragma unroll
+    for (int i = 0; i < 4; ++i)
+#pragma unroll
+      for (int j = 0; j < 2; ++j) s[i][j] = dp[i][j] = 0.f;
+#pragma unroll 2
+    for (int d = 0; d < D; d += 4) {
+      float4 qv[4], gv[4], kv[2], vv[2];
+#pragma unroll
+      for (int i = 0; i < 4; ++i) {
+        qv[i] = *reinterpret_cast<const float4*>(sQ + (tr + 16 * i) * QS + d);
+        gv[i] = *reinterpret_cast<const float4*>(sG + (tr + 16 * i) * QS + d);
+      }
+#pragma unroll
+      for (int j = 0; j < 2; ++j) {
+        kv[j] = *reinterpret_cast<const float4*>(sK + (tc + 16 * j) * QS + d);
+        vv[j] = *reinterpret_cast<const float4*>(sV + (tc + 16 * j) * QS + d);
+      }
+#pragma unroll
+      for (int i = 0; i < 4; ++i)
+#pragma unroll
+        for (int j = 0; j < 2; ++j) {
+          float a = s[i][j], b = dp[i][j];
+          a = fmaf(qv[i].x, kv[j].x, a);
+          a = fmaf(qv[i].y, kv[j].y, a);
+          a = fmaf(qv[i].z, kv[j].z, a);
+          a = fmaf(qv[i].w, kv[j].w, a);
+          b = fmaf(gv[i].x, vv[j].x, b);
+          b = fmaf(gv[i].y, vv[j].y, b);
+          b = fmaf(gv[i].z, vv[j].z, b);
+          b = fmaf(gv[i].w, vv[j].w, b);
+          s[i][j] = a;
+          dp[i][j] = b;
+        }
+    }
+#pragma unroll
+    for (int i = 0; i < 4; ++i) {
+      const int qpos = off + q0 + tr + 16 * i;
+      const bool none = causal && qpos < 0;
+#pragma unroll
+      for (int j = 0; j < 2; ++j) {
+        const int kpos = k0 + tc + 16 * j;
+        const bool vis = kpos < Skv && (!causal || none || kpos <= qpos);
+        float p, ds;
+        p_ds(s[i][j], dp[i][j], rl[i], rd[i], scale, cap, vis, none, p, ds);
+        sS[(tr + 16 * i) * PS + tc + 16 * j] = ds;
+      }
+    }
+    __syncthreads();
+#pragma unroll 2
+    for (int kk = 0; kk < 32; kk += 4) {
+      float4 sv[4];
+#pragma unroll
+      for (int i = 0; i < 4; ++i)
+        sv[i] = *reinterpret_cast<const float4*>(sS + (tr + 16 * i) * PS + kk);
+#pragma unroll
+      for (int t = 0; t < 4; ++t) {
+        float kr[NC];
+#pragma unroll
+        for (int c = 0; c < NC; ++c) kr[c] = sK[(kk + t) * QS + tc + 16 * c];
+#pragma unroll
+        for (int i = 0; i < 4; ++i) {
+          const float x = t == 0 ? sv[i].x : t == 1 ? sv[i].y : t == 2 ? sv[i].z : sv[i].w;
+#pragma unroll
+          for (int c = 0; c < NC; ++c) acc[i][c] = fmaf(x, kr[c], acc[i][c]);
+        }
+      }
+    }
+  }
+
+  float* op = dq + ((size_t)bh * Sq + q0) * D;
+#pragma unroll
+  for (int i = 0; i < 4; ++i) {
+    const int r = tr + 16 * i;
+    if (r >= qrows) continue;
+#pragma unroll
+    for (int c = 0; c < NC; ++c) op[(size_t)r * D + tc + 16 * c] = acc[i][c] * scale;
+  }
+}
+
+template <int D>
+__global__ void __launch_bounds__(THREADS)
+dkdv_f32_kernel(const float* __restrict__ q, const float* __restrict__ k,
+                const float* __restrict__ v, const float* __restrict__ dout,
+                const float* __restrict__ lse, const float* __restrict__ delta,
+                float* __restrict__ dk, float* __restrict__ dv, int Hq, int G, int Sq, int Skv,
+                float scale, float cap, int causal) {
+  constexpr int QS = F32<D>::QS, NC = D / 16;
+  extern __shared__ float4 smem4[];
+  float* sK = reinterpret_cast<float*>(smem4);
+  float* sV = sK + 64 * QS;
+  float* sQ = sV + 64 * QS;
+  float* sG = sQ + 32 * QS;
+  float* sP = sG + 32 * QS;
+  float* sS = sP + 64 * PS;
+  float* sL = sS + 64 * PS;
+  float* sD = sL + 32;
+
+  const int tid = threadIdx.x, tr = tid >> 4, tc = tid & 15;
+  const int k0 = blockIdx.x * 64;
+  const int bkv = blockIdx.y;  // b * Hkv + h
+  const int Hkv = Hq / G, b = bkv / Hkv, h = bkv % Hkv;
+  const int off = Skv - Sq;
+  const int krows = min(64, Skv - k0);
+  stage<D>(sK, k + (size_t)bkv * Skv * D, k0, 64, Skv);
+  stage<D>(sV, v + (size_t)bkv * Skv * D, k0, 64, Skv);
+  float ak[4][NC], av[4][NC];
+#pragma unroll
+  for (int i = 0; i < 4; ++i)
+#pragma unroll
+    for (int c = 0; c < NC; ++c) ak[i][c] = av[i][c] = 0.f;
+
+  for (int g = 0; g < G; ++g) {
+    const size_t bh = (size_t)b * Hq + h * G + g;
+    for (int q0 = 0; q0 < Sq; q0 += 32) {
+      // no row of this query tile sees these keys (and none sees no key)
+      if (causal && off + q0 >= 0 && off + min(q0 + 31, Sq - 1) < k0) continue;
+      __syncthreads();  // the previous tile's Q, dO, P and dS are consumed
+      stage<D>(sQ, q + bh * Sq * D, q0, 32, Sq);
+      stage<D>(sG, dout + bh * Sq * D, q0, 32, Sq);
+      if (tid < 32) {
+        sL[tid] = q0 + tid < Sq ? lse[bh * Sq + q0 + tid] : 0.f;
+        sD[tid] = q0 + tid < Sq ? delta[bh * Sq + q0 + tid] : 0.f;
+      }
+      __syncthreads();
+      float s[4][2], dp[4][2];
+#pragma unroll
+      for (int i = 0; i < 4; ++i)
+#pragma unroll
+        for (int j = 0; j < 2; ++j) s[i][j] = dp[i][j] = 0.f;
+#pragma unroll 2
+      for (int d = 0; d < D; d += 4) {
+        float4 kv[4], vv[4], qv[2], gv[2];
+#pragma unroll
+        for (int i = 0; i < 4; ++i) {
+          kv[i] = *reinterpret_cast<const float4*>(sK + (tr + 16 * i) * QS + d);
+          vv[i] = *reinterpret_cast<const float4*>(sV + (tr + 16 * i) * QS + d);
+        }
+#pragma unroll
+        for (int j = 0; j < 2; ++j) {
+          qv[j] = *reinterpret_cast<const float4*>(sQ + (tc + 16 * j) * QS + d);
+          gv[j] = *reinterpret_cast<const float4*>(sG + (tc + 16 * j) * QS + d);
+        }
+#pragma unroll
+        for (int i = 0; i < 4; ++i)
+#pragma unroll
+          for (int j = 0; j < 2; ++j) {
+            float a = s[i][j], e = dp[i][j];
+            a = fmaf(qv[j].x, kv[i].x, a);
+            a = fmaf(qv[j].y, kv[i].y, a);
+            a = fmaf(qv[j].z, kv[i].z, a);
+            a = fmaf(qv[j].w, kv[i].w, a);
+            e = fmaf(gv[j].x, vv[i].x, e);
+            e = fmaf(gv[j].y, vv[i].y, e);
+            e = fmaf(gv[j].z, vv[i].z, e);
+            e = fmaf(gv[j].w, vv[i].w, e);
+            s[i][j] = a;
+            dp[i][j] = e;
+          }
+      }
+#pragma unroll
+      for (int j = 0; j < 2; ++j) {
+        const int c = tc + 16 * j;
+        const int qpos = off + q0 + c;
+        const bool none = causal && qpos < 0;
+#pragma unroll
+        for (int i = 0; i < 4; ++i) {
+          const int kpos = k0 + tr + 16 * i;
+          const bool vis =
+              q0 + c < Sq && kpos < Skv && (!causal || none || kpos <= qpos);
+          float p, ds;
+          p_ds(s[i][j], dp[i][j], sL[c], sD[c], scale, cap, vis, none, p, ds);
+          sP[(tr + 16 * i) * PS + c] = p;
+          sS[(tr + 16 * i) * PS + c] = ds;
+        }
+      }
+      __syncthreads();
+#pragma unroll 2
+      for (int qq = 0; qq < 32; qq += 4) {
+        float4 pv[4], sv[4];
+#pragma unroll
+        for (int i = 0; i < 4; ++i) {
+          pv[i] = *reinterpret_cast<const float4*>(sP + (tr + 16 * i) * PS + qq);
+          sv[i] = *reinterpret_cast<const float4*>(sS + (tr + 16 * i) * PS + qq);
+        }
+#pragma unroll
+        for (int t = 0; t < 4; ++t) {
+          float gr[NC], qr[NC];
+#pragma unroll
+          for (int c = 0; c < NC; ++c) {
+            gr[c] = sG[(qq + t) * QS + tc + 16 * c];
+            qr[c] = sQ[(qq + t) * QS + tc + 16 * c];
+          }
+#pragma unroll
+          for (int i = 0; i < 4; ++i) {
+            const float x = t == 0 ? pv[i].x : t == 1 ? pv[i].y : t == 2 ? pv[i].z : pv[i].w;
+            const float y = t == 0 ? sv[i].x : t == 1 ? sv[i].y : t == 2 ? sv[i].z : sv[i].w;
+#pragma unroll
+            for (int c = 0; c < NC; ++c) {
+              av[i][c] = fmaf(x, gr[c], av[i][c]);
+              ak[i][c] = fmaf(y, qr[c], ak[i][c]);
+            }
+          }
+        }
+      }
+    }
+  }
+
+  const size_t base = ((size_t)bkv * Skv + k0) * D;
+#pragma unroll
+  for (int i = 0; i < 4; ++i) {
+    const int r = tr + 16 * i;
+    if (r >= krows) continue;
+#pragma unroll
+    for (int c = 0; c < NC; ++c) {
+      dk[base + (size_t)r * D + tc + 16 * c] = ak[i][c] * scale;
+      dv[base + (size_t)r * D + tc + 16 * c] = av[i][c];
+    }
+  }
+}
+
+// ------------------------------------------------------------ bf16: wgmma
+using bf16 = __nv_bfloat16;
+
+__device__ __forceinline__ void cp_async4(uint32_t dst, const float* src, bool in) {
+  asm volatile("cp.async.ca.shared.global [%0], [%1], 4, %2;\n" ::"r"(dst), "l"(src),
+               "r"(in ? 4 : 0)
+               : "memory");
+}
+
+// the k16 A fragments of an m64n64 accumulator fragment as two bf16
+// halves, f = hi + lo to about 16 bits: a gradient product over hi and lo
+// keeps the float32 P and dS where one bf16 rounding (2^-9) does not hold
+// the gradient to the bf16 tolerance of the plain version's
+__device__ __forceinline__ void frag_split(const float* f, uint32_t (*hi)[4],
+                                           uint32_t (*lo)[4]) {
+#pragma unroll
+  for (int kk = 0; kk < 4; ++kk)
+#pragma unroll
+    for (int r = 0; r < 4; ++r) {
+      const float x0 = f[8 * kk + 2 * r], x1 = f[8 * kk + 2 * r + 1];
+      const __nv_bfloat162 h = __floats2bfloat162_rn(x0, x1);
+      hi[kk][r] = *reinterpret_cast<const uint32_t*>(&h);
+      lo[kk][r] = wg::pack_bf16(x0 - __low2float(h), x1 - __high2float(h));
+    }
+}
+
+template <int D>
+__device__ __forceinline__ void store_rows(bf16* dst, const float* acc, int row0, int nrows,
+                                           float mul) {
+  constexpr int DP = wg::Tile<D>::DP;
+  const int tq = threadIdx.x & 3;
+#pragma unroll
+  for (int h = 0; h < 2; ++h) {
+    const int r = row0 + 8 * h;
+    if (r >= nrows) continue;
+#pragma unroll
+    for (int n = 0; n < DP / 8; ++n) {
+      const int c = 8 * n + 2 * tq;
+      if (c < D)
+        *reinterpret_cast<__nv_bfloat162*>(dst + (size_t)r * D + c) =
+            __floats2bfloat162_rn(acc[4 * n + 2 * h] * mul, acc[4 * n + 2 * h + 1] * mul);
+    }
+  }
+}
+
+// x in base-2 units (log2 e times the capped logit) and dx/ds
+__device__ __forceinline__ float logit2(float s, float scale, float sl2, float cap,
+                                        float& capf) {
+  if (cap > 0.f) {
+    const float th = tanhf(s * scale / cap);
+    capf = 1.f - th * th;
+    return cap * th * wg::LOG2E;
+  }
+  capf = 1.f;
+  return s * sl2;
+}
+
+template <int D> struct Bf16 {
+  static constexpr int DP = wg::Tile<D>::DP, TILE = wg::Tile<D>::BYTES;
+  // dQ: Q, dO and two stages of (K, V); dK/dV: K, V and two stages of
+  // (Q, dO), then two stages of (lse, Delta) of 64 floats each
+  static constexpr size_t dq_bytes = 6 * (size_t)TILE + 1024;
+  static constexpr size_t dkv_bytes = 6 * (size_t)TILE + 2 * 512 + 1024;
+};
+
+template <int D>
+__global__ void __launch_bounds__(128)
+dq_wgmma_kernel(const bf16* __restrict__ q, const bf16* __restrict__ k,
+                const bf16* __restrict__ v, const bf16* __restrict__ dout,
+                const float* __restrict__ lse, const float* __restrict__ delta,
+                bf16* __restrict__ dq, int Hq, int G, int Sq, int Skv, float scale, float cap,
+                int causal) {
+  using namespace wg;
+  constexpr int DP = Bf16<D>::DP, TILE = Bf16<D>::TILE;
+  constexpr int NKS = D / 16;  // k-steps over D (the pad columns are skipped)
+  constexpr int NO = DP / 2;   // dQ fragment floats a thread (m64nDP)
+  extern __shared__ uint8_t smem_raw[];
+  const uint32_t sQ = (smem_u32(smem_raw) + 1023u) & ~1023u;
+  const uint32_t sG = sQ + TILE;
+
+  const int tid = threadIdx.x, warp = tid >> 5, lane = tid & 31, tq = lane & 3;
+  const int bh = blockIdx.x;  // b * Hq + hq
+  const int q0 = (gridDim.y - 1 - blockIdx.y) * BR;
+  const int bkv = (bh / Hq) * (Hq / G) + (bh % Hq) / G;
+  const int off = Skv - Sq;
+  const int qrows = min(BR, Sq - q0);
+  const bf16* kp = k + (size_t)bkv * Skv * D;
+  const bf16* vp = v + (size_t)bkv * Skv * D;
+  // rows that see no key give dS = 0: only the keys the tile's rows see
+  const int kend = causal ? min(Skv, max(0, off + q0 + qrows)) : Skv;
+  const int nt = (kend + BN - 1) / BN;
+
+  load_tile<D, DP>(sQ, q + (size_t)bh * Sq * D, q0, Sq);
+  load_tile<D, DP>(sG, dout + (size_t)bh * Sq * D, q0, Sq);
+  if (nt > 0) {
+    load_tile<D, DP>(sQ + 2 * TILE, kp, 0, Skv);
+    load_tile<D, DP>(sQ + 3 * TILE, vp, 0, Skv);
+  }
+  asm volatile("cp.async.commit_group;\n" ::: "memory");
+
+  const int row0 = warp * 16 + (lane >> 2);  // and row0 + 8
+  float l2[2], dl[2];
+#pragma unroll
+  for (int h = 0; h < 2; ++h) {
+    const int r = row0 + 8 * h;
+    l2[h] = r < qrows ? lse[(size_t)bh * Sq + q0 + r] * LOG2E : 0.f;
+    dl[h] = r < qrows ? delta[(size_t)bh * Sq + q0 + r] : 0.f;
+  }
+  float acc[NO];
+#pragma unroll
+  for (int i = 0; i < NO; ++i) acc[i] = 0.f;
+  const float sl2 = scale * LOG2E;
+
+  for (int j = 0; j < nt; ++j) {
+    const int k0 = j * BN;
+    const uint32_t sK = sQ + TILE * (2 + 2 * (j & 1)), sV = sK + TILE;
+    if (j + 1 < nt) {  // the next tile into the other stage, freed at the end of j - 1
+      const uint32_t nK = sQ + TILE * (2 + 2 * ((j + 1) & 1));
+      load_tile<D, DP>(nK, kp, k0 + BN, Skv);
+      load_tile<D, DP>(nK + TILE, vp, k0 + BN, Skv);
+    }
+    asm volatile("cp.async.commit_group;\n" ::: "memory");
+    asm volatile("cp.async.wait_group 1;\n" ::: "memory");
+    asm volatile("fence.proxy.async.shared::cta;\n" ::: "memory");
+    __syncthreads();
+
+    float s[32], dp[32];
+#pragma unroll
+    for (int i = 0; i < 32; ++i) s[i] = dp[i] = 0.f;
+    pin<32>(s);
+    pin<32>(dp);
+    fence();
+#pragma unroll
+    for (int kk = 0; kk < NKS; ++kk) {
+      const uint32_t o8 = (kk >> 2) * (64 * 128) + (kk & 3) * 32;
+      wgmma_m64n64k16_ss(s, desc(sQ + o8, 16, 1024), desc(sK + o8, 16, 1024), kk > 0);
+    }
+#pragma unroll
+    for (int kk = 0; kk < NKS; ++kk) {
+      const uint32_t o8 = (kk >> 2) * (64 * 128) + (kk & 3) * 32;
+      wgmma_m64n64k16_ss(dp, desc(sG + o8, 16, 1024), desc(sV + o8, 16, 1024), kk > 0);
+    }
+    commit();
+    wait0();
+    pin<32>(s);
+    pin<32>(dp);
+
+    // s[4 n + 2 h + e] is row row0 + 8 h, key k0 + 8 n + 2 tq + e
+    const bool edge = k0 + BN > Skv || (causal && (k0 + BN - 1 > off + q0 || off + q0 < 0));
+#pragma unroll
+    for (int h = 0; h < 2; ++h) {
+      const int qpos = off + q0 + row0 + 8 * h;
+      const bool none = causal && qpos < 0;
+#pragma unroll
+      for (int n = 0; n < 8; ++n)
+#pragma unroll
+        for (int e = 0; e < 2; ++e) {
+          const int i = 4 * n + 2 * h + e;
+          const int kpos = k0 + 8 * n + 2 * tq + e;
+          const bool vis = !edge || (kpos < Skv && (!causal || kpos <= qpos) && !none);
+          float capf;
+          const float x2 = logit2(s[i], scale, sl2, cap, capf);
+          const float p = vis ? ex2(x2 - l2[h]) : 0.f;
+          dp[i] = vis ? p * (dp[i] - dl[h]) * capf : 0.f;
+        }
+    }
+
+    // dQ += dS K: dS's k16 fragments (hi and lo) straight from the
+    // accumulator, K MN-major
+    uint32_t hi[4][4], lo[4][4];
+    frag_split(dp, hi, lo);
+    pin<NO>(acc);
+    fence();
+#pragma unroll
+    for (int kk = 0; kk < 4; ++kk) {
+      pv<DP>(acc, hi[kk], desc(sK + kk * 2048, 64 * 128, 1024));
+      pv<DP>(acc, lo[kk], desc(sK + kk * 2048, 64 * 128, 1024));
+    }
+    commit();
+    wait0();
+    pin<NO>(acc);
+    __syncthreads();  // stage j & 1 is free for tile j + 2
+  }
+  asm volatile("cp.async.wait_group 0;\n" ::: "memory");
+  store_rows<D>(dq + ((size_t)bh * Sq + q0) * D, acc, row0, qrows, scale);
+}
+
+template <int D>
+__global__ void __launch_bounds__(128)
+dkdv_wgmma_kernel(const bf16* __restrict__ q, const bf16* __restrict__ k,
+                  const bf16* __restrict__ v, const bf16* __restrict__ dout,
+                  const float* __restrict__ lse, const float* __restrict__ delta,
+                  bf16* __restrict__ dk, bf16* __restrict__ dv, int Hq, int G, int Sq, int Skv,
+                  float scale, float cap, int causal) {
+  using namespace wg;
+  constexpr int DP = Bf16<D>::DP, TILE = Bf16<D>::TILE;
+  constexpr int NKS = D / 16;
+  constexpr int NO = DP / 2;
+  extern __shared__ uint8_t smem_raw[];
+  const uint32_t sK = (smem_u32(smem_raw) + 1023u) & ~1023u;
+  const uint32_t sV = sK + TILE;
+  // stage st: Q at sK + (2 + 2 st) TILE, dO one tile on; lse and Delta after the tiles
+  const uint32_t sLD = sK + 6 * TILE;
+  const float* fLD = reinterpret_cast<const float*>(smem_raw + (sLD - smem_u32(smem_raw)));
+
+  const int tid = threadIdx.x, warp = tid >> 5, lane = tid & 31, tq = lane & 3;
+  const int bkv = blockIdx.x;  // b * Hkv + h
+  const int k0 = blockIdx.y * BN;
+  const int Hkv = Hq / G, b = bkv / Hkv, h = bkv % Hkv;
+  const int off = Skv - Sq;
+  const int krows = min(BN, Skv - k0);
+  // query tiles that see these keys: [0, n_none) holds the rows that see
+  // no key (causal, off < 0), [t_first, nq) the rows at or past key k0
+  const int nq = (Sq + BR - 1) / BR;
+  const int n_none = causal && off < 0 ? (min(-off, Sq) + BR - 1) / BR : 0;
+  const int t_first = !causal ? 0 : k0 - off <= 0 ? 0 : min(nq, (k0 - off) / BR);
+  const int lo = max(t_first, n_none);
+  const int m = n_none + (nq - lo);  // tiles a query head walks
+  // this block's query heads: the gridDim.z blocks of a cluster share them
+  const int gpb = G / gridDim.z, g0 = blockIdx.z * gpb;
+  const int total = gpb * m;
+
+  auto load_q = [&](int it, int st) {  // the it-th (head, query tile) into stage st
+    const int g = g0 + it / m, u = it % m;
+    const int qt0 = (u < n_none ? u : lo + (u - n_none)) * BR;
+    const size_t bh = (size_t)b * Hq + h * G + g;
+    const uint32_t dst = sK + TILE * (2 + 2 * st);
+    load_tile<D, DP>(dst, q + bh * Sq * D, qt0, Sq);
+    load_tile<D, DP>(dst + TILE, dout + bh * Sq * D, qt0, Sq);
+    const int t = tid & 63;
+    const float* src = (tid < 64 ? lse : delta) + bh * Sq + qt0 + t;
+    cp_async4(sLD + st * 512 + tid * 4, qt0 + t < Sq ? src : lse, qt0 + t < Sq);
+  };
+
+  load_tile<D, DP>(sK, k + (size_t)bkv * Skv * D, k0, Skv);
+  load_tile<D, DP>(sV, v + (size_t)bkv * Skv * D, k0, Skv);
+  if (total > 0) load_q(0, 0);
+  asm volatile("cp.async.commit_group;\n" ::: "memory");
+
+  const int row0 = warp * 16 + (lane >> 2);  // keys row0, row0 + 8 of the tile
+  float ak[NO], av[NO];
+#pragma unroll
+  for (int i = 0; i < NO; ++i) ak[i] = av[i] = 0.f;
+  const float sl2 = scale * LOG2E;
+
+  for (int it = 0; it < total; ++it) {
+    const int st = it & 1;
+    const int u = it % m;
+    const int q0 = (u < n_none ? u : lo + (u - n_none)) * BR;
+    const uint32_t sQ = sK + TILE * (2 + 2 * st), sG = sQ + TILE;
+    const float* sL = fLD + st * 128;
+    const float* sD = sL + 64;
+    if (it + 1 < total) load_q(it + 1, st ^ 1);
+    asm volatile("cp.async.commit_group;\n" ::: "memory");
+    asm volatile("cp.async.wait_group 1;\n" ::: "memory");
+    asm volatile("fence.proxy.async.shared::cta;\n" ::: "memory");
+    __syncthreads();
+
+    // S^T = K Q^T and dP^T = V dO^T: rows are keys, columns queries
+    float s[32], dp[32];
+#pragma unroll
+    for (int i = 0; i < 32; ++i) s[i] = dp[i] = 0.f;
+    pin<32>(s);
+    pin<32>(dp);
+    fence();
+#pragma unroll
+    for (int kk = 0; kk < NKS; ++kk) {
+      const uint32_t o8 = (kk >> 2) * (64 * 128) + (kk & 3) * 32;
+      wgmma_m64n64k16_ss(s, desc(sK + o8, 16, 1024), desc(sQ + o8, 16, 1024), kk > 0);
+    }
+#pragma unroll
+    for (int kk = 0; kk < NKS; ++kk) {
+      const uint32_t o8 = (kk >> 2) * (64 * 128) + (kk & 3) * 32;
+      wgmma_m64n64k16_ss(dp, desc(sV + o8, 16, 1024), desc(sG + o8, 16, 1024), kk > 0);
+    }
+    commit();
+    wait0();
+    pin<32>(s);
+    pin<32>(dp);
+
+    // s[4 n + 2 h + e] is key k0 + row0 + 8 h, query q0 + 8 n + 2 tq + e
+#pragma unroll
+    for (int n = 0; n < 8; ++n)
+#pragma unroll
+      for (int e = 0; e < 2; ++e) {
+        const int c = 8 * n + 2 * tq + e;
+        const int qpos = off + q0 + c;
+        const bool none = causal && qpos < 0;
+        const float lq = sL[c] * LOG2E, dq_ = sD[c];
+#pragma unroll
+        for (int hh = 0; hh < 2; ++hh) {
+          const int i = 4 * n + 2 * hh + e;
+          const int kpos = k0 + row0 + 8 * hh;
+          const bool vis = q0 + c < Sq && kpos < Skv && (!causal || none || kpos <= qpos);
+          float capf = 1.f;
+          const float x2 = none ? 0.f : logit2(s[i], scale, sl2, cap, capf);
+          const float p = vis ? ex2(x2 - lq) : 0.f;
+          dp[i] = vis && !none ? p * (dp[i] - dq_) * capf : 0.f;
+          s[i] = p;
+        }
+      }
+
+    // dV += P^T dO, then dK += dS^T Q, the A operands (hi and lo) from
+    // registers, one after the other to keep the registers of one pair
+    uint32_t hi[4][4], lo[4][4];
+    frag_split(s, hi, lo);
+    pin<NO>(av);
+    fence();
+#pragma unroll
+    for (int kk = 0; kk < 4; ++kk) {
+      pv<DP>(av, hi[kk], desc(sG + kk * 2048, 64 * 128, 1024));
+      pv<DP>(av, lo[kk], desc(sG + kk * 2048, 64 * 128, 1024));
+    }
+    commit();
+    wait0();
+    pin<NO>(av);
+    frag_split(dp, hi, lo);
+    pin<NO>(ak);
+    fence();
+#pragma unroll
+    for (int kk = 0; kk < 4; ++kk) {
+      pv<DP>(ak, hi[kk], desc(sQ + kk * 2048, 64 * 128, 1024));
+      pv<DP>(ak, lo[kk], desc(sQ + kk * 2048, 64 * 128, 1024));
+    }
+    commit();
+    wait0();
+    pin<NO>(ak);
+    __syncthreads();  // stage st is free for the tile after next
+  }
+  asm volatile("cp.async.wait_group 0;\n" ::: "memory");
+  const size_t base = ((size_t)bkv * Skv + k0) * D;
+  if (gridDim.z == 1) {
+    store_rows<D>(dk + base, ak, row0, krows, scale);
+    store_rows<D>(dv + base, av, row0, krows, 1.f);
+    return;
+  }
+  // the cluster's blocks sum their dK and dV over their heads through
+  // distributed shared memory, in rank order: each stores its two float32
+  // (64, DP) fragments where the tiles were, then block r writes elements
+  // r * 128 + tid, r * 128 + tid + 128 C, ... of the (krows, D) outputs
+  __syncthreads();  // every wgmma and copy into the tiles is done
+  float* red = reinterpret_cast<float*>(smem_raw + (sK - smem_u32(smem_raw)));
+#pragma unroll
+  for (int h = 0; h < 2; ++h)
+#pragma unroll
+    for (int n = 0; n < DP / 8; ++n) {
+      const int idx = (row0 + 8 * h) * DP + 8 * n + 2 * tq;
+      *reinterpret_cast<float2*>(red + idx) = make_float2(ak[4 * n + 2 * h], ak[4 * n + 2 * h + 1]);
+      *reinterpret_cast<float2*>(red + 64 * DP + idx) =
+          make_float2(av[4 * n + 2 * h], av[4 * n + 2 * h + 1]);
+    }
+  cg::cluster_group cluster = cg::this_cluster();
+  cluster.sync();
+  const int C = (int)cluster.num_blocks(), rank = (int)cluster.block_rank();
+  for (int i = rank * 128 + tid; i < krows * D; i += C * 128) {
+    const int r = i / D, c = i - r * D;
+    float sk = 0.f, sv = 0.f;
+    for (int j = 0; j < C; ++j) {
+      const float* pr = cluster.map_shared_rank(red, j);
+      sk += pr[r * DP + c];
+      sv += pr[64 * DP + r * DP + c];
+    }
+    dk[base + i] = __float2bfloat16(sk * scale);
+    dv[base + i] = __float2bfloat16(sv);
+  }
+  cluster.sync();  // every block's sums stay readable until all have read them
+}
+
+// Lift the kernel's dynamic shared-memory cap, then launch it, in
+// clusters of (1, 1, cz) blocks when cz > 1.
+template <typename... P, typename... A>
+static int run(void (*kernel)(P...), size_t smem, dim3 grid, int threads, cudaStream_t s,
+               int cz, A... args) {
+  cudaError_t e =
+      cudaFuncSetAttribute(kernel, cudaFuncAttributeMaxDynamicSharedMemorySize, (int)smem);
+  if (e != cudaSuccess) return (int)e;
+  cudaLaunchConfig_t cfg = {};
+  cfg.gridDim = grid;
+  cfg.blockDim = dim3(threads);
+  cfg.dynamicSmemBytes = smem;
+  cfg.stream = s;
+  cudaLaunchAttribute attr[1];
+  attr[0].id = cudaLaunchAttributeClusterDimension;
+  attr[0].val.clusterDim.x = 1;
+  attr[0].val.clusterDim.y = 1;
+  attr[0].val.clusterDim.z = cz;
+  cfg.attrs = attr;
+  cfg.numAttrs = cz > 1 ? 1 : 0;
+  e = cudaLaunchKernelEx(&cfg, kernel, args...);
+  return (int)(e != cudaSuccess ? e : cudaGetLastError());
+}
+
+template <int D>
+static int launch_f32(const BwdArgs* a, cudaStream_t s) {
+  const int G = a->Hq / a->Hkv;
+  launch_delta<float, D>(a->o, nullptr, a->dout, a->delta, a->B * a->Hq * a->Sq, s);
+  int e = (int)cudaGetLastError();
+  if (e == 0 && a->dk != nullptr)
+    e = run(dkdv_f32_kernel<D>, F32<D>::dkv_bytes, dim3((a->Skv + 63) / 64, a->B * a->Hkv),
+            THREADS, s, 1, (const float*)a->q, (const float*)a->k, (const float*)a->v,
+            (const float*)a->dout, a->lse, (const float*)a->delta, (float*)a->dk,
+            (float*)a->dv, a->Hq, G, a->Sq, a->Skv, a->scale, a->cap, a->causal);
+  if (e == 0 && a->dq != nullptr)
+    e = run(dq_f32_kernel<D>, F32<D>::dq_bytes, dim3((a->Sq + 63) / 64, a->B * a->Hq),
+            THREADS, s, 1, (const float*)a->q, (const float*)a->k, (const float*)a->v,
+            (const float*)a->dout, a->lse, (const float*)a->delta, (float*)a->dq, a->Hq, G,
+            a->Sq, a->Skv, a->scale, a->cap, a->causal);
+  return e;
+}
+
+template <int D>
+static int launch_bf16(const BwdArgs* a, cudaStream_t s) {
+  const int G = a->Hq / a->Hkv;
+  launch_delta<bf16, D>(a->o, a->olo, a->dout, a->delta, a->B * a->Hq * a->Sq, s);
+  int e = (int)cudaGetLastError();
+  if (e == 0 && a->dk != nullptr) {
+    // a cluster of C blocks shares each kv head's G query heads: the
+    // largest C <= 8 (the portable cluster size) that divides G
+    int C = 1;
+    for (int c = 2; c <= 8; ++c)
+      if (G % c == 0) C = c;
+    e = run(dkdv_wgmma_kernel<D>, Bf16<D>::dkv_bytes,
+            dim3(a->B * a->Hkv, (a->Skv + wg::BN - 1) / wg::BN, C), 128, s, C,
+            (const bf16*)a->q, (const bf16*)a->k, (const bf16*)a->v, (const bf16*)a->dout,
+            a->lse, (const float*)a->delta, (bf16*)a->dk, (bf16*)a->dv, a->Hq, G, a->Sq,
+            a->Skv, a->scale, a->cap, a->causal);
+  }
+  if (e == 0 && a->dq != nullptr)
+    e = run(dq_wgmma_kernel<D>, Bf16<D>::dq_bytes,
+            dim3(a->B * a->Hq, (a->Sq + wg::BR - 1) / wg::BR), 128, s, 1, (const bf16*)a->q,
+            (const bf16*)a->k, (const bf16*)a->v, (const bf16*)a->dout, a->lse,
+            (const float*)a->delta, (bf16*)a->dq, a->Hq, G, a->Sq, a->Skv, a->scale,
+            a->cap, a->causal);
+  return e;
+}
+
+}  // namespace
+
+// dtype code of q, k, v, out, dout and the gradients: 0 = float32 (CUDA
+// cores), 1 = bfloat16 (wgmma). lse is the forward's (natural units);
+// delta is a (B, Hq, Sq) float32 workspace. dq may be null (no query
+// gradient wanted); dk and dv are both given or both null. Returns the
+// first launch error, or cudaErrorInvalidValue for a head dim, type,
+// shape or grid the kernel does not take.
+extern "C" int flash_attention_bwd_launch(const BwdArgs* a) {
+  if (a->Hkv <= 0 || a->Hq % a->Hkv != 0 || a->B <= 0 || (long long)a->B * a->Hq > 65535 ||
+      a->Sq <= 0 || a->Skv <= 0 || (a->dtype != 0 && a->dtype != 1) ||
+      (a->dk == nullptr) != (a->dv == nullptr) || (a->dq == nullptr && a->dk == nullptr) ||
+      (a->D != 16 && a->D != 112 && a->D != 128))
+    return (int)cudaErrorInvalidValue;
+  cudaStream_t s = (cudaStream_t)a->stream;
+  switch (a->D) {
+    case 16: return a->dtype == 0 ? launch_f32<16>(a, s) : launch_bf16<16>(a, s);
+    case 112: return a->dtype == 0 ? launch_f32<112>(a, s) : launch_bf16<112>(a, s);
+    default: return a->dtype == 0 ? launch_f32<128>(a, s) : launch_bf16<128>(a, s);
+  }
+}

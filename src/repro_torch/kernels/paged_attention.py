@@ -6,12 +6,15 @@ Replaces the JAX package's Pallas ``kernels/paged_attention.py::
 paged_attention``: the unquantized body ``_paged_kernel`` for pages in
 q's dtype, and the quantized body ``_paged_kernel_quant`` for int8 or
 float8_e4m3fn pages with float32 per-position scales, dequantized in
-registers. One block per (slot, kv head) walks only the slot's live
-pages through its block-table row; see the source for the design. A CPU
-tensor takes the plain version; ``launches`` counts launches of the
-unquantized body and ``launches_quant`` those of the quantized body.
-It has no gradient: where autograd would record it, it raises
-(``_build.refuse_grad``).
+registers. The kernel splits the keys of each (slot, kv head) into
+ranges of whole pages by the plan of ``splits``, made from the pool's
+addressable length (the table width), one thread block cluster a (slot,
+kv head, head group), and merges the splits' float32 partials through
+the cluster's distributed shared memory; only live pages are read. See
+the source for the design. A CPU tensor takes the plain version;
+``launches`` counts launches over unquantized pages and
+``launches_quant`` those over int8/fp8 codes. It has no gradient: where
+autograd would record it, it raises (``_build.refuse_grad``).
 """
 
 from __future__ import annotations
@@ -19,6 +22,7 @@ from __future__ import annotations
 import ctypes
 import functools
 import math
+import struct
 
 import torch
 
@@ -29,21 +33,46 @@ launches = 0
 launches_quant = 0
 
 KV_CODES = {torch.int8: 2, torch.float8_e4m3fn: 3}
+HEAD_DIMS = (16, 112, 128)
+GROUPS = (1, 2, 4, 6, 8, 48)   # query heads per kv head the kernel takes
+MAX_SPLITS = 8                 # splits of one (slot, kv head): one cluster, 8 blocks at most
+BLOCKS_PER_SM = 2              # the plan aims at least at this many blocks per SM
 
-_ARGS = (ctypes.c_void_p,) * 9 + (ctypes.c_int,) * 6 + (
-    ctypes.c_float, ctypes.c_float, ctypes.c_int, ctypes.c_int, ctypes.c_void_p)
-_SMEM_LIMIT = 48 * 1024      # static limit without a dynamic-smem opt-in
+# csrc/attention.cu's PagedArgs, passed as one block (a ctypes call costs
+# per argument): 9 pointers, 11 ints, 2 floats, padding, the stream
+_PACK = struct.Struct("<9Q11i2f4xQ")
+
+
+def heads_per_block(G: int, quant: bool) -> int:
+    """Query heads one block takes: all G up to 8 (6 and 8 only over
+    pages in q's dtype), else the largest of 8, 4, 2 that divides G. Over
+    int8/fp8 codes a lane holds 16 values of q and of its sum per head, so
+    a block takes at most 4 heads."""
+    for gb in ((4, 2, 1) if quant else (8, 6, 4, 2, 1)):
+        if G % gb == 0:
+            return gb
+    return 1
 
 
 @functools.cache
-def check_smem(G: int, D: int, tile: int):
-    """The kernel stages every tile as float32, whatever the page type,
-    so one layout covers unquantized and quantized pools."""
-    smem = _build.bind("attention", "attention_smem_bytes",
-                       (ctypes.c_int,) * 3, ctypes.c_size_t)(G, D, tile)
-    if smem > _SMEM_LIMIT:
-        raise ValueError(f"attention kernel needs {smem} B of shared memory "
-                         f"for G={G}, D={D}, tile={tile}; limit {_SMEM_LIMIT}")
+def splits(B: int, blocks: int, n_pages: int, page: int, n_sm: int) -> tuple[int, int]:
+    """The split plan: (n_split, chunk). The addressable keys [0, n_pages *
+    page) of each of the B * ``blocks`` (slot, kv head, head group) rows
+    are cut into n_split <= MAX_SPLITS ranges of ``chunk`` positions, a
+    whole number of pages each (the last range is what is left, never
+    empty), so that the B * blocks * n_split blocks come to about
+    BLOCKS_PER_SM a SM where the pages allow. Made from the table's width,
+    never from kv_len: a split whose range starts at or past a slot's live
+    length computes nothing and weighs zero in the merge."""
+    want = -(-BLOCKS_PER_SM * n_sm // (B * blocks))
+    n = min(want, MAX_SPLITS, n_pages)
+    per = -(-n_pages // n)
+    return -(-n_pages // per), per * page
+
+
+@functools.cache
+def _sm_count(index: int) -> int:
+    return torch.cuda.get_device_properties(index).multi_processor_count
 
 
 def as_lengths(x, B: int, device) -> torch.Tensor:
@@ -75,9 +104,13 @@ def paged_attention(q, k_pages, v_pages, *, block_tables, kv_len, scale=None,
     P, Hkv, page, Dk = k_pages.shape
     if dev.type != "cuda":
         raise ValueError(f"paged_attention kernel needs CUDA tensors, got {dev}")
-    if Sq != 1 or Dk != D or v_pages.shape != k_pages.shape or Hq % Hkv:
+    if Sq != 1 or Dk != D or v_pages.shape != k_pages.shape or Hkv == 0 or Hq % Hkv:
         raise ValueError(f"bad shapes q {tuple(q.shape)}, pages "
                          f"{tuple(k_pages.shape)} / {tuple(v_pages.shape)}")
+    if D not in HEAD_DIMS or Hq // Hkv not in GROUPS:
+        raise ValueError(f"paged_attention kernel is built for D in {HEAD_DIMS} and "
+                         f"Hq / Hkv in {GROUPS}, got D={D}, Hq={Hq}, Hkv={Hkv} (other "
+                         "head shapes come with their configs: ROADMAP queue 1 item 2)")
     quant = k_scales is not None or v_scales is not None
     if v_pages.dtype != k_pages.dtype:
         raise TypeError(f"k pages {k_pages.dtype} and v pages {v_pages.dtype} differ")
@@ -92,28 +125,32 @@ def paged_attention(q, k_pages, v_pages, *, block_tables, kv_len, scale=None,
             if s is None or s.dtype != torch.float32 or s.shape != (P, Hkv, page):
                 raise TypeError(f"k_scales and v_scales must both be ({P}, {Hkv}, "
                                 f"{page}) float32")
-    if block_tables.dtype != torch.int32 or block_tables.shape[0] != B:
+    if block_tables.dtype != torch.int32 or block_tables.dim() != 2 \
+            or block_tables.shape[0] != B:
         raise TypeError("block_tables must be (B, n_pages) int32")
     for t in (q, k_pages, v_pages, block_tables) + ((k_scales, v_scales) if quant else ()):
-        if t.device != dev or not t.is_contiguous():
-            raise ValueError("paged_attention kernel needs contiguous tensors "
-                             "on one device")
-    check_smem(Hq // Hkv, D, page)
+        if t.device != dev or not t.is_contiguous() or t.data_ptr() % 16:
+            raise ValueError("paged_attention kernel needs contiguous, 16-byte aligned "
+                             "tensors on one device")
     kv_len = as_lengths(kv_len, B, dev)
     pos_offset = as_lengths(0 if pos_offset is None else pos_offset, B, dev)
     out = torch.empty_like(q)
-    if B == 0:
+    n_pages = block_tables.shape[1]
+    if B == 0 or n_pages == 0:
         return out
     scale = scale if scale is not None else 1.0 / math.sqrt(D)
-    err = _build.bind("attention", "paged_attention_launch", _ARGS)(
-        q.data_ptr(), k_pages.data_ptr(), v_pages.data_ptr(),
-        k_scales.data_ptr() if quant else None, v_scales.data_ptr() if quant else None,
-        block_tables.data_ptr(), kv_len.data_ptr(), pos_offset.data_ptr(),
-        out.data_ptr(), B, Hq, Hkv, D, page, block_tables.shape[1], float(scale),
-        float(logit_soft_cap), _build.dtype_code(q),
-        KV_CODES[k_pages.dtype] if quant else 0,
-        torch.cuda.current_stream(dev).cuda_stream)
-    _build.check(err, "paged_attention")
+    gb = heads_per_block(Hq // Hkv, quant)
+    n_split, chunk = splits(B, Hq // gb, n_pages, page, _sm_count(dev.index))
+    args = _PACK.pack(q.data_ptr(), k_pages.data_ptr(), v_pages.data_ptr(),
+                      k_scales.data_ptr() if quant else 0,
+                      v_scales.data_ptr() if quant else 0, block_tables.data_ptr(),
+                      kv_len.data_ptr(), pos_offset.data_ptr(), out.data_ptr(), B, Hq, Hkv,
+                      D, page, n_pages, n_split, chunk, gb, _build.dtype_code(q),
+                      KV_CODES[k_pages.dtype] if quant else 0, scale, logit_soft_cap,
+                      _build.raw_stream(dev))
+    err = _build.bind("attention", "paged_attention_launch", (ctypes.c_char_p,))(args)
+    _build.check(err, f"paged_attention ({n_split} splits of {chunk} keys, {gb} query "
+                      "heads a block)")
     if quant:
         launches_quant += 1
     else:

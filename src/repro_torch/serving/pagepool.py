@@ -182,6 +182,9 @@ class PagePool:
         self.bytes_copied = 0
 
     # ------------------------------------------------------------ allocator
+    def n_free(self) -> int:
+        return len(self._free)
+
     def occupancy(self) -> int:
         """Pages currently allocated (capacity minus the free list)."""
         return self.capacity - len(self._free)

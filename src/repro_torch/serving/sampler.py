@@ -82,6 +82,15 @@ class GenerationParams:
         return {"max_tokens": self.max_tokens, "temperature": self.temperature,
                 "top_p": self.top_p, "stop": list(self.stop), "seed": self.seed}
 
+    def resolve(self, sc: SamplerConfig) -> SamplerConfig:
+        """Effective sampler for this request over the engine default."""
+        return SamplerConfig(
+            temperature=(self.temperature if self.temperature is not None
+                         else sc.temperature),
+            top_k=sc.top_k,
+            top_p=self.top_p if self.top_p is not None else sc.top_p,
+            vocab_size=sc.vocab_size)
+
 
 class StopMatcher:
     """Incremental stop-sequence matching with OpenAI semantics, shared
@@ -150,6 +159,29 @@ def _nucleus_mask(z, probs, top_p):
     keep_n = torch.sum(cum < top_p, dim=-1, keepdim=True) + 1
     thresh = torch.gather(sp, -1, (keep_n - 1).clamp(max=sp.shape[-1] - 1))
     return torch.where((top_p >= 1.0) | (probs >= thresh), z, -1e30)
+
+
+def sample(logits, rng, sc: SamplerConfig):
+    """logits (B, V) -> token ids (B,) int64; one shared config and one
+    key pair ``rng`` for the batch: argmax at temperature <= 0, else
+    temperature, top-k, top-p, then ``jax.random.categorical(rng, z)``'s
+    draw over the whole (B, V) batch (one key, counts 0 .. B V - 1)."""
+    logits = _mask_vocab(logits, sc)
+    if sc.temperature <= 0.0:
+        return torch.argmax(logits, dim=-1)
+    z = logits / sc.temperature
+    if sc.top_k:
+        kth = torch.topk(z, sc.top_k, dim=-1).values[..., -1:]
+        z = torch.where(z < kth, -1e30, z)
+    if sc.top_p < 1.0:
+        probs = torch.softmax(z, dim=-1)
+        z = _nucleus_mask(z, probs, torch.full((z.shape[0], 1), sc.top_p,
+                                               device=z.device))
+    k1, k2 = (torch.tensor([int(k) & prng.MASK], dtype=torch.int64, device=z.device)
+              for k in rng)
+    B, V = z.shape
+    noise = prng.gumbel(k1, k2, B * V).reshape(B, V)
+    return torch.argmax(noise + z, dim=-1)
 
 
 def slot_keys(rng, seeds, steps):

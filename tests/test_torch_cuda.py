@@ -408,3 +408,151 @@ def test_flash_attention_bf16_wgmma_body_matches_plain_on_card(D, Sq, Skv, causa
     torch.cuda.synchronize()
     torch.testing.assert_close(got, fa_k.plain(q, k, v, causal=causal, logit_soft_cap=cap),
                                atol=1e-2, rtol=1.6e-2)
+
+
+def _grads(q, k, v, go, fn, **kw):
+    """(dq, dk, dv) of fn(q, k, v, **kw) against go, for fresh leaves."""
+    leaves = [t.detach().clone().requires_grad_() for t in (q, k, v)]
+    return torch.autograd.grad(fn(*leaves, **kw), leaves, go)
+
+
+@pytest.mark.cuda
+@pytest.mark.parametrize("dtype", ["float32", "bfloat16"])
+@pytest.mark.parametrize("B,Hq,Hkv,Sq,Skv,D,causal,cap", FLASH_SHAPES)
+def test_flash_attention_backward_kernel_matches_plain_on_card(dtype, B, Hq, Hkv, Sq, Skv, D,
+                                                              causal, cap, monkeypatch):
+    """The backward kernel (one launch a backward call, never the plain
+    recompute) against plain autograd and against ``plain_bwd`` on the
+    forward kernel's own out (plus its rounding remainder, for bf16) and
+    lse; two backward calls give the same bits."""
+    _card()
+    from repro_torch.kernels import _build
+
+    def no_recompute(ctx, g, plain, n_args):
+        assert plain is not fa_k.plain, "flash_attention's backward recomputed the plain version"
+        return _build_plain_backward(ctx, g, plain, n_args)
+
+    _build_plain_backward = _build.plain_backward
+    monkeypatch.setattr(_build, "plain_backward", no_recompute)
+    dt = getattr(torch, dtype)
+    atol, rtol = _tol(dtype)
+    g = torch.Generator(device="cuda").manual_seed(11)
+    q = torch.randn((B, Hq, Sq, D), generator=g, device="cuda").to(dt)
+    k = torch.randn((B, Hkv, Skv, D), generator=g, device="cuda").to(dt)
+    v = torch.randn((B, Hkv, Skv, D), generator=g, device="cuda").to(dt)
+    go = torch.randn((B, Hq, Sq, D), generator=g, device="cuda").to(dt)
+    kw = dict(causal=causal, logit_soft_cap=cap)
+    before = fa_k.launches_bwd
+    got = _grads(q, k, v, go, fa_k.flash_attention, **kw)
+    torch.cuda.synchronize()
+    assert fa_k.launches_bwd == before + 1
+    again = _grads(q, k, v, go, fa_k.flash_attention, **kw)
+    want = _grads(q, k, v, go, fa_k.plain, **kw)
+    with torch.no_grad():
+        out, lse, out_lo = fa_k._launch(q, k, v, causal, 1.0 / D ** 0.5, cap, True)
+        if out_lo is not None:                     # bf16: the float32 output
+            out = out.float() + out_lo.float()
+        mine = fa_k.plain_bwd(q, k, v, out, lse, go, **kw)
+    for name, a, b, w, p in zip("qkv", got, again, want, mine):
+        assert a.dtype == dt and torch.equal(a, b), f"d{name} differs between two calls"
+        torch.testing.assert_close(a, w, atol=atol, rtol=rtol, msg=lambda m: f"d{name}: {m}")
+        torch.testing.assert_close(a, p, atol=atol, rtol=rtol, msg=lambda m: f"d{name}: {m}")
+
+
+@pytest.mark.cuda
+@pytest.mark.parametrize("dtype", ["float32", "bfloat16"])
+def test_flash_attention_backward_for_one_input_on_card(dtype):
+    """Only the inputs that need a gradient get one: k alone, then q
+    alone, each equal to plain autograd's."""
+    _card()
+    dt = getattr(torch, dtype)
+    atol, rtol = _tol(dtype)
+    g = torch.Generator(device="cuda").manual_seed(12)
+    q, go = (torch.randn((2, 32, 130, 128), generator=g, device="cuda").to(dt) for _ in "qg")
+    k, v = (torch.randn((2, 8, 130, 128), generator=g, device="cuda").to(dt) for _ in "kv")
+    want = _grads(q, k, v, go, fa_k.plain)
+    for i in range(3):
+        ins = [t.detach().clone().requires_grad_(j == i) for j, t in enumerate((q, k, v))]
+        out = fa_k.flash_attention(*ins)
+        got, = torch.autograd.grad(out, ins[i], go)
+        torch.testing.assert_close(got, want[i], atol=atol, rtol=rtol)
+        assert all(t.grad is None for t in ins)
+
+
+# paged attention at (Hq, Hkv, D): every head group the kernel takes
+PAGED_HEADS = [
+    (4, 2, 16),       # smoke: G 2
+    (4, 4, 16),       # G 1
+    (32, 8, 128),     # minitron-8b: G 4
+    (48, 8, 128),     # grok: G 6
+    (64, 8, 128),     # deepseek-67b: G 8
+    (48, 1, 128),     # granite-20b: G 48
+    (32, 32, 112),    # D 112, G 1
+]
+
+
+@pytest.mark.cuda
+@pytest.mark.parametrize("kv", [None, "int8", "float8_e4m3fn"])
+@pytest.mark.parametrize("dtype", ["float32", "bfloat16"])
+@pytest.mark.parametrize("Hq,Hkv,D", PAGED_HEADS)
+def test_paged_attention_split_matches_plain_on_card(dtype, kv, Hq, Hkv, D):
+    """Both bodies of the split paged kernel against the plain version:
+    ragged kv_len from 1 to the table's length, rolled-out offsets, two
+    slots sharing a prefix page, a parked slot (kv_len 1 on an all-zero
+    row), garbage in the trash page and in dead pages, with and without a
+    soft cap; one call, one count."""
+    _card()
+    dt = getattr(torch, dtype)
+    atol, rtol = _tol(dtype)
+    g = torch.Generator(device="cuda").manual_seed(13)
+    B, page, n_pages, P = 9, 16, 16, 150
+    lens = torch.tensor([1, 2, 16, 17, 40, 100, 200, 256, 1], dtype=torch.int32, device="cuda")
+    poff = torch.tensor([0, 0, 0, 16, 0, 32, 48, 0, 0], dtype=torch.int32, device="cuda")
+    bt = torch.randperm(P - 1, generator=g, device="cuda")[:B * n_pages].reshape(B, n_pages) + 1
+    bt = bt.to(torch.int32)
+    bt[4, :2] = bt[3, :2]                          # a shared prefix
+    live = ((lens - poff + page - 1) // page).tolist()
+    for b in range(B):
+        bt[b, live[b]:] = 0
+    bt[8] = 0                                      # parked
+    bt = bt.contiguous()
+    q = torch.randn((B, Hq, 1, D), generator=g, device="cuda").to(dt)
+    kp = torch.randn((P, Hkv, page, D), generator=g, device="cuda")
+    vp = torch.randn((P, Hkv, page, D), generator=g, device="cuda")
+    kw = dict(block_tables=bt, kv_len=lens, pos_offset=poff)
+    if kv is None:
+        kp, vp = kp.to(dt), vp.to(dt)
+        kp[0], vp[0] = 1e4, -1e4
+        counter = "launches"
+    else:
+        kdt = getattr(torch, kv)
+        kp, ks = ref.quantize_kv(kp, kdt)
+        vp, vs = ref.quantize_kv(vp, kdt)
+        used = {int(p) for p in bt.flatten().tolist()}
+        dead = torch.tensor(sorted(set(range(P)) - used) + [0], device="cuda")
+        ks[dead], vs[dead] = 1e6, 1e6
+        kw.update(k_scales=ks, v_scales=vs)
+        counter = "launches_quant"
+    for cap in (0.0, 30.0):
+        before = getattr(pa_k, counter)
+        got = pa_k.paged_attention(q, kp, vp, logit_soft_cap=cap, **kw)
+        torch.cuda.synchronize()
+        assert getattr(pa_k, counter) == before + 1 and got.dtype == dt
+        want = pa_k.plain(q, kp, vp, logit_soft_cap=cap, **kw)
+        torch.testing.assert_close(got[:8], want[:8], atol=atol, rtol=rtol)
+        assert bool(got[8].isfinite().all())      # the parked slot: finite, discarded
+
+
+@pytest.mark.cuda
+def test_paged_attention_refuses_a_head_shape_it_does_not_take_on_card():
+    """A head dim or group the kernel is not built for raises before any
+    launch and counts none."""
+    _card()
+    bt = torch.tensor([[1, 2]], dtype=torch.int32, device="cuda")
+    before = pa_k.launches
+    for Hq, Hkv, D in ((4, 2, 256), (4, 2, 8), (12, 1, 16)):
+        q = torch.randn((1, Hq, 1, D), device="cuda")
+        pages = torch.randn((3, Hkv, 16, D), device="cuda")
+        with pytest.raises(ValueError, match="built for"):
+            pa_k.paged_attention(q, pages, pages, block_tables=bt, kv_len=20)
+    assert pa_k.launches == before

@@ -189,13 +189,21 @@ def test_prefill_matches_reference_and_chunked_prefill(models):
 
 
 @pytest.mark.parametrize("need", [(True, True, True), (False, True, False), (True, False, False)])
-def test_kernel_autograd_functions_backward_through_the_plain_version(monkeypatch, need):
-    """The card's autograd.Functions, with their launch replaced by the
-    plain version (the kernel itself needs a card): the backward is the
-    plain version's autograd gradient, for whichever inputs need one."""
+def test_kernel_autograd_functions_backward_through_their_launches(monkeypatch, need):
+    """The card's autograd.Functions, with their launches replaced by the
+    plain versions (the kernels themselves need a card): flash_attention's
+    forward by ``plain_fwd`` (out and lse; float32 has no out_lo) and its
+    backward launch by
+    ``plain_bwd``, held to plain autograd within float32 tolerance (atol
+    1e-5 + rtol 1e-5: the same math summed in another order); rmsnorm's
+    backward is the plain version's autograd gradient, bit for bit. Only
+    the inputs that need a gradient get one."""
     from repro_torch.kernels import rmsnorm as rms
-    monkeypatch.setattr(fa, "_launch", lambda q, k, v, causal, scale, cap: fa.plain(
-        q, k, v, causal=causal, scale=scale, logit_soft_cap=cap))
+    monkeypatch.setattr(fa, "_launch", lambda q, k, v, causal, scale, cap, with_lse: (
+        *fa.plain_fwd(q, k, v, causal=causal, scale=scale, logit_soft_cap=cap), None))
+    monkeypatch.setattr(fa, "_launch_bwd", lambda q, k, v, o, o_lo, lse, do, causal, scale,
+                        cap, need_q, need_kv: fa.plain_bwd(q, k, v, o, lse, do, causal=causal,
+                                                           scale=scale, logit_soft_cap=cap))
     monkeypatch.setattr(rms, "_launch", lambda x, w, eps, gemma: rms.plain(
         x, w, eps=eps, gemma_style=gemma))
     q, k, v = (torch.from_numpy(a).requires_grad_(n)
@@ -204,8 +212,9 @@ def test_kernel_autograd_functions_backward_through_the_plain_version(monkeypatc
     wanted = [t for t in (q, k, v) if t.requires_grad]
     got = torch.autograd.grad(fa._FlashAttention.apply(q, k, v, True, 0.25, 0.0), wanted, go)
     want = torch.autograd.grad(fa.plain(q, k, v, scale=0.25), wanted, go)
+    assert len(got) == len(wanted)
     for a, b in zip(got, want):
-        assert torch.equal(a, b)
+        np.testing.assert_allclose(a.numpy(), b.numpy(), atol=1e-5, rtol=1e-5)
     x, w = q[0, 0].detach().requires_grad_(need[0]), k[0, 0, 0].detach().requires_grad_(need[1])
     wanted = [t for t in (x, w) if t.requires_grad]
     if wanted:

@@ -1,0 +1,101 @@
+"""Public names the port carries for the JAX package's callers, held
+against the reference: ``PagePool.n_free``, ``sampler.sample``,
+``GenerationParams.resolve`` and ``configs.list_archs``.
+
+``sample`` draws with one key over the whole (B, V) batch, as
+``jax.random.categorical`` does; the draws are compared token for token
+(the Gumbel noise may differ by an ulp of ``log`` between XLA and
+PyTorch, which moves no argmax here).
+"""
+
+import numpy as np
+import pytest
+
+torch = pytest.importorskip("torch")
+jax = pytest.importorskip("jax")
+jnp = jax.numpy
+
+from repro.configs import get_smoke_config as ref_smoke  # noqa: E402
+from repro.configs import list_archs as ref_list_archs  # noqa: E402
+from repro.models import build_model as ref_build  # noqa: E402
+from repro.serving.pagepool import PagePool as RefPagePool  # noqa: E402
+from repro.serving.sampler import GenerationParams as RefParams  # noqa: E402
+from repro.serving.sampler import SamplerConfig as RefSC  # noqa: E402
+from repro.serving.sampler import sample as ref_sample  # noqa: E402
+from repro_torch.configs import get_config, get_smoke_config, list_archs  # noqa: E402
+from repro_torch.models import build_model  # noqa: E402
+from repro_torch.serving import GenerationParams, SamplerConfig  # noqa: E402
+from repro_torch.serving.pagepool import PagePool  # noqa: E402
+from repro_torch.serving.sampler import sample  # noqa: E402
+
+KW = dict(vocab_size=300, vocab_pad_to=64, compute_dtype="float32")
+
+
+def test_list_archs_lists_every_reference_arch():
+    assert list_archs() == ref_list_archs()
+    with pytest.raises(NotImplementedError):
+        get_config("gemma-7b")
+
+
+@pytest.mark.parametrize("kv_dtype", ["fp32", "int8"])
+def test_n_free_tracks_allocations_as_the_reference(kv_dtype):
+    ref = RefPagePool(ref_build(ref_smoke("minitron-8b").replace(**KW)), page=16,
+                      capacity=5, kv_dtype=kv_dtype)
+    port = PagePool(build_model(get_smoke_config("minitron-8b").replace(**KW)), page=16,
+                    capacity=5, kv_dtype=kv_dtype)
+    assert port.n_free() == ref.n_free() == 5
+    got = []
+    for _ in range(7):                      # two past the capacity: None
+        a, b = ref.alloc(), port.alloc()
+        assert a == b
+        got.append(a)
+        assert port.n_free() == ref.n_free()
+    assert got[-2:] == [None, None] and port.n_free() == 0
+    for pid in (got[1], got[3]):
+        ref.free(pid)
+        port.free(pid)
+        assert port.n_free() == ref.n_free()
+    assert port.n_free() == 2
+
+
+def _logits(seed, B, V):
+    return np.random.default_rng(seed).standard_normal((B, V)).astype(np.float32) * 3
+
+
+@pytest.mark.parametrize("seed", [0, 7, 123456789])
+@pytest.mark.parametrize("cfg", [
+    dict(temperature=0.0),                                  # greedy
+    dict(temperature=0.0, vocab_size=40),                   # greedy, masked vocab
+    dict(temperature=1.0),                                  # the categorical draw
+    dict(temperature=0.7, top_k=5),
+    dict(temperature=1.3, top_p=0.8, vocab_size=50),
+    dict(temperature=1.0, top_k=1),
+])
+def test_sample_matches_reference(seed, cfg):
+    logits = _logits(seed, 6, 64)
+    key = jax.random.PRNGKey(seed)
+    want = np.asarray(ref_sample(jnp.asarray(logits), key, RefSC(**cfg)))
+    pair = tuple(int(v) for v in np.asarray(key).tolist())
+    got = sample(torch.from_numpy(logits), pair, SamplerConfig(**cfg))
+    assert got.dtype == torch.int64 and got.shape == (6,)
+    np.testing.assert_array_equal(got.numpy(), want)
+
+
+def test_sample_draws_differ_across_rows_and_keys():
+    """One key covers the batch: equal rows still draw apart."""
+    logits = torch.zeros(64, 300)
+    a = sample(logits, (0, 1), SamplerConfig(temperature=1.0))
+    b = sample(logits, (0, 2), SamplerConfig(temperature=1.0))
+    assert len(set(a.tolist())) > 32 and not torch.equal(a, b)
+
+
+@pytest.mark.parametrize("params", [
+    dict(), dict(temperature=0.9), dict(top_p=0.5), dict(temperature=0.0, top_p=0.95),
+])
+def test_resolve_matches_reference(params):
+    for base in (dict(), dict(temperature=0.3, top_k=8, top_p=0.7, vocab_size=300)):
+        want = RefParams(**params).resolve(RefSC(**base))
+        got = GenerationParams(**params).resolve(SamplerConfig(**base))
+        assert isinstance(got, SamplerConfig)
+        assert (got.temperature, got.top_k, got.top_p, got.vocab_size) == (
+            want.temperature, want.top_k, want.top_p, want.vocab_size)
