@@ -6,16 +6,22 @@
 Phases, each of which fails the run when it fails:
   1. build the Hopper kernels from src/repro_torch/kernels/csrc (nvcc,
      one process per source, all started together) and time the build;
+     print ptxas's registers, shared memory and spills for awq_matmul.cu
+     and rmsnorm.cu, and count awq_matmul's tensor-core (HMMA) instructions;
   2. kernels: hold each kernel against its plain PyTorch version at the
      main path's full-width shapes, in float32 and bfloat16 (quantized
      paged attention over int8 and fp8 pages, awq_matmul at the four
-     W4A16 shapes of a decode step with groups 64 and 128 and at prefill
-     row counts), and time
+     W4A16 shapes of a decode step with groups 64 and 128, two calls
+     bit-equal, and at prefill row counts up to 250; rmsnorm also at
+     training's 2048 rows), and time
      kernel, plain version and a PyTorch library yardstick the port never
      calls (F.rms_norm, F.scaled_dot_product_attention, and for the
      W4A16 product torch's int4 tinygemm, _weight_int4pack_mm, on the
      same codes; torch.matmul against the dequantized bf16 weight is
-     printed beside it as a dense reference), each launch with a cold L2;
+     printed beside it as a dense reference), each launch with a cold L2,
+     and, for rmsnorm (8 and 2048 rows), awq_matmul (the three decode
+     shapes, with its launch plan), decode attention (both shapes) and ssd
+     (zamba2's piece), the device time (profiler) beside the yardstick's;
   3. reference: small float32 models served on the card (kernels) and on
      the CPU (plain versions) with the same weights give identical greedy
      streams, through generate() and through the paged batcher: dense with
@@ -234,18 +240,46 @@ def device_ms(torch, fn, n=20):
     from torch.profiler import ProfilerActivity, profile
     fn()
     torch.cuda.synchronize()
-    with profile(activities=[ProfilerActivity.CUDA]) as prof:
-        for _ in range(n):
-            fn()
-        torch.cuda.synchronize()
-    evs = sorted((e for e in prof.key_averages()
-                  if getattr(e, "self_device_time_total", 0) > 0),
-                 key=lambda e: -e.self_device_time_total)
+    for _ in range(3):   # the tracer now and then drops a window's kernels: take another
+        with profile(activities=[ProfilerActivity.CUDA]) as prof:
+            for _ in range(n):
+                fn()
+            torch.cuda.synchronize()
+        evs = sorted((e for e in prof.key_averages()
+                      if getattr(e, "self_device_time_total", 0) > 0),
+                     key=lambda e: -e.self_device_time_total)
+        if sum(e.count for e in evs) >= n:      # every call launches a kernel at least
+            break
     total = sum(e.self_device_time_total for e in evs) / n / 1e3
     names = [re.search(r"[A-Za-z]\w*kernel\w*", e.key) for e in evs[:4]]
     return f"{total:.4f} ms (" + "; ".join(
         f"{m.group(0) if m else e.key[:40]} {e.self_device_time_total / n / 1e3:.4f}"
         for m, e in zip(names, evs)) + ")"
+
+
+def ptxas_lines(log_text):
+    """One line a kernel from nvcc's -Xptxas -v report: its name, registers,
+    shared memory and spills."""
+    out, name, spill = [], "?", ""
+    for line in log_text.splitlines():
+        m = re.search(r"Compiling entry function '(\w+)'", line)
+        if m:
+            name = m.group(1)
+        m = re.search(r"(\d+) bytes spill stores, (\d+) bytes spill loads", line)
+        if m:
+            spill = f"spill stores {m.group(1)} B, loads {m.group(2)} B"
+        m = re.search(r"Used (\d+) registers(.*)", line)
+        if m:
+            out.append(f"{name}: {m.group(1)} registers{m.group(2)}; {spill}")
+    return out
+
+
+def sass_count(lib, opcode):
+    """How many instructions of ``opcode`` cuobjdump finds in a built library."""
+    tool = Path("/usr/local/cuda/bin/cuobjdump")
+    sass = subprocess.run([str(tool if tool.exists() else "cuobjdump"), "-sass", str(lib)],
+                          capture_output=True, text=True, check=True).stdout
+    return sum(1 for line in sass.splitlines() if re.search(rf"\b{opcode}\b", line))
 
 
 def bound_ms(nbytes, flops, dtype):
@@ -290,6 +324,25 @@ def kernel_phase(torch, timer):
             bms, by = bound_ms(nbytes, 4 * x.numel(), dname)
             rows["rmsnorm"] = dict(ms=t_k, plain_ms=t_p, library_ms=t_l,
                                    bound_ms=bms, bound_by=by)
+            log(f"time rmsnorm 8x4096 bf16: kernel {t_k:.4f} ms  plain {t_p:.4f} ms  library "
+                f"(F.rms_norm) {t_l:.4f} ms  bound {bms:.6f} ms ({by}); device time: kernel "
+                + device_ms(torch, lambda: rms_k.rmsnorm(x, w, eps=1e-5)) + ", F.rms_norm "
+                + device_ms(torch, lambda: F.rms_norm(x, (4096,), w, eps=1e-5)))
+    # training's rows: 2048 x 4096 (batch 2 x seq 1024), where bytes bound it
+    for dname in ("float32", "bfloat16"):
+        dt = getattr(torch, dname)
+        x, w = randn(TRAIN_BATCH * TRAIN_SEQ, 4096, dtype=dt), 1 + 0.1 * randn(4096, dtype=dt)
+        rows[("rmsnorm", dname)].append(check_close(
+            "rmsnorm 2048x4096", rms_k.rmsnorm(x, w), rms_k.plain(x, w), dname))
+        if dname != "bfloat16":
+            continue
+        t_k, t_l = timer.ms(lambda: rms_k.rmsnorm(x, w)), timer.ms(
+            lambda: F.rms_norm(x, (4096,), w, eps=1e-5))
+        bms, by = bound_ms(2 * x.numel() * 2 + w.numel() * 2, 4 * x.numel(), dname)
+        log(f"time rmsnorm 2048x4096 bf16: kernel {t_k:.4f} ms  library (F.rms_norm) "
+            f"{t_l:.4f} ms  bound {bms:.6f} ms ({by}); device time: kernel "
+            + device_ms(torch, lambda: rms_k.rmsnorm(x, w)) + ", F.rms_norm "
+            + device_ms(torch, lambda: F.rms_norm(x, (4096,), w, eps=1e-5)))
 
     # ---- paged attention: ragged lengths, rolled-out offsets, shared
     # pages, garbage in the trash page and in dead pages
@@ -414,10 +467,13 @@ def kernel_phase(torch, timer):
             for dname in ("float32", "bfloat16"):
                 x = randn(M, K, dtype=getattr(torch, dname))
                 want = awq_k.plain(x, qw, sc, zr, group_size=gs)
+                got = awq_k.awq_matmul(x, qw, sc, zr, group_size=gs)
                 err = check_close(f"awq_matmul {wname} ({M}, {K}, {N}) group {gs}",
-                                  awq_k.awq_matmul(x, qw, sc, zr, group_size=gs),
-                                  want, dname)
+                                  got, want, dname)
                 rows.setdefault(("awq_matmul", dname), []).append(err)
+                if not torch.equal(got, awq_k.awq_matmul(x, qw, sc, zr, group_size=gs)):
+                    raise AssertionError(f"awq_matmul {wname} group {gs} [{dname}]: two "
+                                         "calls differ")
                 if dname != "bfloat16" or gs != 64:       # the main path's: bf16, group 64
                     continue
                 t_k = timer.ms(lambda: awq_k.awq_matmul(x, qw, sc, zr, group_size=gs))
@@ -432,25 +488,29 @@ def kernel_phase(torch, timer):
                     raise AssertionError(f"_weight_int4pack_mm at ({M}, {K}, {N}) is "
                                          f"{lib_err:.3e} from the plain version")
                 t_l = timer.ms(lib)
-                del lib
                 nbytes = (qw.numel() * 4 + 2 * sc.numel() * 4
                           + x.numel() * x.element_size() + M * N * x.element_size())
                 bms, by = bound_ms(nbytes, 2 * M * K * N, dname)
                 log(f"time awq_matmul {wname:6s} ({M}, {K}, {N}) bf16 group 64: kernel "
                     f"{t_k:.4f} ms  plain {t_p:.4f} ms  library (_weight_int4pack_mm, "
                     f"max_abs_err {lib_err:.3e}) {t_l:.4f} ms  bound {bms:.5f} ms ({by}); "
-                    f"K split {awq_k.splits(M, K, N, gs, x.device)} ways; dense "
+                    f"{awq_k.splits(M, K, N, gs, awq_k._sm_count(0))}; dense "
                     f"reference (torch.matmul, dequantized bf16 weight) {t_d:.4f} ms")
+                log(f"device time awq_matmul {wname} ({M}, {K}, {N}) bf16 group 64: kernel "
+                    + device_ms(torch, lambda: awq_k.awq_matmul(x, qw, sc, zr, group_size=gs))
+                    + ", _weight_int4pack_mm " + device_ms(torch, lib))
+                del lib
                 if wname == "w1/w3":
                     rows["awq_matmul"] = dict(ms=t_k, plain_ms=t_p, library_ms=t_l,
                                               bound_ms=bms, bound_by=by)
 
-    # prefill chunks reach awq_matmul with M = 16 (a page) down to 1
+    # prefill chunks reach awq_matmul with M = 16 (a page) down to 1; a whole
+    # 250-token prompt loops over 16 row tiles
     K, N = AWQ_SHAPES["w1/w3"][1:]
     qw = ref.awq_pack(torch.randint(0, 16, (K, N), generator=g, device="cuda"))
     sc = 0.002 * torch.rand((K // 64, N), generator=g, device="cuda")
     zr = torch.randint(0, 16, (K // 64, N), generator=g, device="cuda").float()
-    for M in (1, 3, 16):
+    for M in (1, 3, 16, 250):
         for dname in ("float32", "bfloat16"):
             x = randn(M, K, dtype=getattr(torch, dname))
             err = check_close(f"awq_matmul prefill ({M}, {K}, {N}) group 64",
@@ -527,6 +587,10 @@ def kernel_phase(torch, timer):
         log(f"time decode_attention {what} bf16: kernel {t_k:.4f} ms  plain {t_p:.4f} ms  "
             f"library (SDPA) {t_l:.4f} ms  bound {bms:.6f} ms ({by}); {n_split} splits of "
             f"{chunk} keys, {bb * hkv * n_split} blocks")
+        log(f"device time decode_attention {what} bf16: kernel "
+            + device_ms(torch, lambda: dec_k.decode_attention(q, k, v, kv_len=kl)) + ", SDPA "
+            + device_ms(torch, lambda: F.scaled_dot_product_attention(q, ke, ve,
+                                                                      attn_mask=mask)))
     rows["decode_attention"] = dict(shapes[0], shapes=shapes)
 
     # ---- ssd: the smoke chunk (16) in float32, with and without h0; then
@@ -567,7 +631,8 @@ def kernel_phase(torch, timer):
             rows["ssd"] = dict(ms=t_k, plain_ms=t_p, library_ms=None,
                                bound_ms=bms, bound_by=by)
             log(f"time {what} bf16 with h0: {flops / 1e9:.3f} GFLOP (float32), "
-                f"{nbytes / 1e6:.2f} MB")
+                f"{nbytes / 1e6:.2f} MB; device time " + device_ms(
+                    torch, lambda: ssd_k.ssd(x, dtv, A, Bm, Cm, Dv, chunk=L, h0=h0)))
 
     flash_phase(torch, timer, rows, randn)
 
@@ -1367,6 +1432,13 @@ def main() -> int:
     t0 = time.perf_counter()
     _build.build_all()
     log(f"kernel build (nvcc, sources in parallel): {time.perf_counter() - t0:.1f} s")
+    for name in ("awq_matmul", "rmsnorm"):
+        for line in ptxas_lines(_build.build_log(name)):
+            log(f"ptxas {name}: {line}")
+    n_hmma = sass_count(_build._target("awq_matmul"), "HMMA")
+    log(f"awq_matmul.cu SASS: {n_hmma} HMMA (tensor-core) instructions")
+    if n_hmma == 0:
+        raise AssertionError("awq_matmul's bf16 body does not run on tensor cores")
 
     timer = Timer(torch)
     rows = kernel_phase(torch, timer)

@@ -3,10 +3,11 @@
 Each ``csrc/<name>.cu`` exposes a plain C interface and compiles on its
 own (with the ``csrc/*.cuh`` headers it includes) with ``nvcc`` for
 ``sm_90a`` into ``build/kernels/`` at the root of the checkout (listed in
-``.gitignore``). The library name carries a hash of the source, the
-headers and the flags, so an edited source rebuilds and an unchanged one
-loads straight away. Builds happen at first use, never at import:
-the CPU tests import every module on a machine with no ``nvcc``.
+``.gitignore``), with ptxas's report beside it (``build_log``). The
+library name carries a hash of the source, the headers and the flags, so
+an edited source rebuilds and an unchanged one loads straight away.
+Builds happen at first use, never at import: the CPU tests import every
+module on a machine with no ``nvcc``.
 """
 
 from __future__ import annotations
@@ -27,7 +28,7 @@ BUILD_DIR = Path(__file__).resolve().parents[3] / "build" / "kernels"
 SOURCES = ("attention", "awq_matmul", "decode_attention", "flash_attention",
            "flash_attention_bwd", "rmsnorm", "ssd")
 NVCC_FLAGS = ("-gencode", "arch=compute_90a,code=sm_90a", "-std=c++17", "-O3",
-              "-shared", "-Xcompiler", "-fPIC")
+              "-shared", "-Xcompiler", "-fPIC", "-Xptxas", "-v")
 
 _lock = threading.Lock()
 _libs: dict[str, ctypes.CDLL] = {}
@@ -72,6 +73,7 @@ def build_all(names=SOURCES) -> dict[str, ctypes.CDLL]:
             if proc.returncode != 0:
                 failed.append(f"--- {n}.cu ---\n{log}")
             else:
+                out.with_suffix(".log").write_text(log)      # ptxas: registers, spills
                 os.replace(tmp, out)
         if failed:
             raise RuntimeError("kernel build failed:\n" + "\n".join(failed))
@@ -132,11 +134,18 @@ def raw_stream(dev) -> int:
     return torch._C._cuda_getCurrentRawStream(dev.index)
 
 
-DTYPE_CODES = {"float32": 0, "bfloat16": 1}
+DTYPES = {torch.float32: 0, torch.bfloat16: 1}    # the kernels' dtype codes
 
 
 def dtype_code(t) -> int:
-    name = str(t.dtype).removeprefix("torch.")
-    if name not in DTYPE_CODES:
+    code = DTYPES.get(t.dtype)
+    if code is None:
         raise TypeError(f"kernel takes float32 or bfloat16, got {t.dtype}")
-    return DTYPE_CODES[name]
+    return code
+
+
+def build_log(name: str) -> str:
+    """nvcc's output (``-Xptxas -v``: each kernel's registers, shared memory
+    and spills) from the build of ``csrc/<name>.cu``, where it was built."""
+    log = _target(name).with_suffix(".log")
+    return log.read_text() if log.exists() else ""

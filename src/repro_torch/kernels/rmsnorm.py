@@ -18,6 +18,7 @@ version is differentiated directly.
 from __future__ import annotations
 
 import ctypes
+import struct
 
 import torch
 
@@ -26,24 +27,26 @@ from repro_torch.kernels.ref import rmsnorm as plain
 
 launches = 0
 
-
-_ARGS = (ctypes.c_void_p, ctypes.c_void_p, ctypes.c_void_p, ctypes.c_int,
-         ctypes.c_int, ctypes.c_float, ctypes.c_int, ctypes.c_int, ctypes.c_int,
-         ctypes.c_void_p)
+# csrc/rmsnorm.cu's RmsArgs, passed as one block (a ctypes call costs per
+# argument): 3 pointers, 2 ints, a float, 3 ints, the stream
+_PACK = struct.Struct("<3Q2if3iQ")
+_fn = None                   # the bound C function, once the library is loaded
 
 
 def _launch(x, w, eps, gemma_style):
-    global launches
-    D = x.shape[-1]
+    global launches, _fn
     y = torch.empty_like(x)
+    D = x.shape[-1]
     rows = x.numel() // D if D else 0
     if rows == 0:
         return y
-    err = _build.bind("rmsnorm", "rmsnorm_launch", _ARGS)(
-        x.data_ptr(), w.data_ptr(), y.data_ptr(), rows, D, float(eps),
-        int(gemma_style), _build.dtype_code(x), _build.dtype_code(w),
-        torch.cuda.current_stream(x.device).cuda_stream)
-    _build.check(err, "rmsnorm")
+    if _fn is None:
+        _fn = _build.bind("rmsnorm", "rmsnorm_launch", (ctypes.c_char_p,))
+    err = _fn(_PACK.pack(x.data_ptr(), w.data_ptr(), y.data_ptr(), rows, D, eps,
+                         gemma_style, _build.DTYPES[x.dtype], _build.DTYPES[w.dtype],
+                         _build.raw_stream(x.device)))
+    if err:
+        _build.check(err, "rmsnorm")
     launches += 1
     return y
 
@@ -65,9 +68,12 @@ class _RMSNorm(torch.autograd.Function):
 
 def rmsnorm(x, w, *, eps: float = 1e-5, gemma_style: bool = False):
     """x (..., D) float32/bfloat16, w (D,) -> y like x."""
-    if x.device.type == "cpu":
-        return plain(x, w, eps=eps, gemma_style=gemma_style)
-    if x.device.type != "cuda" or w.device != x.device:
+    if not x.is_cuda:
+        if x.device.type == "cpu":
+            return plain(x, w, eps=eps, gemma_style=gemma_style)
+        raise ValueError(f"rmsnorm kernel needs x and w on one CUDA device, "
+                         f"got {x.device} and {w.device}")
+    if w.get_device() != x.get_device():
         raise ValueError(f"rmsnorm kernel needs x and w on one CUDA device, "
                          f"got {x.device} and {w.device}")
     D = x.shape[-1]
@@ -75,6 +81,9 @@ def rmsnorm(x, w, *, eps: float = 1e-5, gemma_style: bool = False):
         raise ValueError(f"w must be ({D},), got {tuple(w.shape)}")
     if not (x.is_contiguous() and w.is_contiguous()):
         raise ValueError("rmsnorm kernel needs contiguous x and w")
-    if torch.is_grad_enabled() and (x.requires_grad or w.requires_grad):
-        return _RMSNorm.apply(x, w, eps, gemma_style)
+    if x.dtype not in _build.DTYPES or w.dtype not in _build.DTYPES:
+        raise TypeError(f"rmsnorm kernel takes float32 or bfloat16, got x {x.dtype}, "
+                        f"w {w.dtype}")
+    if (x.requires_grad or w.requires_grad) and torch.is_grad_enabled():
+        return _RMSNorm.apply(x, w, float(eps), bool(gemma_style))
     return _launch(x, w, eps, gemma_style)

@@ -99,20 +99,27 @@ def test_quantized_paged_attention_matches_plain_on_card(dtype, kv):
             pa_k.paged_attention(q, kp, vp, block_tables=bt, kv_len=kl)
 
 
+# awq_matmul at (M, K, N): row counts across the 8- and 16-row tiles and
+# the prefill loop over tiles (1, 5, 8, 16, 17, 40, 250), N ragged against
+# the 64/128-column tiles and, at 203, not a multiple of 4 (the 4-byte
+# copies), and a main-path shape with its K split over a cluster
+AWQ_SHAPES = [(1, 256, 200), (5, 512, 384), (8, 1024, 203), (16, 256, 128),
+              (17, 512, 300), (40, 256, 300), (250, 512, 264), (8, 4096, 4096)]
+
+
 @pytest.mark.cuda
 @pytest.mark.parametrize("group", [64, 128])
 @pytest.mark.parametrize("dtype", ["float32", "bfloat16"])
 def test_awq_matmul_matches_plain_on_card(dtype, group):
-    """Row counts across the register tiles (1, 5, 16, 40), a ragged N,
-    and one main-path shape with its K split."""
+    """Both bodies (bf16 on tensor cores, float32 on CUDA cores) at every
+    row tile, ragged columns and a K split across a cluster."""
     _card()
     dt = getattr(torch, dtype)
     # float32: chip_smoke.py's atol 5e-5 + rtol 1e-5 at every K (|y| reaches
     # about 10 here); dequantizing to bf16 would miss it by 40x
     atol, rtol = (5e-5, 1e-5) if dtype == "float32" else _tol(dtype)
     g = torch.Generator(device="cuda").manual_seed(2)
-    for M, K, N in ((1, 256, 200), (5, 512, 384), (16, 256, 128), (40, 256, 300),
-                    (8, 4096, 4096)):
+    for M, K, N in AWQ_SHAPES:
         x = torch.randn((M, K), generator=g, device="cuda").to(dt)
         qw = ref.awq_pack(torch.randint(0, 16, (K, N), generator=g, device="cuda"))
         s = 0.01 * torch.rand((K // group, N), generator=g, device="cuda")
@@ -123,6 +130,32 @@ def test_awq_matmul_matches_plain_on_card(dtype, group):
         torch.testing.assert_close(got, want, atol=atol, rtol=rtol)
     with pytest.raises(ValueError):
         awq_k.awq_matmul(x[:, :K - 8], qw[:-1], s, z, group_size=group)
+
+
+@pytest.mark.cuda
+@pytest.mark.parametrize("dtype", ["float32", "bfloat16"])
+def test_awq_matmul_is_one_deterministic_launch_without_workspace_on_card(dtype):
+    """At w2's decode shape (K split 8 ways over a cluster): one launch a
+    call, two calls bit-equal, and nothing allocated but the output."""
+    _card()
+    dt = getattr(torch, dtype)
+    g = torch.Generator(device="cuda").manual_seed(8)
+    M, K, N = 8, 16384, 4096
+    assert awq_k.splits(M, K, N, 64, awq_k._sm_count(0)).n_split > 1
+    x = torch.randn((M, K), generator=g, device="cuda").to(dt)
+    qw = ref.awq_pack(torch.randint(0, 16, (K, N), generator=g, device="cuda"))
+    s = 0.002 * torch.rand((K // 64, N), generator=g, device="cuda")
+    z = torch.randint(0, 16, (K // 64, N), generator=g, device="cuda").float()
+    first = awq_k.awq_matmul(x, qw, s, z, group_size=64)
+    torch.cuda.synchronize()
+    before, held = awq_k.launches, torch.cuda.memory_allocated()
+    torch.cuda.reset_peak_memory_stats()
+    second = awq_k.awq_matmul(x, qw, s, z, group_size=64)
+    torch.cuda.synchronize()
+    out_bytes = -(-second.numel() * second.element_size() // 512) * 512
+    assert awq_k.launches == before + 1
+    assert torch.cuda.max_memory_allocated() - held == out_bytes
+    assert torch.equal(first, second)
 
 
 def _ssd_close(got, want):
@@ -221,6 +254,37 @@ def test_zamba2_width_attention_and_rmsnorm_on_card(dtype):
     torch.testing.assert_close(dec_k.decode_attention(q, k, v, kv_len=kl),
                                dec_k.plain(q, k, v, kv_len=kl), atol=atol, rtol=rtol)
     x, w = rn(8, 1, 3584), 1 + 0.1 * rn(3584)
+    torch.testing.assert_close(rms_k.rmsnorm(x, w), rms_k.plain(x, w), atol=atol, rtol=rtol)
+
+
+@pytest.mark.cuda
+@pytest.mark.parametrize("wtype", ["float32", "bfloat16"])
+@pytest.mark.parametrize("dtype", ["float32", "bfloat16"])
+def test_rmsnorm_bodies_match_plain_on_card(dtype, wtype):
+    """The vector body (a warp a row for narrow D, a block a row for wide
+    D), the scalar body (D = 100 in bf16 is not a whole number of 16-byte
+    vectors) and a contiguous but misaligned x, at a decode step's rows,
+    training's 2048 and one, with and without the Gemma (1 + w)."""
+    _card()
+    dt, wt = getattr(torch, dtype), getattr(torch, wtype)
+    atol, rtol = _tol(dtype)
+    g = torch.Generator(device="cuda").manual_seed(9)
+    for rows in (1, 8, 2048):
+        for D in (64, 100, 3584, 4096):
+            x = torch.randn((rows, D), generator=g, device="cuda").to(dt)
+            for gemma in (False, True):
+                w = (0.1 if gemma else 1.0) * torch.randn(D, generator=g, device="cuda")
+                w = w.to(wt)
+                before = rms_k.launches
+                got = rms_k.rmsnorm(x, w, gemma_style=gemma)
+                torch.cuda.synchronize()
+                assert rms_k.launches == before + 1 and got.dtype == dt
+                torch.testing.assert_close(got, rms_k.plain(x, w, gemma_style=gemma),
+                                           atol=atol, rtol=rtol)
+    flat = torch.randn(8 * 4096 + 1, generator=g, device="cuda").to(dt)
+    x = flat[1:].view(8, 4096)                 # contiguous, 2 or 4 bytes off 16
+    assert x.is_contiguous() and x.data_ptr() % 16
+    w = torch.randn(4096, generator=g, device="cuda").to(wt)
     torch.testing.assert_close(rms_k.rmsnorm(x, w), rms_k.plain(x, w), atol=atol, rtol=rtol)
 
 
