@@ -6,8 +6,9 @@
 Phases, each of which fails the run when it fails:
   1. build the Hopper kernels from src/repro_torch/kernels/csrc (nvcc,
      one process per source, all started together) and time the build;
-     print ptxas's registers, shared memory and spills for awq_matmul.cu
-     and rmsnorm.cu, and count awq_matmul's tensor-core (HMMA) instructions;
+     print ptxas's registers, shared memory and spills for awq_matmul.cu,
+     rmsnorm.cu, flash_attention_bwd.cu and ssd.cu, and count awq_matmul's
+     tensor-core (HMMA) instructions;
   2. kernels: hold each kernel against its plain PyTorch version at the
      main path's full-width shapes, in float32 and bfloat16 (quantized
      paged attention over int8 and fp8 pages, awq_matmul at the four
@@ -21,7 +22,9 @@ Phases, each of which fails the run when it fails:
      printed beside it as a dense reference), each launch with a cold L2,
      and, for rmsnorm (8 and 2048 rows), awq_matmul (the three decode
      shapes, with its launch plan), decode attention (both shapes) and ssd
-     (zamba2's piece), the device time (profiler) beside the yardstick's;
+     (zamba2's piece at 32 live steps and fully live, each beside its
+     bound on the units the bf16 body uses and the float32 CUDA-core one),
+     the device time (profiler) beside the yardstick's;
   3. reference: small float32 models served on the card (kernels) and on
      the CPU (plain versions) with the same weights give identical greedy
      streams, through generate() and through the paged batcher: dense with
@@ -60,7 +63,8 @@ case, in both types, and at each its gradient (the backward kernel)
 against plain autograd and against plain_bwd, two backward calls
 bit-equal; it times the forward (bf16: the wgmma body, with its achieved
 TFLOP/s; float32: the CUDA-core body) beside SDPA and the backward beside
-the plain recompute and SDPA's backward, with its share of the bound.
+the plain recompute and SDPA's backward, with its share of the bound,
+and its device time (seven products) beside SDPA's backward.
 Paged attention is also held at every head group the kernel takes (G 6,
 8 and 48, the smoke 4/2, D = 112) over pages in q's type and int8 / fp8
 codes, with a parked slot, and timed with its split plan; the kernels'
@@ -73,7 +77,7 @@ Every breakdown profiles one B=8 decode step and one 16-token prefill
 piece of the model alone. The kernel phase also holds ssd (the Mamba-2
 chunked scan) against its plain version at the smoke chunk (16, float32,
 with and without h0) and at zamba2-7b's prefill piece (T = 256 with 32
-live steps, and T = 512, bf16, with h0), decode attention at zamba2's
+live steps and fully live, and T = 512, bf16, with h0), decode attention at zamba2's
 shared block (B = 8, 32/32 heads of D = 112; timed, like B = 1, with its
 split count beside SDPA) and rmsnorm at width 3584;
 the reference phase also serves a small float32 zamba2 on card and CPU.
@@ -280,6 +284,56 @@ def sass_count(lib, opcode):
     sass = subprocess.run([str(tool if tool.exists() else "cuobjdump"), "-sass", str(lib)],
                           capture_output=True, text=True, check=True).stdout
     return sum(1 for line in sass.splitlines() if re.search(rf"\b{opcode}\b", line))
+
+
+def rounding_model(torch, q, k, v, go):
+    """The flash backward's rounding choice at the training shape, as
+    text: the three gradient products in float32 math on the same bf16
+    inputs, over P or dS rounded once to bf16 and over bf16 hi/lo halves,
+    each gradient's largest error against the float32 one as a share of
+    the bf16 tolerance (above 1: past it)."""
+    atol, rtol = TOL["bfloat16"]
+    b, hq, sq, d = q.shape
+    g = hq // k.shape[1]
+    scale = 1.0 / math.sqrt(d)
+    bf = lambda t: t.to(torch.bfloat16).float()
+    hilo = lambda t: bf(t) + bf(t - bf(t))
+    qf, df = q.float(), go.float()
+    kf, vf = (t.float().repeat_interleave(g, dim=1) for t in (k, v))
+    x = (qf @ kf.transpose(-1, -2)) * scale
+    mask = torch.ones(sq, sq, dtype=torch.bool, device=q.device).tril()
+    p = torch.softmax(x.masked_fill(~mask, -math.inf), dim=-1)
+    dp = df @ vf.transpose(-1, -2)
+    ds = (p * (dp - (df * (p @ vf)).sum(-1, keepdim=True))).masked_fill(~mask, 0.0)
+    heads = lambda t: t.reshape(b, hq // g, g, *t.shape[2:]).sum(2)
+    def share(got, want):
+        got, want = bf(got), bf(want)
+        return ((got - want).abs() / (atol + rtol * want.abs())).max().item()
+    out = []
+    for name, f, gm in (("dV over P", p, lambda m: heads(m.transpose(-1, -2) @ df)),
+                        ("dK over dS", ds, lambda m: heads(m.transpose(-1, -2) @ qf) * scale),
+                        ("dQ over dS", ds, lambda m: (m @ kf) * scale)):
+        want = gm(f)
+        out.append(f"{name} once {share(gm(bf(f)), want):.3f}, hi/lo {share(gm(hilo(f)), want):.3f}")
+    return ("flash_attention_bwd rounding model (float32 math of the gradient products at "
+            f"{(b, hq, k.shape[1], sq, sq, d)}, share of the bf16 tolerance): " + "; ".join(out))
+
+
+def ssd_tensor_flops(dt, P, N, L):
+    """The tensor-core operations ssd's bf16 body does on these inputs
+    (csrc/ssd.cu): per (batch, sub-chunk) the C.B pass's lower-triangle
+    16 x 8 tiles; per (batch, head, sub-chunk) C h^T over h's two bf16
+    pieces, and where any dt != 0 (a sub-chunk of dt = 0 is skipped) S_j
+    over x o w's three pieces and M x over M's two, up to the diagonal."""
+    from repro_torch.kernels import ssm_scan as ssd_k
+    b, T, H = dt.shape
+    Q = ssd_k.sub_chunk(L)
+    ns = T // Q
+    live = int((dt.reshape(b, ns, Q, H) != 0).any(dim=2).sum())
+    mt = Q // 16
+    cb_tiles = sum(1 for m in range(mt) for n in range(Q // 8) if n * 8 <= m * 16 + 15)
+    return (b * ns * cb_tiles * 2 * 16 * 8 * N + b * ns * H * 2 * 2 * Q * N * P
+            + live * (3 * 2 * P * N * Q + 2 * mt * (mt + 1) // 2 * 2 * 16 * 16 * P))
 
 
 def bound_ms(nbytes, flops, dtype):
@@ -595,11 +649,13 @@ def kernel_phase(torch, timer):
 
     # ---- ssd: the smoke chunk (16) in float32, with and without h0; then
     # zamba2-7b's prefill piece -- a 32-token piece padded to one 256-step
-    # chunk (dt = 0 on the padding) -- and two full chunks (the carry)
+    # chunk (dt = 0 on the padding) -- the same chunk fully live, and two
+    # full chunks (the carry)
     for dname, (b, T, H, P, N, L, live) in (
             ("float32", (2, 48, 4, 16, 16, 16, 37)),
             ("float32", (1, 256, 112, 64, 64, 256, 32)),
             ("bfloat16", (1, 256, 112, 64, 64, 256, 32)),
+            ("bfloat16", (1, 256, 112, 64, 64, 256, 256)),
             ("bfloat16", (1, 512, 112, 64, 64, 256, 512))):
         dt = getattr(torch, dname)
         x = randn(b, T, H, P, dtype=dt)
@@ -615,7 +671,7 @@ def kernel_phase(torch, timer):
             errs = rows.setdefault(("ssd", dname), [])
             errs.append(check_ssd(f"{what} h0={h is not None} y", y, yp))
             errs.append(check_ssd(f"{what} h0={h is not None} state", hf, hp))
-        if dname == "bfloat16" and T == 256:      # the main path's piece
+        if dname == "bfloat16" and T == 256:      # the main path's piece, and fully live
             t_k = timer.ms(lambda: ssd_k.ssd(x, dtv, A, Bm, Cm, Dv, chunk=L, h0=h0))
             t_p = timer.ms(lambda: ssd_k.plain(x, dtv, A, Bm, Cm, Dv, chunk=L, h0=h0),
                            n=20)
@@ -625,14 +681,22 @@ def kernel_phase(torch, timer):
             # float32 math per (batch, chunk): the causal C.B triangle once
             # (B and C are shared by the heads), then per head the M.x
             # triangle, the inter-chunk term and the state update
-            flops = b * (T // L) * (L * (L + 1) * N
-                                    + H * (L * (L + 1) * P + 4 * L * P * N))
-            bms, by = bound_ms(nbytes, flops, "float32")
-            rows["ssd"] = dict(ms=t_k, plain_ms=t_p, library_ms=None,
-                               bound_ms=bms, bound_by=by)
-            log(f"time {what} bf16 with h0: {flops / 1e9:.3f} GFLOP (float32), "
-                f"{nbytes / 1e6:.2f} MB; device time " + device_ms(
-                    torch, lambda: ssd_k.ssd(x, dtv, A, Bm, Cm, Dv, chunk=L, h0=h0)))
+            f32_flops = b * (T // L) * (L * (L + 1) * N
+                                        + H * (L * (L + 1) * P + 4 * L * P * N))
+            flops = ssd_tensor_flops(dtv, P, N, L)
+            bms, by = bound_ms(nbytes, flops, "bfloat16")
+            f32_bms, f32_by = bound_ms(nbytes, f32_flops, "float32")
+            dev = device_ms(torch, lambda: ssd_k.ssd(x, dtv, A, Bm, Cm, Dv, chunk=L, h0=h0))
+            dev_total = float(dev.split()[0])
+            if live == 32:
+                rows["ssd"] = dict(ms=t_k, plain_ms=t_p, library_ms=None,
+                                   bound_ms=bms, bound_by=by)
+            log(f"time {what} bf16 with h0: kernel {t_k:.4f} ms, plain {t_p:.4f} ms; the "
+                f"design's tensor-core work {flops / 1e9:.4f} GFLOP (bf16 pieces, dead "
+                f"sub-chunks skipped), {nbytes / 1e6:.2f} MB: bound {bms:.6f} ms ({by}; "
+                f"float32 CUDA-core bound of the scan's {f32_flops / 1e9:.3f} GFLOP "
+                f"{f32_bms:.6f} ms, {f32_by}); device time {dev}, {bms / dev_total:.1%} of "
+                f"the bound, {f32_bms / dev_total:.1%} of the float32 one")
 
     flash_phase(torch, timer, rows, randn)
 
@@ -799,17 +863,23 @@ def flash_phase(torch, timer, rows, randn):
         f"{flops / t_k / 1e9 / peak:.1%} of the bf16 peak), plain {t_p:.4f} ms, SDPA "
         f"{t_l:.4f} ms ({flops / t_l / 1e9:.1f} TFLOP/s), bound {bms:.5f} ms ({by})")
     log(f"time flash_attention_bwd {(b, hq, hkv, sq, skv, d)} bf16 causal: "
-        f"{b_flops / 1e9:.2f} GFLOP (five products; the bf16 kernels do ten), "
+        f"{b_flops / 1e9:.2f} GFLOP (five products; the bf16 kernel does seven: S and dP "
+        f"once, dV and dK over bf16 hi/lo halves, dQ over dS rounded once), "
         f"{b_bytes / 1e6:.1f} MB; backward through autograd {t_bk:.4f} ms "
         f"({b_flops / t_bk / 1e9:.1f} TFLOP/s, {b_bms / t_bk:.1%} of the bound "
         f"{b_bms:.5f} ms ({b_by})), the kernel launch alone {t_raw:.4f} ms; plain recompute "
         f"{t_bp:.4f} ms; SDPA's backward {t_bl:.4f} ms ({b_flops / t_bl / 1e9:.1f} TFLOP/s)")
-    # device time by kernel (profiler): the backward's three launches and
+    dev = {}
+    # device time by kernel (profiler): the backward's two launches and
     # SDPA's backward, the forward with and without what the backward
     # needs (lse, out_lo) and SDPA's forward
     for what, fn in (
             ("backward kernel", lambda: fa_k._launch_bwd(q, k, v, o, o_lo, lse, go, True,
                                                          1.0 / math.sqrt(d), 0.0, True, True)),
+            ("backward kernel, dK and dV only", lambda: fa_k._launch_bwd(
+                q, k, v, o, o_lo, lse, go, True, 1.0 / math.sqrt(d), 0.0, False, True)),
+            ("backward kernel, dQ only", lambda: fa_k._launch_bwd(
+                q, k, v, o, o_lo, lse, go, True, 1.0 / math.sqrt(d), 0.0, True, False)),
             ("SDPA's backward", lambda: torch.autograd.grad(sdpa, (qg, kg, vg), go,
                                                             retain_graph=True)),
             ("forward writing lse and out_lo",
@@ -817,8 +887,15 @@ def flash_phase(torch, timer, rows, randn):
             ("forward", lambda: fa_k._launch(q, k, v, True, 1.0 / math.sqrt(d), 0.0, False)),
             ("SDPA's forward", lambda: F.scaled_dot_product_attention(
                 q, k, v, is_causal=True, enable_gqa=True))):
-        log(f"device time flash_attention {(b, hq, hkv, sq, skv, d)} {what}: "
-            f"{device_ms(torch, fn)}")
+        dev[what] = device_ms(torch, fn)
+        log(f"device time flash_attention {(b, hq, hkv, sq, skv, d)} {what}: {dev[what]}")
+    mine, kv_only, theirs = (float(dev[w].split()[0]) for w in (
+        "backward kernel", "backward kernel, dK and dV only", "SDPA's backward"))
+    log(f"device time flash_attention_bwd {(b, hq, hkv, sq, skv, d)} bf16 causal: seven "
+        f"products {mine:.4f} ms ({b_bms / mine:.1%} of the bound {b_bms:.6f} ms) against "
+        f"SDPA's backward {theirs:.4f} ms ({b_bms / theirs:.1%}): {mine / theirs:.3f}x; "
+        f"dQ (its product and the ordered sum) adds {mine - kv_only:.4f} ms to dK and dV's")
+    log(rounding_model(torch, q, k, v, go))
     del out, sdpa, o, o_lo, lse
     # the whole-prompt prefill's shape (32 launches in the prefill check),
     # and the float32 bodies at the training shape
@@ -1432,7 +1509,7 @@ def main() -> int:
     t0 = time.perf_counter()
     _build.build_all()
     log(f"kernel build (nvcc, sources in parallel): {time.perf_counter() - t0:.1f} s")
-    for name in ("awq_matmul", "rmsnorm"):
+    for name in ("awq_matmul", "rmsnorm", "flash_attention_bwd", "ssd"):
         for line in ptxas_lines(_build.build_log(name)):
             log(f"ptxas {name}: {line}")
     n_hmma = sass_count(_build._target("awq_matmul"), "HMMA")

@@ -27,31 +27,20 @@
 // products of the forward's size (Q K^T recomputed, dO V^T, and the three
 // gradient products): 2.5 x 17.2 = 42.9 GFLOP at the training shape
 // (2, 32/8, 1023, 128), 43 us at the bf16 tensor-core peak. The bf16 body
-// does ten: the dK/dV kernel and the dQ kernel each recompute S and dP,
-// so that neither needs atomics nor a second pass over dS in device
-// memory, and the result is the same bits on every run; and each of the
-// three gradient products runs twice, over the bf16 halves hi and lo of
-// P or dS (hi + lo keeps about 16 bits). With P and dS rounded once to
-// bf16, as the forward rounds P, the gradient missed the bf16 tolerance
-// (atol 1e-2 + rtol 1.6e-2 against the plain version's float32 math) on
-// one or two elements in a million at the training shape on the H100.
+// does seven: S and dP once for each (key tile, query tile, query head),
+// dV = P^T dO and dK = dS^T Q each over the bf16 halves hi and lo of P or
+// dS (hi + lo keeps about 16 bits), dQ = dS K over dS rounded once. With
+// P rounded once (five products, as SDPA rounds), dV comes to the bf16
+// tolerance (atol 1e-2 + rtol 1.6e-2 against the float32 gradient) at the
+// training shape, and dK near it; dQ has room (chip_smoke.py prints this
+// model's figures, tests/test_torch_flash_bwd_plan.py holds the choice).
 //
-// Three launches, in order on the caller's stream:
+// Launches, in order on the caller's stream (two for bf16, three for
+// float32):
 //  * Delta: a row's 16-byte vectors of O and dO over a few lanes, float32
-//    fmas, a shuffle sum;
-//  * dK/dV: for each (b * Hkv + kv head, 64-key tile), blocks walk the
-//    query tiles that see its keys (for a causal call, the tiles from the
-//    diagonal on, plus those holding rows that see no key) for the G query
-//    heads of the kv head, keeping dK and dV for the 64 keys in registers.
-//    The bf16 body shares the G heads out over a thread block cluster of
-//    C <= 8 blocks (C the largest divisor of G up to 8), which sum their
-//    float32 dK and dV through distributed shared memory in rank order
-//    (the same sum on every run): one block per key tile walked up to 4 x
-//    16 (head, query tile) steps at the training shape, against 34 on
-//    average, and its time set the kernel's; the float32 body walks all G
-//    heads in one block. Each output is written once, dK times scale;
-//  * dQ: one block per (b * Hq + q head, 64-query tile), the heaviest
-//    causal tiles first, walks the key tiles its rows see, as the forward.
+//    fmas, a shuffle sum; for bf16 it also zeroes the counters below;
+//  * float32: the dK/dV kernel and the dQ kernel of the float32 body, each
+//    recomputing S and dP; bf16: one kernel for all three gradients.
 //
 // Body 1, float32 (CUDA cores, exact float32: fmaf, expf, tanhf), in the
 // structure of the forward's fa_kernel: 256 threads, thread (tr, tc) owns
@@ -59,23 +48,62 @@
 // D + 4 floats and read as float4; P and dS go through shared memory to
 // the products with dO, Q and K. The card-vs-CPU training of the small
 // float32 model needs float32 gradients (TF32 keeps about three digits).
+//  * dK/dV: one block per (b * Hkv + kv head, 64-key tile) walks the query
+//    tiles that see its keys for all G query heads of the kv head;
+//  * dQ: one block per (b * Hq + q head, 64-query tile), the heaviest
+//    causal tiles first, walks the key tiles its rows see, as the forward.
 //
 // Body 2, bfloat16 (wgmma, one warpgroup of 128 threads a block), with the
 // forward's building blocks (wgmma.cuh): bf16 tiles of 64 rows in the
 // 128-byte swizzle, copied by cp.async into a two-stage ring (the next
-// tile in flight while this one is computed), D = 112 and 16 padded to
-// 128 and 64 with zero columns.
-//  * dK/dV: S^T = K Q^T and dP^T = V dO^T, m64n64k16 with both operands
-//    K-major in shared memory; P^T and dS^T are formed on the accumulator
-//    fragments in float32 and split into bf16 halves in registers as the
-//    A operands of dV += P^T dO and dK += dS^T Q (m64nDPk16, Q and dO
-//    read MN-major); the query tile's lse and Delta ride the ring as
-//    4-byte cp.async copies;
-//  * dQ: S = Q K^T and dP = dO V^T (_ss), then dQ += dS K with dS's
-//    halves from registers and K read MN-major.
+// (Q, dO) tile in flight while this one is computed), D = 112 and 16
+// padded to 128 and 64 with zero columns. Grid: one thread block cluster
+// of C blocks (C the largest divisor of G up to 8) per unit (b * Hkv + kv
+// head, 64-key tile): B Hkv ceil(Skv / 64) C blocks, 1024 at the training
+// shape; 108 KB of shared memory a block (D = 128), so two blocks an SM.
+// Block r of a cluster walks query heads [r G / C, (r + 1) G / C) of the
+// kv head over the query tiles that see the keys: for a causal call, the
+// tiles holding rows that see no key, then the tiles from the last down
+// to the diagonal, the heads inner; dK and dV for the 64 keys stay in
+// registers. Each step:
+//  * S^T = K Q^T and dP^T = V dO^T, m64n64k16 with both operands K-major;
+//    P^T and dS^T are formed on the accumulator fragments in float32;
+//  * dV += P^T dO and dK += dS^T Q with the halves as A operands from
+//    registers (m64nDPk16, Q and dO read MN-major); dS^T goes to shared
+//    memory as bf16 while dK's products run (keys its rows, queries along
+//    the swizzled row: the MN-major A operand of dQ);
+//  * dQ's share = dS K (m64nDPk16, dS^T and K both MN-major), which goes
+//    to a float32 sum for the (q head, query tile) in a workspace, in key
+//    tile order: the key tiles that walk a query tile are 0 .. n_last
+//    (the causal ones a prefix), so key tile n writes its share (64 x DP
+//    floats) into the step's Q and dO tiles, which it no longer needs,
+//    waits until the tile's counter equals n (read at the step's start,
+//    made an acquire by a fence; an acquire load while it is short), and
+//    one thread hands the share to the TMA: a bulk store for tile 0, a
+//    bulk reduce-add in L2 after it (FlashAttention-3's route), and
+//    releases turn n + 1 once the bulk group is complete (a proxy fence,
+//    a release store; releasing it later, after the next step's first
+//    products, was slower on the card). Tile n_last reads the sum
+//    and writes dq = scale x sum in bf16 straight from its registers: no
+//    pass after the kernel. (A read and write of the sum at every step,
+//    or float4 atomics from every thread, cost more on the card.) The sum
+//    has one order on every run, so two calls give the same bits. Key
+//    tile n - 1 walks the query tiles of key tile n at the same steps,
+//    after one more (the descending walk), so the turn it hands on is a
+//    step ahead: with an ascending walk the last tile's turn would come
+//    at step 2 nq - 1, not nq.
+// No deadlock: units are handed out by a ticket (an atomic counter that
+// rank 0 of each cluster takes once, key tile major), not by blockIdx, so
+// the unit a block waits for (the same kv head and query head, key tile
+// n - 1) holds a smaller ticket, taken earlier by a cluster that is
+// already running; by induction the smallest unfinished ticket always
+// runs. ((b, kv head) major is slower: the tiles of a head then run
+// together and the last waits out the whole chain.) The clusters then
+// sum dK and dV over their heads through distributed shared memory in
+// rank order.
 // Registers: at D = 128, dK and dV hold 64 + 64 floats a thread, S^T and
-// dP^T 32 + 32, one pair of bf16 halves 16 + 16 (dV's products finish
-// before dS is split).
+// dP^T 32 + 32, the bf16 halves of P and dS 16 + 16 each, dQ's share 64
+// once those are dead.
 // Both bodies: D is a template parameter, built for 16 (smoke), 112
 // (zamba2's shared block) and 128 (minitron-8b); another D fails at launch
 // with cudaErrorInvalidValue.
@@ -90,18 +118,20 @@
 namespace cg = cooperative_groups;
 
 // The launch's arguments, one block: flash_attention.py packs it with
-// the same layout (struct format "<11Q8i2fQ", 136 bytes).
+// the same layout (struct format "<13Q8i2fQ", 152 bytes).
 struct BwdArgs {
   const void *q, *k, *v, *o, *olo;
   const float* lse;
   const void* dout;
   float* delta;
   void *dq, *dk, *dv;
+  float* dq_acc;  // bf16: dQ's float32 partial sums, 64 x DP floats a (b, q head, query tile)
+  int* sem;       // bf16: B * Hq * nq turn counters, then the ticket counter
   int B, Hq, Hkv, Sq, Skv, D, causal, dtype;
   float scale, cap;
   void* stream;
 };
-static_assert(sizeof(BwdArgs) == 136, "BwdArgs layout");
+static_assert(sizeof(BwdArgs) == 152, "BwdArgs layout");
 
 namespace {
 
@@ -132,9 +162,11 @@ __device__ __forceinline__ void vec_f(const __nv_bfloat16* p, float* f) {
 template <typename T, int D>
 __global__ void __launch_bounds__(256)
 delta_kernel(const T* __restrict__ o, const T* __restrict__ olo, const T* __restrict__ dout,
-             float* __restrict__ delta, int rows) {
+             float* __restrict__ delta, int rows, int* __restrict__ sem, int nsem) {
   constexpr int VEC = 16 / (int)sizeof(T), NCH = D / VEC;
   constexpr int L = NCH <= 2 ? 2 : NCH <= 4 ? 4 : NCH <= 8 ? 8 : NCH <= 16 ? 16 : 32;
+  const int gi = blockIdx.x * 256 + threadIdx.x;  // the bf16 kernel's counters start at 0
+  if (gi < nsem) sem[gi] = 0;
   const int lane = threadIdx.x & 31, c = lane % L;
   const int row = (blockIdx.x * 8 + (threadIdx.x >> 5)) * (32 / L) + lane / L;
   float s = 0.f;
@@ -156,14 +188,16 @@ delta_kernel(const T* __restrict__ o, const T* __restrict__ olo, const T* __rest
   if (row < rows && c == 0) delta[row] = s;
 }
 
+// the Delta pass, which also zeroes nsem counters at sem (fewer than its
+// threads: each row has at least two)
 template <typename T, int D>
 static void launch_delta(const void* o, const void* olo, const void* dout, float* delta,
-                         int rows, cudaStream_t s) {
+                         int rows, int* sem, int nsem, cudaStream_t s) {
   constexpr int NCH = D / (16 / (int)sizeof(T));
   constexpr int L = NCH <= 2 ? 2 : NCH <= 4 ? 4 : NCH <= 8 ? 8 : NCH <= 16 ? 16 : 32;
   const int per_block = 8 * (32 / L);
   delta_kernel<T, D><<<(rows + per_block - 1) / per_block, 256, 0, s>>>(
-      (const T*)o, (const T*)olo, (const T*)dout, delta, rows);
+      (const T*)o, (const T*)olo, (const T*)dout, delta, rows, sem, nsem);
 }
 
 // p and dS of one (query, key) pair, float32: s = q.k, dp = dO.v; lse in
@@ -525,174 +559,155 @@ __device__ __forceinline__ float logit2(float s, float scale, float sl2, float c
   return s * sl2;
 }
 
-template <int D> struct Bf16 {
-  static constexpr int DP = wg::Tile<D>::DP, TILE = wg::Tile<D>::BYTES;
-  // dQ: Q, dO and two stages of (K, V); dK/dV: K, V and two stages of
-  // (Q, dO), then two stages of (lse, Delta) of 64 floats each
-  static constexpr size_t dq_bytes = 6 * (size_t)TILE + 1024;
-  static constexpr size_t dkv_bytes = 6 * (size_t)TILE + 2 * 512 + 1024;
-};
-
-template <int D>
-__global__ void __launch_bounds__(128)
-dq_wgmma_kernel(const bf16* __restrict__ q, const bf16* __restrict__ k,
-                const bf16* __restrict__ v, const bf16* __restrict__ dout,
-                const float* __restrict__ lse, const float* __restrict__ delta,
-                bf16* __restrict__ dq, int Hq, int G, int Sq, int Skv, float scale, float cap,
-                int causal) {
-  using namespace wg;
-  constexpr int DP = Bf16<D>::DP, TILE = Bf16<D>::TILE;
-  constexpr int NKS = D / 16;  // k-steps over D (the pad columns are skipped)
-  constexpr int NO = DP / 2;   // dQ fragment floats a thread (m64nDP)
-  extern __shared__ uint8_t smem_raw[];
-  const uint32_t sQ = (smem_u32(smem_raw) + 1023u) & ~1023u;
-  const uint32_t sG = sQ + TILE;
-
-  const int tid = threadIdx.x, warp = tid >> 5, lane = tid & 31, tq = lane & 3;
-  const int bh = blockIdx.x;  // b * Hq + hq
-  const int q0 = (gridDim.y - 1 - blockIdx.y) * BR;
-  const int bkv = (bh / Hq) * (Hq / G) + (bh % Hq) / G;
-  const int off = Skv - Sq;
-  const int qrows = min(BR, Sq - q0);
-  const bf16* kp = k + (size_t)bkv * Skv * D;
-  const bf16* vp = v + (size_t)bkv * Skv * D;
-  // rows that see no key give dS = 0: only the keys the tile's rows see
-  const int kend = causal ? min(Skv, max(0, off + q0 + qrows)) : Skv;
-  const int nt = (kend + BN - 1) / BN;
-
-  load_tile<D, DP>(sQ, q + (size_t)bh * Sq * D, q0, Sq);
-  load_tile<D, DP>(sG, dout + (size_t)bh * Sq * D, q0, Sq);
-  if (nt > 0) {
-    load_tile<D, DP>(sQ + 2 * TILE, kp, 0, Skv);
-    load_tile<D, DP>(sQ + 3 * TILE, vp, 0, Skv);
-  }
-  asm volatile("cp.async.commit_group;\n" ::: "memory");
-
-  const int row0 = warp * 16 + (lane >> 2);  // and row0 + 8
-  float l2[2], dl[2];
+// P^T and dS^T of an m64n64 tile of S^T and dP^T, in place: s[4 n + 2 h
+// + e] is key k0 + row0 + 8 h, query q0 + 8 n + 2 tq + e; sL, sD the
+// tile's lse and Delta. MASK: the causal, ragged and no-key masks apply
+template <bool MASK>
+__device__ __forceinline__ void p_ds_tile(float* s, float* dp, const float* sL, const float* sD,
+                                          int q0, int k0, int row0, int tq, int off, int Sq,
+                                          int Skv, int causal, float scale, float sl2,
+                                          float cap) {
 #pragma unroll
-  for (int h = 0; h < 2; ++h) {
-    const int r = row0 + 8 * h;
-    l2[h] = r < qrows ? lse[(size_t)bh * Sq + q0 + r] * LOG2E : 0.f;
-    dl[h] = r < qrows ? delta[(size_t)bh * Sq + q0 + r] : 0.f;
-  }
-  float acc[NO];
+  for (int nn = 0; nn < 8; ++nn)
 #pragma unroll
-  for (int i = 0; i < NO; ++i) acc[i] = 0.f;
-  const float sl2 = scale * LOG2E;
-
-  for (int j = 0; j < nt; ++j) {
-    const int k0 = j * BN;
-    const uint32_t sK = sQ + TILE * (2 + 2 * (j & 1)), sV = sK + TILE;
-    if (j + 1 < nt) {  // the next tile into the other stage, freed at the end of j - 1
-      const uint32_t nK = sQ + TILE * (2 + 2 * ((j + 1) & 1));
-      load_tile<D, DP>(nK, kp, k0 + BN, Skv);
-      load_tile<D, DP>(nK + TILE, vp, k0 + BN, Skv);
+    for (int e = 0; e < 2; ++e) {
+      const int c = 8 * nn + 2 * tq + e;
+      const int qpos = off + q0 + c;
+      const bool none = MASK && causal && qpos < 0;
+      const float lq = sL[c] * wg::LOG2E, dq_ = sD[c];
+#pragma unroll
+      for (int hh = 0; hh < 2; ++hh) {
+        const int i = 4 * nn + 2 * hh + e;
+        const int kpos = k0 + row0 + 8 * hh;
+        const bool vis =
+            !MASK || (q0 + c < Sq && kpos < Skv && (!causal || none || kpos <= qpos));
+        float capf = 1.f;
+        const float x2 = none ? 0.f : logit2(s[i], scale, sl2, cap, capf);
+        const float p = vis ? wg::ex2(x2 - lq) : 0.f;
+        dp[i] = vis && !none ? p * (dp[i] - dq_) * capf : 0.f;
+        s[i] = p;
+      }
     }
-    asm volatile("cp.async.commit_group;\n" ::: "memory");
-    asm volatile("cp.async.wait_group 1;\n" ::: "memory");
-    asm volatile("fence.proxy.async.shared::cta;\n" ::: "memory");
-    __syncthreads();
-
-    float s[32], dp[32];
-#pragma unroll
-    for (int i = 0; i < 32; ++i) s[i] = dp[i] = 0.f;
-    pin<32>(s);
-    pin<32>(dp);
-    fence();
-#pragma unroll
-    for (int kk = 0; kk < NKS; ++kk) {
-      const uint32_t o8 = (kk >> 2) * (64 * 128) + (kk & 3) * 32;
-      wgmma_m64n64k16_ss(s, desc(sQ + o8, 16, 1024), desc(sK + o8, 16, 1024), kk > 0);
-    }
-#pragma unroll
-    for (int kk = 0; kk < NKS; ++kk) {
-      const uint32_t o8 = (kk >> 2) * (64 * 128) + (kk & 3) * 32;
-      wgmma_m64n64k16_ss(dp, desc(sG + o8, 16, 1024), desc(sV + o8, 16, 1024), kk > 0);
-    }
-    commit();
-    wait0();
-    pin<32>(s);
-    pin<32>(dp);
-
-    // s[4 n + 2 h + e] is row row0 + 8 h, key k0 + 8 n + 2 tq + e
-    const bool edge = k0 + BN > Skv || (causal && (k0 + BN - 1 > off + q0 || off + q0 < 0));
-#pragma unroll
-    for (int h = 0; h < 2; ++h) {
-      const int qpos = off + q0 + row0 + 8 * h;
-      const bool none = causal && qpos < 0;
-#pragma unroll
-      for (int n = 0; n < 8; ++n)
-#pragma unroll
-        for (int e = 0; e < 2; ++e) {
-          const int i = 4 * n + 2 * h + e;
-          const int kpos = k0 + 8 * n + 2 * tq + e;
-          const bool vis = !edge || (kpos < Skv && (!causal || kpos <= qpos) && !none);
-          float capf;
-          const float x2 = logit2(s[i], scale, sl2, cap, capf);
-          const float p = vis ? ex2(x2 - l2[h]) : 0.f;
-          dp[i] = vis ? p * (dp[i] - dl[h]) * capf : 0.f;
-        }
-    }
-
-    // dQ += dS K: dS's k16 fragments (hi and lo) straight from the
-    // accumulator, K MN-major
-    uint32_t hi[4][4], lo[4][4];
-    frag_split(dp, hi, lo);
-    pin<NO>(acc);
-    fence();
-#pragma unroll
-    for (int kk = 0; kk < 4; ++kk) {
-      pv<DP>(acc, hi[kk], desc(sK + kk * 2048, 64 * 128, 1024));
-      pv<DP>(acc, lo[kk], desc(sK + kk * 2048, 64 * 128, 1024));
-    }
-    commit();
-    wait0();
-    pin<NO>(acc);
-    __syncthreads();  // stage j & 1 is free for tile j + 2
-  }
-  asm volatile("cp.async.wait_group 0;\n" ::: "memory");
-  store_rows<D>(dq + ((size_t)bh * Sq + q0) * D, acc, row0, qrows, scale);
 }
 
+template <int D> struct Bf16 {
+  static constexpr int DP = wg::Tile<D>::DP, TILE = wg::Tile<D>::BYTES;
+  // K, V and two stages of (Q, dO); dS^T (64 x 64 bf16); two stages of
+  // (lse, Delta) of 64 floats each; slack to align the tiles to 1 KB
+  static constexpr size_t bytes = 6 * (size_t)TILE + 8192 + 2 * 512 + 1024;
+};
+
+// dS^T into shared memory as bf16, rounded once (the hi half): keys are
+// its rows, 64 queries a 128-byte row in the swizzle, the MN-major A
+// operand of dQ = dS K. sh[kk][r] holds columns 8 (2 kk + r / 2) + 2 tq,
+// + 1 of key row row0 + 8 (r % 2)
+__device__ __forceinline__ void store_ds(uint8_t* pDS, uint32_t (*sh)[4], int row0,
+                                         int tq) {
+#pragma unroll
+  for (int kk = 0; kk < 4; ++kk)
+#pragma unroll
+    for (int r = 0; r < 4; ++r) {
+      const int row = row0 + 8 * (r & 1), nn = 2 * kk + (r >> 1);
+      *reinterpret_cast<uint32_t*>(pDS + row * 128 + ((nn ^ (row & 7)) << 4) + 4 * tq) =
+          sh[kk][r];
+    }
+  asm volatile("fence.proxy.async.shared::cta;\n" ::: "memory");
+}
+
+// hold the bf16 A-operand registers of an in-flight wgmma live up to here
+__device__ __forceinline__ void keep(uint32_t (*a)[4]) {
+#pragma unroll
+  for (int kk = 0; kk < 4; ++kk)
+    asm volatile("" ::"r"(a[kk][0]), "r"(a[kk][1]), "r"(a[kk][2]), "r"(a[kk][3]) : "memory");
+}
+
+__device__ __forceinline__ int ld_relaxed(const int* p) {
+  int v;
+  asm volatile("ld.relaxed.gpu.global.s32 %0, [%1];\n" : "=r"(v) : "l"(p) : "memory");
+  return v;
+}
+__device__ __forceinline__ int ld_acquire(const int* p) {
+  int v;
+  asm volatile("ld.acquire.gpu.global.s32 %0, [%1];\n" : "=r"(v) : "l"(p) : "memory");
+  return v;
+}
+__device__ __forceinline__ void st_release(int* p, int v) {
+  asm volatile("st.release.gpu.global.s32 [%0], %1;\n" ::"l"(p), "r"(v) : "memory");
+}
+
+// One kernel for dK, dV and dQ. A unit of work is a (b * Hkv + kv head,
+// 64-key tile): a cluster of C blocks takes it, block r walking query heads
+// [r G / C, (r + 1) G / C) of the kv head over the query tiles that see the
+// keys; the dK / dV sum over the cluster is as before. Units are handed
+// out in ticket order (an atomic counter), so any unit a block waits for
+// was handed to a block that is already running.
 template <int D>
 __global__ void __launch_bounds__(128)
-dkdv_wgmma_kernel(const bf16* __restrict__ q, const bf16* __restrict__ k,
-                  const bf16* __restrict__ v, const bf16* __restrict__ dout,
-                  const float* __restrict__ lse, const float* __restrict__ delta,
-                  bf16* __restrict__ dk, bf16* __restrict__ dv, int Hq, int G, int Sq, int Skv,
-                  float scale, float cap, int causal) {
+bwd_wgmma_kernel(const bf16* __restrict__ q, const bf16* __restrict__ k,
+                 const bf16* __restrict__ v, const bf16* __restrict__ dout,
+                 const float* __restrict__ lse, const float* __restrict__ delta,
+                 bf16* __restrict__ dq, bf16* __restrict__ dk, bf16* __restrict__ dv,
+                 float* __restrict__ dq_acc, int* __restrict__ sem, int Hq, int G, int Sq,
+                 int Skv, float scale, float cap, int causal, int n_bkv) {
   using namespace wg;
   constexpr int DP = Bf16<D>::DP, TILE = Bf16<D>::TILE;
   constexpr int NKS = D / 16;
   constexpr int NO = DP / 2;
   extern __shared__ uint8_t smem_raw[];
+  __shared__ int s_unit;
   const uint32_t sK = (smem_u32(smem_raw) + 1023u) & ~1023u;
   const uint32_t sV = sK + TILE;
-  // stage st: Q at sK + (2 + 2 st) TILE, dO one tile on; lse and Delta after the tiles
-  const uint32_t sLD = sK + 6 * TILE;
+  // stage st: Q at sK + (2 + 2 st) TILE, dO one tile on; then dS^T, then
+  // lse and Delta
+  const uint32_t sDS = sK + 6 * TILE;
+  const uint32_t sLD = sDS + 8192;
   const float* fLD = reinterpret_cast<const float*>(smem_raw + (sLD - smem_u32(smem_raw)));
+  uint8_t* pDS = smem_raw + (sDS - smem_u32(smem_raw));
 
   const int tid = threadIdx.x, warp = tid >> 5, lane = tid & 31, tq = lane & 3;
-  const int bkv = blockIdx.x;  // b * Hkv + h
-  const int k0 = blockIdx.y * BN;
+  const int C = gridDim.z;
+  const int nq = (Sq + BR - 1) / BR, nkv = (Skv + BN - 1) / BN;
+  const int ticket = n_bkv / (Hq / G) * Hq * nq;  // index of the ticket counter in sem
+  cg::cluster_group cluster = cg::this_cluster();
+  if (tid == 0 && (C == 1 || cluster.block_rank() == 0)) s_unit = atomicAdd(sem + ticket, 1);
+  int unit;
+  if (C > 1) {
+    cluster.sync();
+    unit = *cluster.map_shared_rank(&s_unit, 0);
+  } else {
+    __syncthreads();
+    unit = s_unit;
+  }
+  const int n = unit / n_bkv, bkv = unit % n_bkv;  // key tile major: heavy causal tiles first
+  const int k0 = n * BN;
   const int Hkv = Hq / G, b = bkv / Hkv, h = bkv % Hkv;
   const int off = Skv - Sq;
   const int krows = min(BN, Skv - k0);
+  const bool do_kv = dk != nullptr, do_q = dq != nullptr;
   // query tiles that see these keys: [0, n_none) holds the rows that see
   // no key (causal, off < 0), [t_first, nq) the rows at or past key k0
-  const int nq = (Sq + BR - 1) / BR;
   const int n_none = causal && off < 0 ? (min(-off, Sq) + BR - 1) / BR : 0;
-  const int t_first = !causal ? 0 : k0 - off <= 0 ? 0 : min(nq, (k0 - off) / BR);
-  const int lo = max(t_first, n_none);
+  auto t_first = [&](int kt) {
+    const int kk = kt * BN;
+    return !causal ? 0 : kk - off <= 0 ? 0 : min(nq, (kk - off) / BR);
+  };
+  const int lo = max(t_first(n), n_none);
   const int m = n_none + (nq - lo);  // tiles a query head walks
-  // this block's query heads: the gridDim.z blocks of a cluster share them
-  const int gpb = G / gridDim.z, g0 = blockIdx.z * gpb;
+  // this block's query heads: the C blocks of a cluster share them
+  const int gpb = G / C, g0 = (C > 1 ? (int)cluster.block_rank() : 0) * gpb;
   const int total = gpb * m;
 
+  // the it-th step's query tile and head: the tiles of rows that see no
+  // key first, then the others from the last down to the diagonal, the
+  // block's heads inner. Key tile n - 1 walks the same tiles at the same
+  // steps plus one more first, so the turn it hands on is a step ahead
+  auto tile_of = [&](int it) {
+    const int u = it / gpb;
+    return u < n_none ? u : nq - 1 - (u - n_none);
+  };
   auto load_q = [&](int it, int st) {  // the it-th (head, query tile) into stage st
-    const int g = g0 + it / m, u = it % m;
-    const int qt0 = (u < n_none ? u : lo + (u - n_none)) * BR;
+    const int g = g0 + it % gpb;
+    const int qt0 = tile_of(it) * BR;
     const size_t bh = (size_t)b * Hq + h * G + g;
     const uint32_t dst = sK + TILE * (2 + 2 * st);
     load_tile<D, DP>(dst, q + bh * Sq * D, qt0, Sq);
@@ -715,8 +730,13 @@ dkdv_wgmma_kernel(const bf16* __restrict__ q, const bf16* __restrict__ k,
 
   for (int it = 0; it < total; ++it) {
     const int st = it & 1;
-    const int u = it % m;
-    const int q0 = (u < n_none ? u : lo + (u - n_none)) * BR;
+    const int g = g0 + it % gpb;
+    const int mt = tile_of(it);
+    const int q0 = mt * BR;
+    // this step's dQ turn, read now (relaxed) so its round trip is over by
+    // the dQ section; seen == n there is made an acquire by a fence
+    int* turn = sem + ((size_t)b * Hq + h * G + g) * nq + mt;
+    const int seen = do_q && n > 0 && tid == 0 ? ld_relaxed(turn) : 0;
     const uint32_t sQ = sK + TILE * (2 + 2 * st), sG = sQ + TILE;
     const float* sL = fLD + st * 128;
     const float* sD = sL + 64;
@@ -748,58 +768,142 @@ dkdv_wgmma_kernel(const bf16* __restrict__ q, const bf16* __restrict__ k,
     pin<32>(s);
     pin<32>(dp);
 
-    // s[4 n + 2 h + e] is key k0 + row0 + 8 h, query q0 + 8 n + 2 tq + e
+    // P^T and dS^T in place of S^T and dP^T; a tile whose every key is
+    // visible to every row skips the masks
+    if (q0 + BR <= Sq && k0 + BN <= Skv &&
+        (!causal || (off + q0 >= 0 && k0 + BN - 1 <= off + q0)))
+      p_ds_tile<false>(s, dp, sL, sD, q0, k0, row0, tq, off, Sq, Skv, causal, scale, sl2, cap);
+    else
+      p_ds_tile<true>(s, dp, sL, sD, q0, k0, row0, tq, off, Sq, Skv, causal, scale, sl2, cap);
+
+    // dV += P^T dO, then dK += dS^T Q, the A operands (hi and lo halves)
+    // from registers; dS^T goes to shared memory while dK's products run.
+    // Each group is issued and waited in one block, and nothing defines a
+    // register of the next group while one is in flight: ptxas serializes
+    // or waits otherwise (C7513, C7517)
+    uint32_t sh[4][4], sl[4][4];
+    if (do_kv) {
+      uint32_t ph[4][4], pl[4][4];
+      frag_split(s, ph, pl);
+      pin<NO>(av);
+      fence();
 #pragma unroll
-    for (int n = 0; n < 8; ++n)
+      for (int kk = 0; kk < 4; ++kk) {
+        pv<DP>(av, ph[kk], desc(sG + kk * 2048, 64 * 128, 1024));
+        pv<DP>(av, pl[kk], desc(sG + kk * 2048, 64 * 128, 1024));
+      }
+      commit();
+      wait0();
+      keep(ph);
+      keep(pl);
+      pin<NO>(av);
+      frag_split(dp, sh, sl);
+      pin<NO>(ak);
+      fence();
 #pragma unroll
-      for (int e = 0; e < 2; ++e) {
-        const int c = 8 * n + 2 * tq + e;
-        const int qpos = off + q0 + c;
-        const bool none = causal && qpos < 0;
-        const float lq = sL[c] * LOG2E, dq_ = sD[c];
+      for (int kk = 0; kk < 4; ++kk) {
+        pv<DP>(ak, sh[kk], desc(sQ + kk * 2048, 64 * 128, 1024));
+        pv<DP>(ak, sl[kk], desc(sQ + kk * 2048, 64 * 128, 1024));
+      }
+      commit();
+      if (do_q) store_ds(pDS, sh, row0, tq);
+      wait0();
+      keep(sh);
+      keep(sl);
+      pin<NO>(ak);
+    } else {
+      frag_split(dp, sh, sl);
+      store_ds(pDS, sh, row0, tq);
+    }
+    if (do_q) {
+      __syncthreads();  // every warp's dS^T is in shared memory
+      // dQ's share of this key tile: dS K, dS^T and K both MN-major
+      float acc[NO];
 #pragma unroll
-        for (int hh = 0; hh < 2; ++hh) {
-          const int i = 4 * n + 2 * hh + e;
-          const int kpos = k0 + row0 + 8 * hh;
-          const bool vis = q0 + c < Sq && kpos < Skv && (!causal || none || kpos <= qpos);
-          float capf = 1.f;
-          const float x2 = none ? 0.f : logit2(s[i], scale, sl2, cap, capf);
-          const float p = vis ? ex2(x2 - lq) : 0.f;
-          dp[i] = vis && !none ? p * (dp[i] - dq_) * capf : 0.f;
-          s[i] = p;
+      for (int i = 0; i < NO; ++i) acc[i] = 0.f;
+      pin<NO>(acc);
+      fence();
+#pragma unroll
+      for (int kk = 0; kk < 4; ++kk)
+        mm_tt<DP>(acc, desc(sDS + kk * 2048, 64 * 128, 1024),
+                  desc(sK + kk * 2048, 64 * 128, 1024), kk > 0);
+      commit();
+      wait0();
+      pin<NO>(acc);
+
+      // added to the (head, query tile)'s float32 sum in key tile order:
+      // the tiles that walk query tile mt are 0 .. n_last, key tile n
+      // waits for its turn (the counter equal to n); tile 0 stores, the
+      // others add (bulk, by the TMA), and tile n_last reads the sum and
+      // writes dq = scale x sum in bf16
+      int n_last = nkv - 1;
+      if (mt >= n_none)
+        while (n_last > 0 && t_first(n_last) > mt) --n_last;
+      const size_t bh = (size_t)b * Hq + h * G + g;
+      if (n != n_last) {
+        // the share goes to this stage's Q and dO tiles, free now (64 x DP
+        // floats, the workspace's order), for the TMA
+        float4* stg = reinterpret_cast<float4*>(smem_raw + (sQ - smem_u32(smem_raw))) + tid;
+#pragma unroll
+        for (int i = 0; i < NO / 4; ++i)
+          stg[i * 128] = make_float4(acc[4 * i], acc[4 * i + 1], acc[4 * i + 2], acc[4 * i + 3]);
+        asm volatile("fence.proxy.async.shared::cta;\n" ::: "memory");
+      }
+      if (tid == 0 && n > 0) {
+        if (seen == n)
+          asm volatile("fence.acq_rel.gpu;\n" ::: "memory");
+        else
+          while (ld_acquire(turn) != n) __nanosleep(32);
+      }
+      __syncthreads();  // the turn is ours, and the share is in shared memory
+      if (n == n_last) {
+        if (n > 0) {
+          const float4* ws =
+              reinterpret_cast<const float4*>(dq_acc + (bh * nq + mt) * (size_t)(64 * DP)) + tid;
+#pragma unroll
+          for (int i = 0; i < NO / 4; ++i) {
+            const float4 w = __ldcg(ws + i * 128);
+            acc[4 * i] += w.x;
+            acc[4 * i + 1] += w.y;
+            acc[4 * i + 2] += w.z;
+            acc[4 * i + 3] += w.w;
+          }
+        }
+        store_rows<D>(dq + (bh * Sq + q0) * D, acc, warp * 16 + (lane >> 2),
+                      min(BR, Sq - q0), scale);
+      } else {
+        // one thread hands the share to the TMA: a bulk store for tile 0, a
+        // bulk add (reduced in L2) after it
+        if (tid == 0) {
+          const uint32_t src = sQ;
+          float* dst = dq_acc + (bh * nq + mt) * (size_t)(64 * DP);
+          if (n == 0)
+            asm volatile("cp.async.bulk.global.shared::cta.bulk_group [%0], [%1], %2;\n" ::"l"(dst),
+                         "r"(src), "r"(64 * DP * 4)
+                         : "memory");
+          else
+            asm volatile(
+                "cp.reduce.async.bulk.global.shared::cta.bulk_group.add.f32 [%0], [%1], %2;\n" ::"l"(
+                    dst),
+                "r"(src), "r"(64 * DP * 4)
+                : "memory");
+          asm volatile("cp.async.bulk.commit_group;\n" ::: "memory");
+          // turn n + 1 once the add is done (and the stage read out)
+          asm volatile("cp.async.bulk.wait_group 0;\n" ::: "memory");
+          asm volatile("fence.proxy.async.global;\n" ::: "memory");
+          st_release(turn, n + 1);
         }
       }
-
-    // dV += P^T dO, then dK += dS^T Q, the A operands (hi and lo) from
-    // registers, one after the other to keep the registers of one pair
-    uint32_t hi[4][4], lo[4][4];
-    frag_split(s, hi, lo);
-    pin<NO>(av);
-    fence();
-#pragma unroll
-    for (int kk = 0; kk < 4; ++kk) {
-      pv<DP>(av, hi[kk], desc(sG + kk * 2048, 64 * 128, 1024));
-      pv<DP>(av, lo[kk], desc(sG + kk * 2048, 64 * 128, 1024));
     }
-    commit();
-    wait0();
-    pin<NO>(av);
-    frag_split(dp, hi, lo);
-    pin<NO>(ak);
-    fence();
-#pragma unroll
-    for (int kk = 0; kk < 4; ++kk) {
-      pv<DP>(ak, hi[kk], desc(sQ + kk * 2048, 64 * 128, 1024));
-      pv<DP>(ak, lo[kk], desc(sQ + kk * 2048, 64 * 128, 1024));
-    }
-    commit();
-    wait0();
-    pin<NO>(ak);
-    __syncthreads();  // stage st is free for the tile after next
+    __syncthreads();  // stage st and dS^T are free for the tile after next
   }
   asm volatile("cp.async.wait_group 0;\n" ::: "memory");
+  if (!do_kv) {
+    if (C > 1) cluster.sync();  // rank 0's ticket stays readable until all have read it
+    return;
+  }
   const size_t base = ((size_t)bkv * Skv + k0) * D;
-  if (gridDim.z == 1) {
+  if (C == 1) {
     store_rows<D>(dk + base, ak, row0, krows, scale);
     store_rows<D>(dv + base, av, row0, krows, 1.f);
     return;
@@ -811,17 +915,17 @@ dkdv_wgmma_kernel(const bf16* __restrict__ q, const bf16* __restrict__ k,
   __syncthreads();  // every wgmma and copy into the tiles is done
   float* red = reinterpret_cast<float*>(smem_raw + (sK - smem_u32(smem_raw)));
 #pragma unroll
-  for (int h = 0; h < 2; ++h)
+  for (int hh = 0; hh < 2; ++hh)
 #pragma unroll
-    for (int n = 0; n < DP / 8; ++n) {
-      const int idx = (row0 + 8 * h) * DP + 8 * n + 2 * tq;
-      *reinterpret_cast<float2*>(red + idx) = make_float2(ak[4 * n + 2 * h], ak[4 * n + 2 * h + 1]);
+    for (int nn = 0; nn < DP / 8; ++nn) {
+      const int idx = (row0 + 8 * hh) * DP + 8 * nn + 2 * tq;
+      *reinterpret_cast<float2*>(red + idx) =
+          make_float2(ak[4 * nn + 2 * hh], ak[4 * nn + 2 * hh + 1]);
       *reinterpret_cast<float2*>(red + 64 * DP + idx) =
-          make_float2(av[4 * n + 2 * h], av[4 * n + 2 * h + 1]);
+          make_float2(av[4 * nn + 2 * hh], av[4 * nn + 2 * hh + 1]);
     }
-  cg::cluster_group cluster = cg::this_cluster();
   cluster.sync();
-  const int C = (int)cluster.num_blocks(), rank = (int)cluster.block_rank();
+  const int rank = (int)cluster.block_rank();
   for (int i = rank * 128 + tid; i < krows * D; i += C * 128) {
     const int r = i / D, c = i - r * D;
     float sk = 0.f, sv = 0.f;
@@ -863,7 +967,8 @@ static int run(void (*kernel)(P...), size_t smem, dim3 grid, int threads, cudaSt
 template <int D>
 static int launch_f32(const BwdArgs* a, cudaStream_t s) {
   const int G = a->Hq / a->Hkv;
-  launch_delta<float, D>(a->o, nullptr, a->dout, a->delta, a->B * a->Hq * a->Sq, s);
+  launch_delta<float, D>(a->o, nullptr, a->dout, a->delta, a->B * a->Hq * a->Sq, nullptr, 0,
+                         s);
   int e = (int)cudaGetLastError();
   if (e == 0 && a->dk != nullptr)
     e = run(dkdv_f32_kernel<D>, F32<D>::dkv_bytes, dim3((a->Skv + 63) / 64, a->B * a->Hkv),
@@ -881,27 +986,21 @@ static int launch_f32(const BwdArgs* a, cudaStream_t s) {
 template <int D>
 static int launch_bf16(const BwdArgs* a, cudaStream_t s) {
   const int G = a->Hq / a->Hkv;
-  launch_delta<bf16, D>(a->o, a->olo, a->dout, a->delta, a->B * a->Hq * a->Sq, s);
+  const int nq = (a->Sq + wg::BR - 1) / wg::BR, nkv = (a->Skv + wg::BN - 1) / wg::BN;
+  launch_delta<bf16, D>(a->o, a->olo, a->dout, a->delta, a->B * a->Hq * a->Sq, a->sem,
+                        a->B * a->Hq * nq + 1, s);
   int e = (int)cudaGetLastError();
-  if (e == 0 && a->dk != nullptr) {
-    // a cluster of C blocks shares each kv head's G query heads: the
-    // largest C <= 8 (the portable cluster size) that divides G
-    int C = 1;
-    for (int c = 2; c <= 8; ++c)
-      if (G % c == 0) C = c;
-    e = run(dkdv_wgmma_kernel<D>, Bf16<D>::dkv_bytes,
-            dim3(a->B * a->Hkv, (a->Skv + wg::BN - 1) / wg::BN, C), 128, s, C,
-            (const bf16*)a->q, (const bf16*)a->k, (const bf16*)a->v, (const bf16*)a->dout,
-            a->lse, (const float*)a->delta, (bf16*)a->dk, (bf16*)a->dv, a->Hq, G, a->Sq,
-            a->Skv, a->scale, a->cap, a->causal);
-  }
-  if (e == 0 && a->dq != nullptr)
-    e = run(dq_wgmma_kernel<D>, Bf16<D>::dq_bytes,
-            dim3(a->B * a->Hq, (a->Sq + wg::BR - 1) / wg::BR), 128, s, 1, (const bf16*)a->q,
-            (const bf16*)a->k, (const bf16*)a->v, (const bf16*)a->dout, a->lse,
-            (const float*)a->delta, (bf16*)a->dq, a->Hq, G, a->Sq, a->Skv, a->scale,
-            a->cap, a->causal);
-  return e;
+  if (e != 0) return e;
+  // a cluster of C blocks shares each kv head's G query heads: the
+  // largest C <= 8 (the portable cluster size) that divides G
+  int C = 1;
+  for (int c = 2; c <= 8; ++c)
+    if (G % c == 0) C = c;
+  return run(bwd_wgmma_kernel<D>, Bf16<D>::bytes, dim3(a->B * a->Hkv, nkv, C), 128, s, C,
+             (const bf16*)a->q, (const bf16*)a->k, (const bf16*)a->v, (const bf16*)a->dout,
+             a->lse, (const float*)a->delta, (bf16*)a->dq, (bf16*)a->dk, (bf16*)a->dv,
+             a->dq_acc, a->sem, a->Hq, G, a->Sq, a->Skv, a->scale, a->cap, a->causal,
+             a->B * a->Hkv);
 }
 
 }  // namespace
@@ -909,14 +1008,17 @@ static int launch_bf16(const BwdArgs* a, cudaStream_t s) {
 // dtype code of q, k, v, out, dout and the gradients: 0 = float32 (CUDA
 // cores), 1 = bfloat16 (wgmma). lse is the forward's (natural units);
 // delta is a (B, Hq, Sq) float32 workspace. dq may be null (no query
-// gradient wanted); dk and dv are both given or both null. Returns the
-// first launch error, or cudaErrorInvalidValue for a head dim, type,
-// shape or grid the kernel does not take.
+// gradient wanted); dk and dv are both given or both null. The bf16 body
+// also takes sem (B * Hq * ceil(Sq / 64) + 1 ints, zeroed here) and, with
+// dq, dq_acc (B * Hq * ceil(Sq / 64) * 64 * DP floats). Returns the first
+// launch error, or cudaErrorInvalidValue for a head dim, type, shape or
+// grid the kernel does not take.
 extern "C" int flash_attention_bwd_launch(const BwdArgs* a) {
   if (a->Hkv <= 0 || a->Hq % a->Hkv != 0 || a->B <= 0 || (long long)a->B * a->Hq > 65535 ||
       a->Sq <= 0 || a->Skv <= 0 || (a->dtype != 0 && a->dtype != 1) ||
       (a->dk == nullptr) != (a->dv == nullptr) || (a->dq == nullptr && a->dk == nullptr) ||
-      (a->D != 16 && a->D != 112 && a->D != 128))
+      (a->D != 16 && a->D != 112 && a->D != 128) ||
+      (a->dtype == 1 && (a->sem == nullptr || (a->dq != nullptr && a->dq_acc == nullptr))))
     return (int)cudaErrorInvalidValue;
   cudaStream_t s = (cudaStream_t)a->stream;
   switch (a->D) {

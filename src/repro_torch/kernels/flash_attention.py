@@ -46,10 +46,10 @@ HEAD_DIMS = (16, 112, 128)
 
 _ARGS = (ctypes.c_void_p,) * 6 + (ctypes.c_int,) * 6 + (
     ctypes.c_float, ctypes.c_float, ctypes.c_int, ctypes.c_int, ctypes.c_void_p)
-# csrc/flash_attention_bwd.cu's BwdArgs, passed as one block: 11 pointers
-# (q, k, v, out, out_lo, lse, dout, delta, dq, dk, dv), 8 ints, 2 floats,
-# the stream
-_BWD_PACK = struct.Struct("<11Q8i2fQ")
+# csrc/flash_attention_bwd.cu's BwdArgs, passed as one block: 13 pointers
+# (q, k, v, out, out_lo, lse, dout, delta, dq, dk, dv, dq_acc, sem), 8
+# ints, 2 floats, the stream
+_BWD_PACK = struct.Struct("<13Q8i2fQ")
 
 
 def plain(q, k, v, *, causal=True, scale=None, logit_soft_cap=0.0):
@@ -161,8 +161,18 @@ def _launch_bwd(q, k, v, o, o_lo, lse, do, causal, scale, cap, need_q, need_kv):
     if B * Hq * Sq == 0 or not (need_q or need_kv):
         return dq, dk, dv
     delta = torch.empty((B, Hq, Sq), dtype=torch.float32, device=q.device)
+    dq_acc = sem = None
+    if q.dtype == torch.bfloat16:
+        # the bf16 kernel's dQ sums (float32, 64 x DP a query tile) and its
+        # counters (a turn per query tile, then the ticket; the Delta pass
+        # zeroes them)
+        nq, dp = -(-Sq // 64), -(-D // 64) * 64
+        sem = torch.empty(B * Hq * nq + 1, dtype=torch.int32, device=q.device)
+        if need_q:
+            dq_acc = torch.empty(B * Hq * nq * 64 * dp, dtype=torch.float32, device=q.device)
     args = _BWD_PACK.pack(*(t.data_ptr() if t is not None else 0
-                            for t in (q, k, v, o, o_lo, lse, do, delta, dq, dk, dv)),
+                            for t in (q, k, v, o, o_lo, lse, do, delta, dq, dk, dv,
+                                      dq_acc, sem)),
                           B, Hq, Hkv, Sq, Skv, D, int(causal), _build.dtype_code(q),
                           float(scale), float(cap), _build.raw_stream(q.device))
     err = _build.bind("flash_attention_bwd", "flash_attention_bwd_launch",

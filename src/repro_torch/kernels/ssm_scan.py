@@ -1,14 +1,17 @@
-"""Mamba-2 SSD chunked scan: the hand-written Hopper kernel
-(``csrc/ssd.cu``) and its plain PyTorch version.
+"""Mamba-2 SSD chunked scan: the hand-written Hopper kernels
+(``csrc/ssd.cu``) and their plain PyTorch version.
 
 Replaces the JAX package's Pallas ``kernels/ssm_scan.py::ssd``
 (``_ssd_kernel``), and takes the initial state ``h0`` that the Pallas
 kernel refuses but its serving caller passes: it computes what
-``kernels/ref.py::ssd`` computes. One block per (batch, head) walks the
-chunks in order with the (P, N) state in shared memory. A CPU tensor
-takes the plain version; ``launches`` counts kernel launches. It has no gradient
-yet (the hybrid family does not train): where autograd would record it,
-it raises (``_build.refuse_grad``).
+``kernels/ref.py::ssd`` computes. Two bodies, chosen by dtype: float32 on
+CUDA cores, one block per (batch, head) walking the chunks in order (one
+launch a call); bfloat16 on the tensor cores, the chunk cut into
+``sub_chunk(chunk)``-step sub-chunks, one block each and a thread block
+cluster a chunk, after a pass that forms C.B once for all heads (two
+launches a call). A CPU tensor takes the plain version; ``launches``
+counts kernel launches. It has no gradient yet (the hybrid family does not
+train): where autograd would record it, it raises (``_build.refuse_grad``).
 """
 
 from __future__ import annotations
@@ -22,7 +25,14 @@ from repro_torch.kernels.ref import ssd as plain
 
 launches = 0
 
-_ARGS = (ctypes.c_void_p,) * 9 + (ctypes.c_int,) * 7 + (ctypes.c_void_p,)
+_ARGS = (ctypes.c_void_p,) * 10 + (ctypes.c_int,) * 7 + (ctypes.c_void_p,)
+
+
+def sub_chunk(chunk: int) -> int:
+    """The bf16 body's sub-chunk: 64 steps where the chunk is a multiple
+    of 64, else 16 (0: a chunk it does not take). ``csrc/ssd.cu``'s
+    ``sub_chunk`` is the same rule."""
+    return 64 if chunk % 64 == 0 else 16 if chunk % 16 == 0 else 0
 
 
 def ssd(x, dt, A, B, C, D, *, chunk: int = 64, h0=None):
@@ -58,12 +68,22 @@ def ssd(x, dt, A, B, C, D, *, chunk: int = 64, h0=None):
     h_out = torch.empty((b, H, P, N), dtype=torch.float32, device=dev)
     if b * H == 0:
         return y, h_out
+    cb, n_launch = None, 1
+    if x.dtype == torch.bfloat16:
+        if any(t.data_ptr() % 16 for t in (x, B, C)):
+            raise ValueError("ssd kernel needs 16-byte aligned x, B and C")
+        # the C.B workspace: its lower-triangle 16 x 16 tiles, float32, a sub-chunk
+        q = max(sub_chunk(chunk), 16)
+        cb = torch.empty(b * T // q * (q // 16) * (q // 16 + 1) // 2 * 256, dtype=torch.float32,
+                         device=dev)
+        n_launch = 2
     err = _build.bind("ssd", "ssd_launch", _ARGS)(
         x.data_ptr(), dt.data_ptr(), A.data_ptr(), B.data_ptr(), C.data_ptr(),
         D.data_ptr(), h0.data_ptr() if h0 is not None else None, y.data_ptr(),
-        h_out.data_ptr(), b, T, H, P, N, chunk, _build.dtype_code(x),
-        torch.cuda.current_stream(dev).cuda_stream)
+        h_out.data_ptr(), cb.data_ptr() if cb is not None else None, b, T, H, P, N, chunk,
+        _build.dtype_code(x), _build.raw_stream(dev))
     _build.check(err, f"ssd (P={P}, N={N}, chunk={chunk}; the kernel is built for "
-                      f"(P, N) = (16, 16) and (64, 64) within a block's shared memory)")
-    launches += 1
+                      f"(P, N) = (16, 16) and (64, 64); float32 within a block's shared "
+                      f"memory, bfloat16 for chunks of up to 8 sub-chunks of 64 or 16)")
+    launches += n_launch
     return y, h_out

@@ -190,7 +190,8 @@ def test_ssd_matches_plain_on_card(dtype, b, T, H, P, N, chunk, live):
         before = ssd_k.launches
         y, hf = ssd_k.ssd(x, dt, A, B, C, D, chunk=chunk, h0=h)
         torch.cuda.synchronize()
-        assert ssd_k.launches == before + 1
+        # bf16: the C.B pass, then the sub-chunk scan
+        assert ssd_k.launches == before + (2 if dtype == "bfloat16" else 1)
         yp, hp = ssd_k.plain(x, dt, A, B, C, D, chunk=chunk, h0=h)
         assert y.dtype == dt_ and hf.dtype == torch.float32
         if dtype == "float32":
@@ -215,6 +216,42 @@ def test_ssd_matches_plain_on_card(dtype, b, T, H, P, N, chunk, live):
     with pytest.raises(TypeError):
         ssd_k.ssd(x, dt.to(dt_ if dtype == "bfloat16" else torch.float16), A, B, C, D,
                   chunk=chunk)
+
+
+@pytest.mark.cuda
+@pytest.mark.parametrize("b,T,H,P,N,chunk,dead", [
+    (2, 48, 4, 16, 16, 16, ()),              # smoke: one 16-step sub-chunk a chunk
+    (1, 256, 112, 64, 64, 256, ()),          # zamba2-7b's piece, every step live
+    (1, 256, 112, 64, 64, 256, (1,)),        # a dead sub-chunk between live ones
+    (1, 512, 8, 64, 64, 128, (0, 3)),        # clusters of 2, a dead first sub-chunk
+    (1, 96, 4, 64, 64, 48, ()),              # 16-step sub-chunks, clusters of 3
+    (2, 128, 4, 16, 16, 64, (1,)),           # smoke heads, one 64-step sub-chunk a chunk
+])
+def test_ssd_bf16_subchunk_body_matches_ref_on_card(b, T, H, P, N, chunk, dead):
+    """The bf16 body (tensor cores, sub-chunks in a thread block
+    cluster, the state carried in rank order) against ``ref.ssd`` from
+    h0, with whole sub-chunks of dt = 0 (skipped by the kernel): y under
+    the bf16 tolerance, the float32 state to 1e-5 of its largest value;
+    two calls give the same bits."""
+    _card()
+    g = torch.Generator(device="cuda").manual_seed(5)
+    x = torch.randn((b, T, H, P), generator=g, device="cuda").bfloat16()
+    dt = 1e-3 + 0.1 * torch.rand((b, T, H), generator=g, device="cuda")
+    q = ssd_k.sub_chunk(chunk)
+    for j in dead:
+        dt[:, j * q:(j + 1) * q] = 0.0
+    A = -(1.0 + 15.0 * torch.rand(H, generator=g, device="cuda"))
+    B = torch.randn((b, T, N), generator=g, device="cuda").bfloat16()
+    C = torch.randn((b, T, N), generator=g, device="cuda").bfloat16()
+    D = torch.randn(H, generator=g, device="cuda")
+    h0 = torch.randn((b, H, P, N), generator=g, device="cuda")
+    y, hf = ssd_k.ssd(x, dt, A, B, C, D, chunk=chunk, h0=h0)
+    y2, h2 = ssd_k.ssd(x, dt, A, B, C, D, chunk=chunk, h0=h0)
+    torch.cuda.synchronize()
+    assert torch.equal(y, y2) and torch.equal(hf, h2)
+    yp, hp = ref.ssd(x, dt, A, B, C, D, chunk=chunk, h0=h0)
+    torch.testing.assert_close(y, yp, atol=1e-2, rtol=1.6e-2)
+    _ssd_close(hf, hp)
 
 
 @pytest.mark.cuda
