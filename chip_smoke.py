@@ -46,14 +46,22 @@ Phases, each of which fails the run when it fails:
      counters of ssd, decode_attention and rmsnorm, zeroed just before,
      must grow; then its breakdown, and the three paths' figures side by
      side;
-  7. training path: once the hybrid system is freed, minitron-8b at full
-     width cut to 4 of its 32 layers (float32 params, bf16 compute, remat)
-     trains 6 steps of the synthetic stream (batch 2 x seq 1024) through
-     make_train_step with the driver's AdamW schedule at a peak lr of 2e-5,
-     the last step under the profiler; losses finite and falling, the counters of
-     flash_attention, its backward kernel and rmsnorm, zeroed just before, must
-     grow;
-  8. the training driver (python -m repro_torch.launch.train --smoke
+  7. the other dense configs, each once the previous system is freed, at
+     their published widths from get_config (full_width), bf16, the same
+     requests and breakdown: gemma-7b (28 layers, D = 256) and granite-20b
+     (52 layers, 56.3 GB, G = 48) over bf16 pages, each with the prefill
+     check and generate() at B = 1 (decode_attention at their heads), and
+     deepseek-67b cut to 16 of its 95 layers over int8 pages with W4A16
+     weights (95 bf16 layers cannot exist on the card before they are
+     quantized); every path's peak stays under the card's 80 GB;
+  8. training path: once the last system is freed, minitron-8b and then
+     gemma-7b at full width cut to 4 layers (float32 params, bf16 compute,
+     remat) train 6 steps each of the synthetic stream (batch 2 x seq
+     1024) through make_train_step with the driver's AdamW schedule at a
+     peak lr of 2e-5, the last step under the profiler; losses finite and
+     falling, the counters of flash_attention, its backward kernel and
+     rmsnorm, zeroed just before, must grow;
+  9. the training driver (python -m repro_torch.launch.train --smoke
      --device cuda): 6 steps with a checkpoint every 3, then again to 8,
      which must resume at step 6 with the data stream where it stopped.
 The kernel phase also holds flash_attention against its plain version at
@@ -81,9 +89,20 @@ live steps and fully live, and T = 512, bf16, with h0), decode attention at zamb
 shared block (B = 8, 32/32 heads of D = 112; timed, like B = 1, with its
 split count beside SDPA) and rmsnorm at width 3584;
 the reference phase also serves a small float32 zamba2 on card and CPU.
+The kernel phase also holds the other dense configs' shapes against the
+plain versions and times them (new_configs_phase): decode attention at
+granite's G = 48 and gemma's D = 256 (B = 1 and 8), deepseek's 64/8 and
+its smoke's D = 8; paged attention at 16/16 of 256, 16/2 of 256 and 8/2
+of 8 over pages in q's type and int8/fp8 codes; flash_attention at gemma's
+training and prefill shapes (forward and backward), D = 256 with an
+offset, a cap and Skv < Sq, D = 8, and granite's prefill (G = 48, the
+forward); rmsnorm at rows of 3072 (gemma style), 6144 and 8192;
+awq_matmul at deepseek's three W4A16 shapes. The reference phase also
+serves the smoke gemma, granite and deepseek (D = 8; and over int8 pages
+with W4A16) on card and CPU.
 In the kernels JSON, ``launches`` is a kernel's count summed over the
-three serving paths and the training path (each zeroed just before its
-path and read just after).
+six serving paths and the two training paths (each zeroed just before
+its path and read just after); ``shapes`` lists the other timed shapes.
 The line before the last is the kernels JSON; the last line is
 {"ok": true, "device": {...}}. Exits nonzero with no result line when
 no CUDA device is present or the port's sources are missing.
@@ -116,10 +135,16 @@ ZAMBA_FULL = dict(n_layers=81, d_model=3584, n_heads=32, n_kv_heads=32, head_dim
                   ssm_expand=2, ssm_chunk=256, attn_every=6,
                   param_dtype="bfloat16", compute_dtype="bfloat16")
 ZAMBA_POOL_PAGES = 32      # ~152 MB of state snapshot per page at full width
+# deepseek-67b's 95 bf16 layers (134 GB) cannot exist on one card before
+# build_system(quantize_mlp=True) quantizes them: its path keeps 16
+DEEPSEEK_LAYERS = 16
+CARD_BYTES = 80e9          # the H100's device memory: a path's peak stays under it
 B, HQ, HKV, D, PAGE, MAX_SEQ = 8, 32, 8, 128, 16, 256
 N_TIMED = 100
 # W4A16 shapes of one decode step's layer (M = B rows): w1 and w3, w2, wo
 AWQ_SHAPES = {"w1/w3": (B, 4096, 16384), "w2": (B, 16384, 4096), "wo": (B, 4096, 4096)}
+# deepseek-67b's (d_model 8192, d_ff 22016): its quantized path's shapes
+AWQ_DEEPSEEK = {"w1/w3": (B, 8192, 22016), "w2": (B, 22016, 8192), "wo": (B, 8192, 8192)}
 # a PyTorch yardstick may take its inputs in lower precision (bf16 scales
 # for the int4 product): it is held to the plain version within this share
 # of the largest |output|, enough to show it computes the same function
@@ -130,7 +155,7 @@ KERNELS = {
                 "src/repro/kernels/rmsnorm.py:26"),
     "paged_attention": ("src/repro_torch/kernels/csrc/attention.cu",
                         "src/repro/kernels/paged_attention.py:91"),
-    "paged_attention_quant": ("src/repro_torch/kernels/csrc/attention.cu",
+    "paged_attention_quant": ("src/repro_torch/kernels/csrc/attention_quant.cu",
                               "src/repro/kernels/paged_attention.py:85"),
     "decode_attention": ("src/repro_torch/kernels/csrc/decode_attention.cu",
                          "src/repro/kernels/decode_attention.py:65"),
@@ -144,18 +169,28 @@ KERNELS = {
                             "src/repro/kernels/ref.py:33 (XLA autodiff of mha)"),
 }
 # paged attention beyond the main path's heads: (Hq, Hkv, D), pages in q's
-# type and int8 / fp8 codes, over a table with a parked slot
-PAGED_HEADS = ((48, 8, 128), (48, 1, 128), (64, 8, 128), (4, 2, 16), (32, 32, 112))
+# type and int8 / fp8 codes, over a table with a parked slot: grok's G 6,
+# granite-20b's G 48, deepseek-67b's G 8, the smoke, zamba2's D 112,
+# gemma-7b's D 256 (and at G 8), deepseek-67b's smoke D 8
+PAGED_HEADS = ((48, 8, 128), (48, 1, 128), (64, 8, 128), (4, 2, 16), (32, 32, 112),
+               (16, 16, 256), (16, 2, 256), (8, 2, 8))
 SSD_REL = 1e-5     # ssd's float32 outputs: max abs err <= SSD_REL * max(1, max |plain|)
 # flash_attention at (B, Hq, Hkv, Sq, Skv, D, causal, cap): the training
 # shape first (minitron-8b heads, T = seq - 1 = 1023), whole-prompt
 # prefill, the offset diagonal (Skv > Sq), non-causal, soft cap, zamba2's
 # D = 112, the smoke config's training shape and a causal Skv < Sq (rows
-# that see no key: the mean of V)
+# that see no key: the mean of V); then gemma-7b's training and prefill
+# shapes (D = 256), D = 256 with an offset and a cap and with Skv < Sq,
+# deepseek-67b's smoke D = 8
 FLASH_SHAPES = ((2, 32, 8, 1023, 1023, 128, True, 0.0), (1, 32, 8, 250, 250, 128, True, 0.0),
                 (1, 32, 8, 100, 250, 128, True, 0.0), (2, 32, 8, 130, 200, 128, False, 0.0),
                 (1, 32, 8, 300, 300, 128, True, 30.0), (1, 32, 32, 250, 250, 112, True, 0.0),
-                (2, 4, 2, 63, 63, 16, True, 0.0), (1, 32, 8, 300, 200, 128, True, 0.0))
+                (2, 4, 2, 63, 63, 16, True, 0.0), (1, 32, 8, 300, 200, 128, True, 0.0),
+                (2, 16, 16, 1023, 1023, 256, True, 0.0), (1, 16, 16, 250, 250, 256, True, 0.0),
+                (1, 4, 2, 100, 250, 256, True, 30.0), (1, 4, 2, 200, 130, 256, True, 0.0),
+                (2, 8, 2, 63, 63, 8, True, 0.0))
+# granite-20b's whole-prompt prefill (G = 48), forward only: no path trains it
+GRANITE_PREFILL = (1, 48, 1, 250, 250, 128, True, 0.0)
 # training: full-width minitron-8b cut to 4 of its 32 layers (float32
 # params, bf16 compute), batch 2 x seq 1024, the driver's AdamW schedule
 # (warmup 5, decay over 10) at a peak lr for this width: at the driver's
@@ -699,6 +734,7 @@ def kernel_phase(torch, timer):
                 f"the bound, {f32_bms / dev_total:.1%} of the float32 one")
 
     flash_phase(torch, timer, rows, randn)
+    new_configs_phase(torch, timer, rows, randn, g)
 
     for (name, dname), errs in sorted((k, v) for k, v in rows.items()
                                       if isinstance(k, tuple)):
@@ -712,6 +748,199 @@ def kernel_phase(torch, timer):
         log(f"time {name:21s} bf16 kernel {r['ms']:.4f} ms  plain {r['plain_ms']:.4f} ms"
             f"  library {lib}  bound {r['bound_ms']:.5f} ms ({r['bound_by']})")
     return rows
+
+
+def time_shape(torch, timer, rows, name, what, kern, plain, lib, nbytes, flops,
+               plain_n=N_TIMED):
+    """Time ``kern`` (one bf16 call) beside its plain version and the
+    library yardstick ``lib`` (per-call timer, cold L2), their device
+    times (profiler) and the bound of ``nbytes`` / ``flops``; log the line
+    and add it to rows[name]["shapes"]."""
+    t_k, t_p, t_l = timer.ms(kern), timer.ms(plain, n=plain_n), timer.ms(lib)
+    bms, by = bound_ms(nbytes, flops, "bfloat16")
+    dev_k, dev_l = device_ms(torch, kern), device_ms(torch, lib)
+    dk = float(dev_k.split()[0])
+    rows[name].setdefault("shapes", []).append(dict(
+        shape=what, ms=t_k, device_ms=dk, plain_ms=t_p, library_ms=t_l,
+        library_device_ms=float(dev_l.split()[0]), bound_ms=bms, bound_by=by))
+    log(f"time {name} {what} bf16: kernel {t_k:.4f} ms  plain {t_p:.4f} ms  library "
+        f"{t_l:.4f} ms  bound {bms:.6f} ms ({by}); device time: kernel {dev_k}, "
+        f"{bms / dk:.1%} of the bound; library {dev_l}")
+
+
+def new_configs_phase(torch, timer, rows, randn, g):
+    """The head shapes and widths of gemma-7b (D = 256, 16/16 heads, rows
+    of 3072 with (1+w) norms), granite-20b (48/1 heads: G = 48, rows of
+    6144) and deepseek-67b (64/8 heads, rows of 8192, its W4A16 shapes;
+    its smoke's D = 8) against the plain versions in both types, and, in
+    bf16 at the serving and training shapes, timed beside the library
+    yardstick (SDPA, F.rms_norm, tinygemm) with device times and bounds.
+    Paged attention's new heads are held in paged_heads_phase and
+    flash_attention's in flash_phase (PAGED_HEADS, FLASH_SHAPES); here they
+    are timed."""
+    import torch.nn.functional as F
+    from repro_torch.kernels import awq_matmul as awq_k
+    from repro_torch.kernels import decode_attention as dec_k
+    from repro_torch.kernels import flash_attention as fa_k
+    from repro_torch.kernels import paged_attention as pa_k
+    from repro_torch.kernels import ref
+    from repro_torch.kernels import rmsnorm as rms_k
+    zl = [1, 5, 16, 17, 100, 128, 255, 256]
+    # ---- decode attention over the contiguous cache (warmup, generate())
+    for what, (bb, hq, hkv, d, lens, timed) in (
+            ("granite-20b B=1 48/1 D=128 S=256", (1, 48, 1, 128, [256], True)),
+            ("granite-20b B=8 48/1 D=128 ragged", (B, 48, 1, 128, zl, False)),
+            ("gemma-7b B=1 16/16 D=256 S=256", (1, 16, 16, 256, [256], True)),
+            ("gemma-7b B=8 16/16 D=256 ragged", (B, 16, 16, 256, zl, False)),
+            ("deepseek-67b B=1 64/8 D=128 S=256", (1, 64, 8, 128, [256], False)),
+            ("deepseek-67b smoke B=2 8/2 D=8", (2, 8, 2, 8, [20, 41], False))):
+        kl = torch.tensor(lens, dtype=torch.int32, device="cuda")
+        for dname in ("float32", "bfloat16"):
+            dt = getattr(torch, dname)
+            q = randn(bb, hq, 1, d, dtype=dt)
+            k, v = randn(bb, hkv, MAX_SEQ, d, dtype=dt), randn(bb, hkv, MAX_SEQ, d, dtype=dt)
+            for cap in (0.0, 30.0):
+                rows[("decode_attention", dname)].append(check_close(
+                    f"decode_attention {what} cap={cap}",
+                    dec_k.decode_attention(q, k, v, kv_len=kl, logit_soft_cap=cap),
+                    dec_k.plain(q, k, v, kv_len=kl, logit_soft_cap=cap), dname))
+        if not timed:
+            continue
+        ke, ve = (t.repeat_interleave(hq // hkv, dim=1) for t in (k, v))
+        keys, elt = sum(lens), q.element_size()
+        gb = dec_k.heads_per_block(hq // hkv)
+        n_split, chunk = dec_k.splits(bb, hq // gb, MAX_SEQ, dec_k._sm_count(0))
+        time_shape(torch, timer, rows, "decode_attention",
+                   f"{what} ({gb} query heads a block, {n_split} splits of {chunk} keys)",
+                   lambda: dec_k.decode_attention(q, k, v, kv_len=kl),
+                   lambda: dec_k.plain(q, k, v, kv_len=kl),
+                   lambda: F.scaled_dot_product_attention(q, ke, ve),
+                   2 * q.numel() * elt + 2 * keys * hkv * d * elt + 4 * bb,
+                   4 * d * hq * keys)
+
+    # ---- paged attention at gemma-7b's heads, the serving batch of 8:
+    # bf16 pages and int8 codes (the B=8 step's tables)
+    n_pages, P = MAX_SEQ // PAGE, 257
+    lens = torch.tensor([1, 17, 40, 64, 100, 150, 200, 256], dtype=torch.int32,
+                        device="cuda")
+    bt = (torch.randperm(P - 1, generator=g, device="cuda")[:B * n_pages] + 1).reshape(
+        B, n_pages).to(torch.int32)
+    live = ((lens + PAGE - 1) // PAGE).tolist()
+    for b in range(B):
+        bt[b, live[b]:] = 0
+    bt = bt.contiguous()
+    mask = (torch.arange(n_pages * PAGE, device="cuda")[None, :] < lens[:, None])[:, None,
+                                                                                 None, :]
+    keys = int(lens.sum())
+    zero = torch.zeros(B, dtype=torch.int32, device="cuda")   # as the B=8 step passes it
+    for hq, hkv, d in ((16, 16, 256), (48, 1, 128)):
+        q = randn(B, hq, 1, d, dtype=torch.bfloat16)
+        kp, vp = (randn(P, hkv, PAGE, d, dtype=torch.float32) for _ in "kv")
+        for kv in (None, "int8"):
+            if kv is None:
+                kk, vv, extra, name = kp.bfloat16(), vp.bfloat16(), {}, "paged_attention"
+                gk, gv = ref.gather_kv_pages(kk, bt), ref.gather_kv_pages(vv, bt)
+                per_key = d * 2
+            else:
+                (kk, ks), (vv, vs) = ref.quantize_kv(kp, torch.int8), ref.quantize_kv(vp, torch.int8)
+                extra, name = dict(k_scales=ks, v_scales=vs), "paged_attention_quant"
+                gk = ref.gather_dequant_kv_pages(kk, ks, bt).bfloat16()
+                gv = ref.gather_dequant_kv_pages(vv, vs, bt).bfloat16()
+                per_key = d + 4
+            gk, gv = (t.repeat_interleave(hq // hkv, dim=1) for t in (gk, gv))
+            kw = dict(block_tables=bt, kv_len=lens, pos_offset=zero, **extra)
+            time_shape(torch, timer, rows, name,
+                       f"B={B} {hq}/{hkv} D={d} {kv or 'bf16'} pages ragged; "
+                       + paged_plan(torch, B, hq, hkv, n_pages, kv is not None),
+                       lambda: pa_k.paged_attention(q, kk, vv, **kw),
+                       lambda: pa_k.plain(q, kk, vv, **kw),
+                       lambda: F.scaled_dot_product_attention(q, gk, gv, attn_mask=mask),
+                       2 * q.numel() * 2 + 2 * keys * hkv * per_key + 4 * (sum(live) + 2 * B),
+                       4 * d * hq * keys)
+
+    # ---- flash_attention: gemma-7b's training shape (forward and
+    # backward), its prefill and granite-20b's prefill (forward)
+    b, hq, hkv, sq, skv, d, _, _ = GRANITE_PREFILL
+    for dname in ("float32", "bfloat16"):
+        dt = getattr(torch, dname)
+        q, k, v = randn(b, hq, sq, d, dtype=dt), randn(b, hkv, skv, d, dtype=dt), \
+            randn(b, hkv, skv, d, dtype=dt)
+        rows[("flash_attention", dname)].append(check_close(
+            f"flash_attention {(b, hq, hkv, sq, skv, d)} causal (G = 48)",
+            fa_k.flash_attention(q, k, v), fa_k.plain(q, k, v), dname))
+    for (b, hq, hkv, sq, skv, d, causal, cap), bwd in (
+            (FLASH_SHAPES[8], True), (FLASH_SHAPES[9], False), (GRANITE_PREFILL, False)):
+        dt = torch.bfloat16
+        q, k, v = randn(b, hq, sq, d, dtype=dt), randn(b, hkv, skv, d, dtype=dt), \
+            randn(b, hkv, skv, d, dtype=dt)
+        pairs = sum(min(skv, skv - sq + i + 1) for i in range(sq))
+        flops = 4 * b * hq * d * pairs
+        what = f"{(b, hq, hkv, sq, skv, d)} causal"
+        time_shape(torch, timer, rows, "flash_attention", what,
+                   lambda: fa_k.flash_attention(q, k, v), lambda: fa_k.plain(q, k, v),
+                   lambda: F.scaled_dot_product_attention(q, k, v, is_causal=True,
+                                                          enable_gqa=True),
+                   (2 * q.numel() + k.numel() + v.numel()) * 2, flops, plain_n=20)
+        if not bwd:
+            continue
+        go = randn(b, hq, sq, d, dtype=dt)
+        sc = 1.0 / math.sqrt(d)
+        with torch.no_grad():
+            o, lse, o_lo = fa_k._launch(q, k, v, True, sc, 0.0, True)
+        qg, kg, vg = (t.clone().requires_grad_() for t in (q, k, v))
+        sdpa = F.scaled_dot_product_attention(qg, kg, vg, is_causal=True, enable_gqa=True)
+        time_shape(torch, timer, rows, "flash_attention_bwd", what + " (the backward "
+                   "kernel's launches, Delta included; plain: autograd of the plain "
+                   "version, forward included; library: SDPA's backward)",
+                   lambda: fa_k._launch_bwd(q, k, v, o, o_lo, lse, go, True, sc, 0.0,
+                                            True, True),
+                   lambda: torch.autograd.grad(fa_k.plain(qg, kg, vg), (qg, kg, vg), go),
+                   lambda: torch.autograd.grad(sdpa, (qg, kg, vg), go, retain_graph=True),
+                   (5 * q.numel() + 4 * k.numel()) * 2 + 4 * lse.numel(), 2.5 * flops,
+                   plain_n=20)
+        del o, lse, o_lo, sdpa, qg, kg, vg
+
+    # ---- rmsnorm at the new widths: a decode tick's 8 rows, and gemma's
+    # training rows (2048 x 3072), gemma style where the config is
+    for width, gemma in ((3072, True), (6144, False), (8192, False)):
+        for dname in ("float32", "bfloat16"):
+            dt = getattr(torch, dname)
+            w = 0.1 * randn(width, dtype=dt) + (0 if gemma else 1)
+            for rws in (B, TRAIN_BATCH * TRAIN_SEQ):
+                x = randn(rws, width, dtype=dt)
+                rows[("rmsnorm", dname)].append(check_close(
+                    f"rmsnorm {rws}x{width} gemma={gemma}",
+                    rms_k.rmsnorm(x, w, gemma_style=gemma),
+                    rms_k.plain(x, w, gemma_style=gemma), dname))
+        x = randn(B, width, dtype=torch.bfloat16)
+        wl = (1 + w) if gemma else w
+        time_shape(torch, timer, rows, "rmsnorm", f"{B}x{width} gemma={gemma}",
+                   lambda: rms_k.rmsnorm(x, w, gemma_style=gemma),
+                   lambda: rms_k.plain(x, w, gemma_style=gemma),
+                   lambda: F.rms_norm(x, (width,), wl, eps=1e-5),
+                   2 * x.numel() * 2 + width * 2, 4 * x.numel())
+
+    # ---- awq_matmul at deepseek-67b's W4A16 shapes, group 64
+    for wname, (M, K, N) in AWQ_DEEPSEEK.items():
+        qw = ref.awq_pack(torch.randint(0, 16, (K, N), generator=g, device="cuda"))
+        sc = 0.002 * torch.rand((K // 64, N), generator=g, device="cuda")
+        zr = torch.randint(0, 16, (K // 64, N), generator=g, device="cuda").float()
+        for dname in ("float32", "bfloat16"):
+            x = randn(M, K, dtype=getattr(torch, dname))
+            got = awq_k.awq_matmul(x, qw, sc, zr, group_size=64)
+            rows[("awq_matmul", dname)].append(check_close(
+                f"awq_matmul deepseek {wname} ({M}, {K}, {N}) group 64", got,
+                awq_k.plain(x, qw, sc, zr, group_size=64), dname))
+            if not torch.equal(got, awq_k.awq_matmul(x, qw, sc, zr, group_size=64)):
+                raise AssertionError(f"awq_matmul deepseek {wname}: two calls differ")
+        time_shape(torch, timer, rows, "awq_matmul",
+                   f"deepseek-67b {wname} ({M}, {K}, {N}) group 64; "
+                   f"{awq_k.splits(M, K, N, 64, awq_k._sm_count(0))}; library: tinygemm",
+                   lambda: awq_k.awq_matmul(x, qw, sc, zr, group_size=64),
+                   lambda: awq_k.plain(x, qw, sc, zr, group_size=64),
+                   int4pack_mm(torch, x, qw, sc, zr, 64),
+                   qw.numel() * 4 + 2 * sc.numel() * 4 + x.numel() * 2 + M * N * 2,
+                   2 * M * K * N, plain_n=20)
 
 
 def paged_plan(torch, b, hq, hkv, n_pages, quant):
@@ -961,6 +1190,39 @@ def reference_phase(torch):
             f"{'dense weights' if kv_dtype == 'fp32' else 'W4A16 group 64'}, "
             f"{kv_dtype} pages)")
 
+    # the other dense configs' smoke models: gemma (GeGLU, (1+w) norms, tied
+    # embeddings), granite (MQA), deepseek (D = 8), the last also over int8
+    # pages with W4A16 weights
+    for arch, kv_dtype in (("gemma-7b", "fp32"), ("granite-20b", "fp32"),
+                           ("deepseek-67b", "fp32"), ("deepseek-67b", "int8")):
+        acfg = get_smoke_config(arch).replace(vocab_size=300, vocab_pad_to=64,
+                                              compute_dtype="float32")
+        params = ServingEngine(acfg, max_seq=96, device="cuda").params
+        if kv_dtype != "fp32":
+            params = quantize_mlp_tree(params, group_size=64)
+        gpu = ServingEngine(acfg, max_seq=96, device="cuda", params=params,
+                            kv_dtype=kv_dtype)
+        cpu = ServingEngine(acfg, max_seq=96, device="cpu", kv_dtype=kv_dtype,
+                            params=tree_map(lambda t: t.cpu(), params))
+        for p in prompts:
+            a, c = gpu.generate(p, max_new_tokens=12).tokens, cpu.generate(p, max_new_tokens=12).tokens
+            if a != c:
+                raise AssertionError(f"{arch} {kv_dtype}: generate() differs card vs CPU: "
+                                     f"{a} vs {c}")
+        hg = [gpu.submit(p, max_new_tokens=12) for p in prompts]
+        hc = [cpu.submit(p, max_new_tokens=12) for p in prompts]
+        for a, c in zip(hg, hc):
+            ta, tc = a.result(timeout=300).tokens, c.result(timeout=300).tokens
+            if ta != tc:
+                raise AssertionError(f"{arch} {kv_dtype}: batcher stream differs card vs "
+                                     f"CPU: {ta} vs {tc}")
+        gpu.shutdown()
+        cpu.shutdown()
+        log(f"reference: {len(prompts)} prompts token-identical card vs CPU ({arch} smoke, "
+            f"{acfg.n_heads}/{acfg.n_kv_heads} heads of {acfg.head_dim}, float32, generate "
+            f"and paged batcher, {kv_dtype} pages"
+            f"{', W4A16 group 64' if kv_dtype != 'fp32' else ''})")
+
     # the hybrid family: ssd in every prefill piece, the contiguous splice
     # batcher with a stateful prefix pool (the repeat is a prefix hit)
     zcfg = get_smoke_config("zamba2-7b").replace(vocab_size=300, vocab_pad_to=64,
@@ -1048,8 +1310,8 @@ def training_reference_phase(torch):
         f"(sqrt(vh) + eps) a step)")
 
 
-def prefill_check(torch, hpc):
-    """On the full-width dense system, a 250-token prompt through the
+def prefill_check(torch, hpc, label):
+    """On a full-width dense system, a 250-token prompt through the
     whole-prompt prefill branch (flash_attention) and the chunked one
     (the plain chunk attention):
       * layer by layer from the same residual input (the chunked path's):
@@ -1062,8 +1324,12 @@ def prefill_check(torch, hpc):
         valid bf16 computations drift apart through 32 random layers by
         a few bf16 ulps of the largest logit, about the size of the
         element-wise bf16 tolerance, which is why that tolerance is held
-        per layer; a masking fault moves the logits by O(their spread).
+        per layer; a masking fault moves the logits by O(their spread);
+      * generate() at B = 1 (the contiguous cache): one decode_attention
+        launch a layer a decode step, at this model's heads (granite-20b:
+        G = 48).
     """
+    from repro_torch.kernels import decode_attention as dec_k
     from repro_torch.kernels import flash_attention as fa_k
     from repro_torch.models import layers
     from repro_torch.models.lm import _layer
@@ -1110,7 +1376,18 @@ def prefill_check(torch, hpc):
         raise AssertionError(f"whole-prompt prefill vs chunked: {launched} launches, pos "
                              f"{cw['pos']}, same greedy token {same_token}, last-logit "
                              f"max abs diff {err:.4e} (bound {PREFILL_E2E_REL * top:.4e})")
-    log(f"dense path prefill check: {n} tokens, {cfg.n_layers} layers; layer by layer "
+    before, steps = dec_k.launches, 4
+    res = hpc.generate("Explain the dual-channel relay.", max_new_tokens=steps + 1,
+                       stop_on_eos=False)
+    dec = dec_k.launches - before
+    if dec != cfg.n_layers * steps or res.n_generated != steps + 1:
+        raise AssertionError(f"{label} generate(): {res.n_generated} tokens, {dec} "
+                             f"decode_attention launches for {cfg.n_layers} layers")
+    log(f"{label} path generate() at B = 1: {res.n_generated} tokens, {dec} "
+        f"decode_attention launches ({cfg.n_layers} a decode step) at {cfg.n_heads}/"
+        f"{cfg.n_kv_heads} heads of {cfg.head_dim} (G = {cfg.n_heads // cfg.n_kv_heads}, "
+        f"{dec_k.heads_per_block(cfg.n_heads // cfg.n_kv_heads)} query heads a block)")
+    log(f"{label} path prefill check: {n} tokens, {cfg.n_layers} layers; layer by layer "
         f"from one input: block outputs max abs diff {worst:.3e} (bf16 atol {atol} + rtol "
         f"{rtol}), K/V caches bit-equal; end to end: prefill ({launched} flash_attention "
         f"launches, {ms['prefill']:.1f} ms) vs prefill_chunk ({ms['prefill_chunk']:.1f} "
@@ -1120,8 +1397,8 @@ def prefill_check(torch, hpc):
         f"diff {kv_err:.4e}")
 
 
-def training_phase(torch):
-    """Full-width minitron-8b cut to TRAIN_LAYERS layers trains TRAIN_STEPS
+def training_phase(torch, arch):
+    """``arch`` at full width cut to TRAIN_LAYERS layers trains TRAIN_STEPS
     steps of the synthetic stream through make_train_step; the last step
     runs under the profiler. Returns the kernel launches of the path."""
     import numpy as np
@@ -1132,7 +1409,7 @@ def training_phase(torch):
     from repro_torch.training import AdamWConfig, SyntheticLMData, make_train_step
     from repro_torch.training.train import init_train_state
 
-    cfg = get_config("minitron-8b", n_layers=TRAIN_LAYERS)
+    cfg = get_config(arch, n_layers=TRAIN_LAYERS)
     model = build_model(cfg)
     torch.cuda.reset_peak_memory_stats()
     params, opt = init_train_state(model, 0, "cuda")
@@ -1153,7 +1430,7 @@ def training_phase(torch):
             losses.append(float(m["loss"]))
             torch.cuda.synchronize()
             walls.append((time.perf_counter() - t0) * 1e3)
-        log(f"training step {i + 1}: loss {losses[-1]:.4f} grad_norm "
+        log(f"training {arch} step {i + 1}: loss {losses[-1]:.4f} grad_norm "
             f"{float(m['grad_norm']):.3f} lr {float(m['lr']):.2e} wall {walls[-1]:.1f} ms"
             + (" (profiled)" if i == TRAIN_STEPS - 1 else ""))
     launches = {name: getattr(mod, attr) for name, (mod, attr) in counters().items()}
@@ -1169,7 +1446,8 @@ def training_phase(torch):
             raise AssertionError(f"training path: kernel {name} was not launched")
     steady = sorted(walls[1:-1])[len(walls[1:-1]) // 2]
     tokens = TRAIN_BATCH * TRAIN_SEQ
-    log(f"training path: minitron-8b at full width cut to {TRAIN_LAYERS} of 32 layers, "
+    log(f"training path: {arch} at full width cut to {TRAIN_LAYERS} of "
+        f"{get_config(arch).n_layers} layers, "
         f"{n_params / 1e9:.3f} B params (float32, bf16 compute, remat), "
         f"{state_gb:.2f} GB of params and moments; batch {TRAIN_BATCH} x seq {TRAIN_SEQ}, "
         f"AdamW peak lr {TRAIN_OC['lr']} warmup {TRAIN_OC['warmup_steps']}: losses "
@@ -1181,7 +1459,7 @@ def training_phase(torch):
     for e in top:
         log(f"  {getattr(e, 'self_device_time_total', 0) / 1e3:8.3f} ms "
             f"{e.count:5d} calls  {e.key[:90]}")
-    log(f"training path launches: {json.dumps(launches)}")
+    log(f"training path ({arch}) launches: {json.dumps(launches)}")
     del params, opt, m, batch, prof
     gc.collect()
     torch.cuda.empty_cache()
@@ -1231,6 +1509,18 @@ def counters():
             "decode_attention": (decode_attention, "launches"),
             "awq_matmul": (awq_matmul, "launches"),
             "ssd": (ssm_scan, "launches")}
+
+
+def full_width(arch, **cut):
+    """hpc_overrides for ``arch`` at its published widths (every field of
+    get_config(arch) but the name) in bf16, with ``cut`` (a smaller
+    depth) over them."""
+    import dataclasses
+    from repro_torch.configs import get_config
+    cfg = get_config(arch)
+    return {**{f.name: getattr(cfg, f.name) for f in dataclasses.fields(cfg)
+               if f.name != "name"},
+            "param_dtype": "bfloat16", "compute_dtype": "bfloat16", **cut}
 
 
 def main_path_phase(torch, label, must_launch, hpc_overrides=FULL, **system_kw):
@@ -1523,17 +1813,32 @@ def main() -> int:
     training_reference_phase(torch)
 
     paths = {}
+    dense_must = ("rmsnorm", "paged_attention", "decode_attention")
+    log(f"deepseek path: deepseek-67b at full width cut to {DEEPSEEK_LAYERS} of its 95 "
+        "layers (95 bf16 layers, 134 GB, cannot exist on one card before the W4A16 "
+        "quantization)")
     for label, must, kw in (
-            ("dense", ("rmsnorm", "paged_attention", "decode_attention"), {}),
+            ("dense", dense_must, {}),
             ("quantized", ("rmsnorm", "paged_attention_quant", "awq_matmul"),
              dict(kv_dtype="int8", quantize_mlp=True)),
             ("hybrid", ("ssd", "decode_attention", "rmsnorm"),
              dict(hpc_arch="zamba2-7b", hpc_overrides=ZAMBA_FULL,
-                  prefix_cache_pages=ZAMBA_POOL_PAGES))):
+                  prefix_cache_pages=ZAMBA_POOL_PAGES)),
+            ("gemma", dense_must,
+             dict(hpc_arch="gemma-7b", hpc_overrides=full_width("gemma-7b"))),
+            ("granite", dense_must,
+             dict(hpc_arch="granite-20b", hpc_overrides=full_width("granite-20b"))),
+            ("deepseek", ("rmsnorm", "paged_attention_quant", "awq_matmul", "decode_attention"),
+             dict(hpc_arch="deepseek-67b", kv_dtype="int8", quantize_mlp=True,
+                  hpc_overrides=full_width("deepseek-67b", n_layers=DEEPSEEK_LAYERS)))):
         launches, stats, sys_ = main_path_phase(torch, f"{label} path", must, **kw)
-        if label == "dense":
-            prefill_check(torch, sys_.engines["hpc"])
+        if label in ("dense", "gemma", "granite"):
+            prefill_check(torch, sys_.engines["hpc"], label)
         held = torch.cuda.memory_allocated()
+        top = max(stats["peak_gib"], stats["build_peak_gib"]) * 2**30
+        if top > CARD_BYTES:
+            raise AssertionError(f"{label} path: peak {top / 1e9:.2f} GB, over the card's "
+                                 f"{CARD_BYTES / 1e9:.0f} GB")
         stats.update(breakdown_phase(torch, f"{label} path", sys_))
         paths[label] = (launches, stats)
         # the next path builds only once this one's memory went back
@@ -1547,11 +1852,12 @@ def main() -> int:
         log(f"{label} system freed: {held / 2**30:.2f} GiB -> {freed / 2**30:.2f} GiB "
             f"allocated")
 
-    train_launches, train = training_phase(torch)
+    trains = {arch: training_phase(torch, arch) for arch in ("minitron-8b", "gemma-7b")}
     driver_phase(torch)
 
     log(f"{card}: dense bf16 minitron-8b | int8 pages + W4A16 (group 64) minitron-8b | "
-        f"bf16 zamba2-7b (splice path), the same 4 + 1 requests")
+        f"bf16 zamba2-7b (splice path) | bf16 gemma-7b | bf16 granite-20b | int8 pages + "
+        f"W4A16 deepseek-67b ({DEEPSEEK_LAYERS} layers), the same 4 + 1 requests")
     for key, what in (("ttft_median_ms", "TTFT median ms"), ("ttft_max_ms", "TTFT max ms"),
                       ("tok_s_session", "decode tok/s per session"),
                       ("tok_s_all", "tok/s over all 4 sessions"),
@@ -1579,15 +1885,17 @@ def main() -> int:
         kernels.append({"name": name, "route": "cuda", "source": src,
                         "replaces": replaces,
                         "launches": sum(l[name] for l, _ in paths.values())
-                        + train_launches[name],
+                        + sum(l[name] for l, _ in trains.values()),
                         "max_abs_err": r["max_abs_err"], "ms": r["ms"],
                         "plain_ms": r["plain_ms"], "bound_ms": r["bound_ms"],
                         "bound_by": r["bound_by"], "library_ms": r["library_ms"],
                         **({"shapes": r["shapes"]} if "shapes" in r else {})})
-    log(f"{card}: training path (minitron-8b, {TRAIN_LAYERS} layers, batch {TRAIN_BATCH} x "
-        f"seq {TRAIN_SEQ}): step {train['step_ms']:.1f} ms, {train['tok_s']:.0f} tokens/s, "
-        f"device {train['dev_ms']:.1f} ms, busy {train['busy'] * 100:.0f}%, peak "
-        f"{train['peak_gib']:.2f} GiB; flash_attention backward at the training shape "
+    for arch, (_, train) in trains.items():
+        log(f"{card}: training path ({arch}, {TRAIN_LAYERS} layers, batch {TRAIN_BATCH} x "
+            f"seq {TRAIN_SEQ}): step {train['step_ms']:.1f} ms, {train['tok_s']:.0f} "
+            f"tokens/s, device {train['dev_ms']:.1f} ms, busy {train['busy'] * 100:.0f}%, "
+            f"peak {train['peak_gib']:.2f} GiB")
+    log(f"{card}: flash_attention backward at minitron-8b's training shape "
         f"{rows['flash_attention_bwd']['ms']:.4f} ms (SDPA's "
         f"{rows['flash_attention_bwd']['library_ms']:.4f} ms, bound "
         f"{rows['flash_attention_bwd']['bound_ms']:.5f} ms)")

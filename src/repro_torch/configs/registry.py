@@ -22,7 +22,9 @@ ARCHS = [
     "xlstm-125m",
 ]
 
-PORTED = {"minitron-8b": "minitron_8b", "zamba2-7b": "zamba2_7b"}
+PORTED = {"minitron-8b": "minitron_8b", "zamba2-7b": "zamba2_7b",
+          "gemma-7b": "gemma_7b", "granite-20b": "granite_20b",
+          "deepseek-67b": "deepseek_67b"}
 
 
 def _load(arch: str):

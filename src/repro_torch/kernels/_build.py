@@ -25,8 +25,8 @@ import torch
 
 CSRC = Path(__file__).resolve().parent / "csrc"
 BUILD_DIR = Path(__file__).resolve().parents[3] / "build" / "kernels"
-SOURCES = ("attention", "awq_matmul", "decode_attention", "flash_attention",
-           "flash_attention_bwd", "rmsnorm", "ssd")
+SOURCES = ("attention", "attention_quant", "awq_matmul", "decode_attention",
+           "flash_attention", "flash_attention_bwd", "rmsnorm", "ssd")
 NVCC_FLAGS = ("-gencode", "arch=compute_90a,code=sm_90a", "-std=c++17", "-O3",
               "-shared", "-Xcompiler", "-fPIC", "-Xptxas", "-v")
 

@@ -37,8 +37,10 @@
 //  * Q and K rows are padded to D + 4 floats and read as float4, the P
 //    tile to 48 floats, so every shared-memory access is free of bank
 //    conflicts; ~79 KB of dynamic shared memory at D = 128 (two blocks per
-//    SM), above the 48 KB static limit, so each instantiation lifts its
-//    cap once (cudaFuncAttributeMaxDynamicSharedMemorySize).
+//    SM), 141.5 KB at D = 256 (one), above the 48 KB static limit, so each
+//    instantiation lifts its cap once
+//    (cudaFuncAttributeMaxDynamicSharedMemorySize); at D = 8 a thread's
+//    output column tc + 16 c exists for tc < 8 only.
 //
 // Body 2, bfloat16 (fa_wgmma_kernel): both products on the tensor cores.
 //  * one warpgroup (128 threads) per (64 query rows, b * Hq + hq): 64 rows
@@ -49,10 +51,12 @@
 //  * Q (64 rows) and a ring of two stages of K and V tiles of 64 keys
 //    live in shared memory as bf16 in the 128-byte swizzle (16-byte chunk
 //    c of row r at chunk c ^ (r % 8) of its 128-byte row), as D / 64
-//    column blocks of 64 values. D = 112 is padded to 128, D = 16 to 64,
-//    with zero columns that are never stored. cp.async copies 16 bytes a
-//    thread, its zero-fill form covering rows past Sq or Skv and the pad;
-//    tile j + 1 is in flight while tile j is computed. 81 KB at D = 128;
+//    column blocks of 64 values. D = 112 is padded to 128, D = 16 and 8 to
+//    64, with zero columns that are never stored (D = 8 takes one k16 step
+//    of Q K^T over 8 zero columns: wgmma's reduction is 16 deep).
+//    cp.async copies 16 bytes a thread, its zero-fill form covering rows
+//    past Sq or Skv and the pad; tile j + 1 is in flight while tile j is
+//    computed. 81 KB at D = 128; 161 KB at D = 256, so one block an SM;
 //  * S = Q K^T is wgmma m64n64k16 with Q and K read from shared memory,
 //    both K-major (D contiguous): descriptor SBO 1024 B between 8-row
 //    groups, the k-step advancing 32 B within the swizzled row;
@@ -60,7 +64,9 @@
 //    float32 and base 2: a thread holds rows r and r + 8 of its warp's 16,
 //    and the four lanes that share a row reduce its max with two shuffles
 //    (the row sum is reduced once, at the end);
-//  * O += P V is wgmma m64nDPk16 with P from registers: the m64n64 f32
+//  * O += P V is wgmma m64nDPk16 with P from registers (at D = 256 two
+//    m64n128 products over V's column halves, 128 accumulator floats a
+//    thread beside S's 32): the m64n64 f32
 //    accumulator fragment of S maps onto four k16 A fragments (keys
 //    16 kk .. 16 kk + 15 are S's n8 blocks 2 kk and 2 kk + 1), so P is
 //    rounded to bf16 and packed in place. V is the B operand with the
@@ -85,8 +91,10 @@
 //  * tiles above the offset diagonal are skipped (but for a tile with a
 //    row that sees no key, which reads all Skv keys).
 // D is a template parameter (compile-time trip counts, no guarded
-// register loops), built for 16 (smoke), 112 (zamba2's shared block) and
-// 128 (minitron-8b); another D fails at launch with cudaErrorInvalidValue.
+// register loops), built for 8 (deepseek-67b's smoke), 16 (the other
+// smoke configs), 112 (zamba2's shared block), 128 (minitron-8b,
+// granite-20b, deepseek-67b) and 256 (gemma-7b); another D fails at launch
+// with cudaErrorInvalidValue.
 
 #include <cuda_bf16.h>
 #include <cuda_runtime.h>
@@ -118,7 +126,7 @@ fa_kernel(const T* __restrict__ q, const T* __restrict__ k, const T* __restrict_
           T* __restrict__ o, float* __restrict__ lse, int Hq, int G, int Sq, int Skv,
           float scale, float cap, int causal) {
   constexpr int QS = Smem<D>::QS;
-  constexpr int NC = D / 16;  // output columns per thread
+  constexpr int NC = (D + 15) / 16;  // output columns per thread (tc + 16 c < D)
   extern __shared__ float4 smem4[];
   float* sQ = reinterpret_cast<float*>(smem4);
   float* sK = sQ + BQ * QS;
@@ -237,7 +245,8 @@ fa_kernel(const T* __restrict__ q, const T* __restrict__ k, const T* __restrict_
       for (int t = 0; t < 4; ++t) {
         float vv[NC];
 #pragma unroll
-        for (int c = 0; c < NC; ++c) vv[c] = sV[(kk + t) * D + tc + 16 * c];
+        for (int c = 0; c < NC; ++c)
+          vv[c] = D % 16 == 0 || tc + 16 * c < D ? sV[(kk + t) * D + tc + 16 * c] : 0.f;
 #pragma unroll
         for (int i = 0; i < 4; ++i) {
           const float p = t == 0 ? pv[i].x : t == 1 ? pv[i].y : t == 2 ? pv[i].z : pv[i].w;
@@ -255,7 +264,9 @@ fa_kernel(const T* __restrict__ q, const T* __restrict__ k, const T* __restrict_
     if (r >= qrows) continue;
     const float den = fmaxf(l[i], 1e-30f);
 #pragma unroll
-    for (int c = 0; c < NC; ++c) op[(size_t)r * D + tc + 16 * c] = from_f<T>(acc[i][c] / den);
+    for (int c = 0; c < NC; ++c)
+      if (D % 16 == 0 || tc + 16 * c < D)
+        op[(size_t)r * D + tc + 16 * c] = from_f<T>(acc[i][c] / den);
     if (lse != nullptr && tc == 0) lse[(size_t)bh * Sq + q0 + r] = m[i] + logf(l[i]);
   }
 }
@@ -293,7 +304,7 @@ fa_wgmma_kernel(const __nv_bfloat16* __restrict__ q, const __nv_bfloat16* __rest
                 int Skv, float scale, float cap, int causal) {
   using namespace wg;
   constexpr int DP = Geo<D>::DP, TILE = Geo<D>::TILE;
-  constexpr int NKS = D / 16;   // k-steps of Q K^T (the pad columns are skipped)
+  constexpr int NKS = (D + 15) / 16;  // k-steps of Q K^T (the pad past them is skipped)
   constexpr int NO = DP / 2;    // O fragment floats a thread (m64nDP)
   extern __shared__ uint8_t smem_raw[];
   const uint32_t sQ = (smem_u32(smem_raw) + 1023u) & ~1023u;  // swizzle atoms: 1 KB
@@ -496,9 +507,11 @@ extern "C" int flash_attention_launch(const void* q, const void* k, const void* 
 #define ARGS q, k, v, o, lse, B, Hq, Hkv, Sq, Skv, scale, cap, causal, s
 #define ARGS_BF16 q, k, v, o, lse, olo, B, Hq, Hkv, Sq, Skv, scale, cap, causal, s
   switch (D) {
+    case 8: return dtype == 0 ? launch<float, 8>(ARGS) : launch_bf16<8>(ARGS_BF16);
     case 16: return dtype == 0 ? launch<float, 16>(ARGS) : launch_bf16<16>(ARGS_BF16);
     case 112: return dtype == 0 ? launch<float, 112>(ARGS) : launch_bf16<112>(ARGS_BF16);
     case 128: return dtype == 0 ? launch<float, 128>(ARGS) : launch_bf16<128>(ARGS_BF16);
+    case 256: return dtype == 0 ? launch<float, 256>(ARGS) : launch_bf16<256>(ARGS_BF16);
     default: return (int)cudaErrorInvalidValue;
   }
 #undef ARGS_BF16

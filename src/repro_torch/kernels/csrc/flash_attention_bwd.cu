@@ -53,11 +53,15 @@
 //  * dQ: one block per (b * Hq + q head, 64-query tile), the heaviest
 //    causal tiles first, walks the key tiles its rows see, as the forward.
 //
-// Body 2, bfloat16 (wgmma, one warpgroup of 128 threads a block), with the
-// forward's building blocks (wgmma.cuh): bf16 tiles of 64 rows in the
-// 128-byte swizzle, copied by cp.async into a two-stage ring (the next
-// (Q, dO) tile in flight while this one is computed), D = 112 and 16
-// padded to 128 and 64 with zero columns. Grid: one thread block cluster
+// Body 2, bfloat16 (wgmma, one warpgroup of 128 threads a block; two at
+// D = 256), with the forward's building blocks (wgmma.cuh): bf16 tiles of
+// 64 rows in the 128-byte swizzle, copied by cp.async into a two-stage
+// ring (the next (Q, dO) tile in flight while this one is computed), D =
+// 112 and 16, 8 padded to 128 and 64 with zero columns. At D = 256 one
+// warpgroup would hold dK and dV in 256 floats a thread: there each of
+// two warpgroups owns 128 columns of dK, dV and dQ (the registers of D =
+// 128), and both form S^T and dP^T over all of D, the second repeating
+// the first's two products; 202 KB of shared memory, one block an SM. Grid: one thread block cluster
 // of C blocks (C the largest divisor of G up to 8) per unit (b * Hkv + kv
 // head, 64-key tile): B Hkv ceil(Skv / 64) C blocks, 1024 at the training
 // shape; 108 KB of shared memory a block (D = 128), so two blocks an SM.
@@ -104,9 +108,10 @@
 // Registers: at D = 128, dK and dV hold 64 + 64 floats a thread, S^T and
 // dP^T 32 + 32, the bf16 halves of P and dS 16 + 16 each, dQ's share 64
 // once those are dead.
-// Both bodies: D is a template parameter, built for 16 (smoke), 112
-// (zamba2's shared block) and 128 (minitron-8b); another D fails at launch
-// with cudaErrorInvalidValue.
+// Both bodies: D is a template parameter, built for 8 (deepseek-67b's
+// smoke), 16 (the other smoke configs), 112 (zamba2's shared block), 128
+// (minitron-8b and the other dense configs) and 256 (gemma-7b); another D
+// fails at launch with cudaErrorInvalidValue.
 
 #include <cooperative_groups.h>
 #include <cuda_bf16.h>
@@ -167,10 +172,13 @@ delta_kernel(const T* __restrict__ o, const T* __restrict__ olo, const T* __rest
   constexpr int L = NCH <= 2 ? 2 : NCH <= 4 ? 4 : NCH <= 8 ? 8 : NCH <= 16 ? 16 : 32;
   const int gi = blockIdx.x * 256 + threadIdx.x;  // the bf16 kernel's counters start at 0
   if (gi < nsem) sem[gi] = 0;
-  const int lane = threadIdx.x & 31, c = lane % L;
+  const int lane = threadIdx.x & 31;
   const int row = (blockIdx.x * 8 + (threadIdx.x >> 5)) * (32 / L) + lane / L;
   float s = 0.f;
-  if (row < rows && c < NCH) {
+  // a lane's vectors c, c + L, ... (two where a row has 64: float32 at D = 256)
+#pragma unroll
+  for (int c = lane % L; c < NCH; c += L) {
+    if (row >= rows) break;
     float a[VEC], b[VEC];
     vec_f(o + (size_t)row * D + c * VEC, a);
     if (olo != nullptr) {
@@ -185,7 +193,7 @@ delta_kernel(const T* __restrict__ o, const T* __restrict__ olo, const T* __rest
   }
 #pragma unroll
   for (int w = L / 2; w > 0; w >>= 1) s += __shfl_xor_sync(0xffffffffu, s, w);
-  if (row < rows && c == 0) delta[row] = s;
+  if (row < rows && lane % L == 0) delta[row] = s;
 }
 
 // the Delta pass, which also zeroes nsem counters at sem (fewer than its
@@ -221,6 +229,8 @@ constexpr int PS = 48;  // P / dS tile row stride (floats): 32 columns + 16
 
 template <int D> struct F32 {
   static constexpr int QS = D + 4;  // row stride of the staged Q, dO, K, V (floats)
+  static constexpr int NC = (D + 15) / 16;  // a thread's output columns tc + 16 c < D
+  static __device__ __forceinline__ bool col(int tc, int c) { return D % 16 == 0 || tc + 16 * c < D; }
   // dQ: Q and dO (64 rows), K and V (32 rows), dS (64 x 32)
   static constexpr size_t dq_bytes = sizeof(float) * (2 * 64 * QS + 2 * 32 * QS + 64 * PS);
   // dK/dV: K and V (64 rows), Q and dO (32 rows), P and dS (64 x 32), lse and Delta (32)
@@ -246,7 +256,7 @@ dq_f32_kernel(const float* __restrict__ q, const float* __restrict__ k,
               const float* __restrict__ lse, const float* __restrict__ delta,
               float* __restrict__ dq, int Hq, int G, int Sq, int Skv, float scale, float cap,
               int causal) {
-  constexpr int QS = F32<D>::QS, NC = D / 16;
+  constexpr int QS = F32<D>::QS, NC = F32<D>::NC;
   extern __shared__ float4 smem4[];
   float* sQ = reinterpret_cast<float*>(smem4);
   float* sG = sQ + 64 * QS;
@@ -340,7 +350,7 @@ dq_f32_kernel(const float* __restrict__ q, const float* __restrict__ k,
       for (int t = 0; t < 4; ++t) {
         float kr[NC];
 #pragma unroll
-        for (int c = 0; c < NC; ++c) kr[c] = sK[(kk + t) * QS + tc + 16 * c];
+        for (int c = 0; c < NC; ++c) kr[c] = F32<D>::col(tc, c) ? sK[(kk + t) * QS + tc + 16 * c] : 0.f;
 #pragma unroll
         for (int i = 0; i < 4; ++i) {
           const float x = t == 0 ? sv[i].x : t == 1 ? sv[i].y : t == 2 ? sv[i].z : sv[i].w;
@@ -357,7 +367,8 @@ dq_f32_kernel(const float* __restrict__ q, const float* __restrict__ k,
     const int r = tr + 16 * i;
     if (r >= qrows) continue;
 #pragma unroll
-    for (int c = 0; c < NC; ++c) op[(size_t)r * D + tc + 16 * c] = acc[i][c] * scale;
+    for (int c = 0; c < NC; ++c)
+      if (F32<D>::col(tc, c)) op[(size_t)r * D + tc + 16 * c] = acc[i][c] * scale;
   }
 }
 
@@ -368,7 +379,7 @@ dkdv_f32_kernel(const float* __restrict__ q, const float* __restrict__ k,
                 const float* __restrict__ lse, const float* __restrict__ delta,
                 float* __restrict__ dk, float* __restrict__ dv, int Hq, int G, int Sq, int Skv,
                 float scale, float cap, int causal) {
-  constexpr int QS = F32<D>::QS, NC = D / 16;
+  constexpr int QS = F32<D>::QS, NC = F32<D>::NC;
   extern __shared__ float4 smem4[];
   float* sK = reinterpret_cast<float*>(smem4);
   float* sV = sK + 64 * QS;
@@ -471,8 +482,9 @@ dkdv_f32_kernel(const float* __restrict__ q, const float* __restrict__ k,
           float gr[NC], qr[NC];
 #pragma unroll
           for (int c = 0; c < NC; ++c) {
-            gr[c] = sG[(qq + t) * QS + tc + 16 * c];
-            qr[c] = sQ[(qq + t) * QS + tc + 16 * c];
+            const bool in = F32<D>::col(tc, c);
+            gr[c] = in ? sG[(qq + t) * QS + tc + 16 * c] : 0.f;
+            qr[c] = in ? sQ[(qq + t) * QS + tc + 16 * c] : 0.f;
           }
 #pragma unroll
           for (int i = 0; i < 4; ++i) {
@@ -496,6 +508,7 @@ dkdv_f32_kernel(const float* __restrict__ q, const float* __restrict__ k,
     if (r >= krows) continue;
 #pragma unroll
     for (int c = 0; c < NC; ++c) {
+      if (!F32<D>::col(tc, c)) continue;
       dk[base + (size_t)r * D + tc + 16 * c] = ak[i][c] * scale;
       dv[base + (size_t)r * D + tc + 16 * c] = av[i][c];
     }
@@ -528,18 +541,18 @@ __device__ __forceinline__ void frag_split(const float* f, uint32_t (*hi)[4],
     }
 }
 
-template <int D>
+// rows row0, row0 + 8 of an m64nW fragment of columns [col0, col0 + W)
+template <int D, int W>
 __device__ __forceinline__ void store_rows(bf16* dst, const float* acc, int row0, int nrows,
-                                           float mul) {
-  constexpr int DP = wg::Tile<D>::DP;
+                                           float mul, int col0) {
   const int tq = threadIdx.x & 3;
 #pragma unroll
   for (int h = 0; h < 2; ++h) {
     const int r = row0 + 8 * h;
     if (r >= nrows) continue;
 #pragma unroll
-    for (int n = 0; n < DP / 8; ++n) {
-      const int c = 8 * n + 2 * tq;
+    for (int n = 0; n < W / 8; ++n) {
+      const int c = col0 + 8 * n + 2 * tq;
       if (c < D)
         *reinterpret_cast<__nv_bfloat162*>(dst + (size_t)r * D + c) =
             __floats2bfloat162_rn(acc[4 * n + 2 * h] * mul, acc[4 * n + 2 * h + 1] * mul);
@@ -592,6 +605,9 @@ __device__ __forceinline__ void p_ds_tile(float* s, float* dp, const float* sL, 
 
 template <int D> struct Bf16 {
   static constexpr int DP = wg::Tile<D>::DP, TILE = wg::Tile<D>::BYTES;
+  // warpgroups a block: two at D = 256, each owning W = DP / NWG columns
+  // of dK, dV and dQ (m64n128 accumulators, as at D = 128)
+  static constexpr int NWG = DP > 128 ? 2 : 1, NT = 128 * NWG, W = DP / NWG;
   // K, V and two stages of (Q, dO); dS^T (64 x 64 bf16); two stages of
   // (lse, Delta) of 64 floats each; slack to align the tiles to 1 KB
   static constexpr size_t bytes = 6 * (size_t)TILE + 8192 + 2 * 512 + 1024;
@@ -642,7 +658,7 @@ __device__ __forceinline__ void st_release(int* p, int v) {
 // out in ticket order (an atomic counter), so any unit a block waits for
 // was handed to a block that is already running.
 template <int D>
-__global__ void __launch_bounds__(128)
+__global__ void __launch_bounds__(Bf16<D>::NT)
 bwd_wgmma_kernel(const bf16* __restrict__ q, const bf16* __restrict__ k,
                  const bf16* __restrict__ v, const bf16* __restrict__ dout,
                  const float* __restrict__ lse, const float* __restrict__ delta,
@@ -651,8 +667,9 @@ bwd_wgmma_kernel(const bf16* __restrict__ q, const bf16* __restrict__ k,
                  int Skv, float scale, float cap, int causal, int n_bkv) {
   using namespace wg;
   constexpr int DP = Bf16<D>::DP, TILE = Bf16<D>::TILE;
-  constexpr int NKS = D / 16;
-  constexpr int NO = DP / 2;
+  constexpr int NT = Bf16<D>::NT, W = Bf16<D>::W;
+  constexpr int NKS = (D + 15) / 16;  // k16 steps of S^T and dP^T (over all of D)
+  constexpr int NO = W / 2;           // floats a thread of an m64nW fragment
   extern __shared__ uint8_t smem_raw[];
   __shared__ int s_unit;
   const uint32_t sK = (smem_u32(smem_raw) + 1023u) & ~1023u;
@@ -664,7 +681,11 @@ bwd_wgmma_kernel(const bf16* __restrict__ q, const bf16* __restrict__ k,
   const float* fLD = reinterpret_cast<const float*>(smem_raw + (sLD - smem_u32(smem_raw)));
   uint8_t* pDS = smem_raw + (sDS - smem_u32(smem_raw));
 
-  const int tid = threadIdx.x, warp = tid >> 5, lane = tid & 31, tq = lane & 3;
+  const int tid = threadIdx.x, warp = (tid >> 5) & 3, lane = tid & 31, tq = lane & 3;
+  // this warpgroup's columns [col0, col0 + W) of dK, dV and dQ: 8 KB column
+  // blocks from cb of the tiles
+  const int col0 = (tid >> 7) * W;
+  const uint32_t cb = (uint32_t)col0 / 64 * (64 * 128);
   const int C = gridDim.z;
   const int nq = (Sq + BR - 1) / BR, nkv = (Skv + BN - 1) / BN;
   const int ticket = n_bkv / (Hq / G) * Hq * nq;  // index of the ticket counter in sem
@@ -710,15 +731,17 @@ bwd_wgmma_kernel(const bf16* __restrict__ q, const bf16* __restrict__ k,
     const int qt0 = tile_of(it) * BR;
     const size_t bh = (size_t)b * Hq + h * G + g;
     const uint32_t dst = sK + TILE * (2 + 2 * st);
-    load_tile<D, DP>(dst, q + bh * Sq * D, qt0, Sq);
-    load_tile<D, DP>(dst + TILE, dout + bh * Sq * D, qt0, Sq);
-    const int t = tid & 63;
-    const float* src = (tid < 64 ? lse : delta) + bh * Sq + qt0 + t;
-    cp_async4(sLD + st * 512 + tid * 4, qt0 + t < Sq ? src : lse, qt0 + t < Sq);
+    load_tile<D, DP, NT>(dst, q + bh * Sq * D, qt0, Sq);
+    load_tile<D, DP, NT>(dst + TILE, dout + bh * Sq * D, qt0, Sq);
+    if (tid < 128) {
+      const int t = tid & 63;
+      const float* src = (tid < 64 ? lse : delta) + bh * Sq + qt0 + t;
+      cp_async4(sLD + st * 512 + tid * 4, qt0 + t < Sq ? src : lse, qt0 + t < Sq);
+    }
   };
 
-  load_tile<D, DP>(sK, k + (size_t)bkv * Skv * D, k0, Skv);
-  load_tile<D, DP>(sV, v + (size_t)bkv * Skv * D, k0, Skv);
+  load_tile<D, DP, NT>(sK, k + (size_t)bkv * Skv * D, k0, Skv);
+  load_tile<D, DP, NT>(sV, v + (size_t)bkv * Skv * D, k0, Skv);
   if (total > 0) load_q(0, 0);
   asm volatile("cp.async.commit_group;\n" ::: "memory");
 
@@ -746,7 +769,9 @@ bwd_wgmma_kernel(const bf16* __restrict__ q, const bf16* __restrict__ k,
     asm volatile("fence.proxy.async.shared::cta;\n" ::: "memory");
     __syncthreads();
 
-    // S^T = K Q^T and dP^T = V dO^T: rows are keys, columns queries
+    // S^T = K Q^T and dP^T = V dO^T: rows are keys, columns queries; each
+    // warpgroup forms both over all of D (at D = 256 the second one repeats
+    // the first's: exchanging half-D sums would cost a barrier a product)
     float s[32], dp[32];
 #pragma unroll
     for (int i = 0; i < 32; ++i) s[i] = dp[i] = 0.f;
@@ -789,8 +814,8 @@ bwd_wgmma_kernel(const bf16* __restrict__ q, const bf16* __restrict__ k,
       fence();
 #pragma unroll
       for (int kk = 0; kk < 4; ++kk) {
-        pv<DP>(av, ph[kk], desc(sG + kk * 2048, 64 * 128, 1024));
-        pv<DP>(av, pl[kk], desc(sG + kk * 2048, 64 * 128, 1024));
+        pv<W>(av, ph[kk], desc(sG + cb + kk * 2048, 64 * 128, 1024));
+        pv<W>(av, pl[kk], desc(sG + cb + kk * 2048, 64 * 128, 1024));
       }
       commit();
       wait0();
@@ -802,18 +827,18 @@ bwd_wgmma_kernel(const bf16* __restrict__ q, const bf16* __restrict__ k,
       fence();
 #pragma unroll
       for (int kk = 0; kk < 4; ++kk) {
-        pv<DP>(ak, sh[kk], desc(sQ + kk * 2048, 64 * 128, 1024));
-        pv<DP>(ak, sl[kk], desc(sQ + kk * 2048, 64 * 128, 1024));
+        pv<W>(ak, sh[kk], desc(sQ + cb + kk * 2048, 64 * 128, 1024));
+        pv<W>(ak, sl[kk], desc(sQ + cb + kk * 2048, 64 * 128, 1024));
       }
       commit();
-      if (do_q) store_ds(pDS, sh, row0, tq);
+      if (do_q && col0 == 0) store_ds(pDS, sh, row0, tq);  // the same in every warpgroup
       wait0();
       keep(sh);
       keep(sl);
       pin<NO>(ak);
     } else {
       frag_split(dp, sh, sl);
-      store_ds(pDS, sh, row0, tq);
+      if (col0 == 0) store_ds(pDS, sh, row0, tq);
     }
     if (do_q) {
       __syncthreads();  // every warp's dS^T is in shared memory
@@ -825,8 +850,8 @@ bwd_wgmma_kernel(const bf16* __restrict__ q, const bf16* __restrict__ k,
       fence();
 #pragma unroll
       for (int kk = 0; kk < 4; ++kk)
-        mm_tt<DP>(acc, desc(sDS + kk * 2048, 64 * 128, 1024),
-                  desc(sK + kk * 2048, 64 * 128, 1024), kk > 0);
+        mm_tt<W>(acc, desc(sDS + kk * 2048, 64 * 128, 1024),
+                 desc(sK + cb + kk * 2048, 64 * 128, 1024), kk > 0);
       commit();
       wait0();
       pin<NO>(acc);
@@ -842,11 +867,12 @@ bwd_wgmma_kernel(const bf16* __restrict__ q, const bf16* __restrict__ k,
       const size_t bh = (size_t)b * Hq + h * G + g;
       if (n != n_last) {
         // the share goes to this stage's Q and dO tiles, free now (64 x DP
-        // floats, the workspace's order), for the TMA
+        // floats, the workspace's order: float4 i of thread tid at i NT +
+        // tid), for the TMA
         float4* stg = reinterpret_cast<float4*>(smem_raw + (sQ - smem_u32(smem_raw))) + tid;
 #pragma unroll
         for (int i = 0; i < NO / 4; ++i)
-          stg[i * 128] = make_float4(acc[4 * i], acc[4 * i + 1], acc[4 * i + 2], acc[4 * i + 3]);
+          stg[i * NT] = make_float4(acc[4 * i], acc[4 * i + 1], acc[4 * i + 2], acc[4 * i + 3]);
         asm volatile("fence.proxy.async.shared::cta;\n" ::: "memory");
       }
       if (tid == 0 && n > 0) {
@@ -862,15 +888,14 @@ bwd_wgmma_kernel(const bf16* __restrict__ q, const bf16* __restrict__ k,
               reinterpret_cast<const float4*>(dq_acc + (bh * nq + mt) * (size_t)(64 * DP)) + tid;
 #pragma unroll
           for (int i = 0; i < NO / 4; ++i) {
-            const float4 w = __ldcg(ws + i * 128);
+            const float4 w = __ldcg(ws + i * NT);
             acc[4 * i] += w.x;
             acc[4 * i + 1] += w.y;
             acc[4 * i + 2] += w.z;
             acc[4 * i + 3] += w.w;
           }
         }
-        store_rows<D>(dq + (bh * Sq + q0) * D, acc, warp * 16 + (lane >> 2),
-                      min(BR, Sq - q0), scale);
+        store_rows<D, W>(dq + (bh * Sq + q0) * D, acc, row0, min(BR, Sq - q0), scale, col0);
       } else {
         // one thread hands the share to the TMA: a bulk store for tile 0, a
         // bulk add (reduced in L2) after it
@@ -904,21 +929,21 @@ bwd_wgmma_kernel(const bf16* __restrict__ q, const bf16* __restrict__ k,
   }
   const size_t base = ((size_t)bkv * Skv + k0) * D;
   if (C == 1) {
-    store_rows<D>(dk + base, ak, row0, krows, scale);
-    store_rows<D>(dv + base, av, row0, krows, 1.f);
+    store_rows<D, W>(dk + base, ak, row0, krows, scale, col0);
+    store_rows<D, W>(dv + base, av, row0, krows, 1.f, col0);
     return;
   }
   // the cluster's blocks sum their dK and dV over their heads through
   // distributed shared memory, in rank order: each stores its two float32
   // (64, DP) fragments where the tiles were, then block r writes elements
-  // r * 128 + tid, r * 128 + tid + 128 C, ... of the (krows, D) outputs
+  // r * NT + tid, r * NT + tid + NT C, ... of the (krows, D) outputs
   __syncthreads();  // every wgmma and copy into the tiles is done
   float* red = reinterpret_cast<float*>(smem_raw + (sK - smem_u32(smem_raw)));
 #pragma unroll
   for (int hh = 0; hh < 2; ++hh)
 #pragma unroll
-    for (int nn = 0; nn < DP / 8; ++nn) {
-      const int idx = (row0 + 8 * hh) * DP + 8 * nn + 2 * tq;
+    for (int nn = 0; nn < W / 8; ++nn) {
+      const int idx = (row0 + 8 * hh) * DP + col0 + 8 * nn + 2 * tq;
       *reinterpret_cast<float2*>(red + idx) =
           make_float2(ak[4 * nn + 2 * hh], ak[4 * nn + 2 * hh + 1]);
       *reinterpret_cast<float2*>(red + 64 * DP + idx) =
@@ -926,7 +951,7 @@ bwd_wgmma_kernel(const bf16* __restrict__ q, const bf16* __restrict__ k,
     }
   cluster.sync();
   const int rank = (int)cluster.block_rank();
-  for (int i = rank * 128 + tid; i < krows * D; i += C * 128) {
+  for (int i = rank * NT + tid; i < krows * D; i += C * NT) {
     const int r = i / D, c = i - r * D;
     float sk = 0.f, sv = 0.f;
     for (int j = 0; j < C; ++j) {
@@ -996,7 +1021,7 @@ static int launch_bf16(const BwdArgs* a, cudaStream_t s) {
   int C = 1;
   for (int c = 2; c <= 8; ++c)
     if (G % c == 0) C = c;
-  return run(bwd_wgmma_kernel<D>, Bf16<D>::bytes, dim3(a->B * a->Hkv, nkv, C), 128, s, C,
+  return run(bwd_wgmma_kernel<D>, Bf16<D>::bytes, dim3(a->B * a->Hkv, nkv, C), Bf16<D>::NT, s, C,
              (const bf16*)a->q, (const bf16*)a->k, (const bf16*)a->v, (const bf16*)a->dout,
              a->lse, (const float*)a->delta, (bf16*)a->dq, (bf16*)a->dk, (bf16*)a->dv,
              a->dq_acc, a->sem, a->Hq, G, a->Sq, a->Skv, a->scale, a->cap, a->causal,
@@ -1017,13 +1042,15 @@ extern "C" int flash_attention_bwd_launch(const BwdArgs* a) {
   if (a->Hkv <= 0 || a->Hq % a->Hkv != 0 || a->B <= 0 || (long long)a->B * a->Hq > 65535 ||
       a->Sq <= 0 || a->Skv <= 0 || (a->dtype != 0 && a->dtype != 1) ||
       (a->dk == nullptr) != (a->dv == nullptr) || (a->dq == nullptr && a->dk == nullptr) ||
-      (a->D != 16 && a->D != 112 && a->D != 128) ||
+      (a->D != 8 && a->D != 16 && a->D != 112 && a->D != 128 && a->D != 256) ||
       (a->dtype == 1 && (a->sem == nullptr || (a->dq != nullptr && a->dq_acc == nullptr))))
     return (int)cudaErrorInvalidValue;
   cudaStream_t s = (cudaStream_t)a->stream;
   switch (a->D) {
+    case 8: return a->dtype == 0 ? launch_f32<8>(a, s) : launch_bf16<8>(a, s);
     case 16: return a->dtype == 0 ? launch_f32<16>(a, s) : launch_bf16<16>(a, s);
     case 112: return a->dtype == 0 ? launch_f32<112>(a, s) : launch_bf16<112>(a, s);
-    default: return a->dtype == 0 ? launch_f32<128>(a, s) : launch_bf16<128>(a, s);
+    case 128: return a->dtype == 0 ? launch_f32<128>(a, s) : launch_bf16<128>(a, s);
+    default: return a->dtype == 0 ? launch_f32<256>(a, s) : launch_bf16<256>(a, s);
   }
 }

@@ -1,7 +1,8 @@
 // wgmma building blocks shared by the flash-attention kernels
 // (flash_attention.cu, flash_attention_bwd.cu) for Hopper (sm_90a):
 // shared-memory descriptors in the 128-byte swizzle, the cp.async tile
-// copy that writes that swizzle, and the m64n64 / m64n128 bf16 products
+// copy that writes that swizzle (by one or two warpgroups), and the
+// m64n64 / m64n128 (and, as two of those, m64n256) bf16 products
 // with A from shared memory (_ss; _ss_tt with both operands MN-major) or
 // from registers (_rs).
 //
@@ -68,23 +69,26 @@ __device__ __forceinline__ uint32_t pack_bf16(float lo, float hi) {
 }
 
 // Copy rows [r0, r0 + 64) of a (rows, D) bf16 matrix into a 64 x DP tile
-// in the 128-byte swizzle, column blocks of 64 values (8 KB each); rows
-// at or past nrows and columns at or past D are zero-filled.
-template <int D, int DP>
+// in the 128-byte swizzle, column blocks of 64 values (8 KB each), by NT
+// threads (one or two warpgroups); rows at or past nrows and columns at
+// or past D are zero-filled.
+template <int D, int DP, int NT = 128>
 __device__ __forceinline__ void load_tile(uint32_t dst, const __nv_bfloat16* g, int r0,
                                           int nrows) {
   constexpr int CPR = DP / 8;  // 16-byte chunks a padded row
-  // thread t copies chunk cc = t % CPR of rows t / CPR + (128 / CPR) u: the
-  // same chunk and row % 8 on every pass, so one swizzled offset serves all
+  // thread t copies chunk cc = t % CPR of rows t / CPR + (NT / CPR) u; where
+  // NT / CPR is a multiple of 8 (DP <= 128) every pass has the same row % 8,
+  // so the swizzled offset folds to one, else (DP = 256 by one warpgroup)
+  // it alternates
   const int cc = threadIdx.x % CPR, rr = threadIdx.x / CPR;
-  const uint32_t a0 = dst + (cc >> 3) * (64 * 128) + rr * 128 + (((cc & 7) ^ (rr & 7)) << 4);
   const bool col = cc * 8 < D;
 #pragma unroll
-  for (int u = 0; u < 64 * CPR / 128; ++u) {
-    const int r = rr + u * (128 / CPR);
+  for (int u = 0; u < 64 * CPR / NT; ++u) {
+    const int r = rr + u * (NT / CPR);
     const bool in = col && r0 + r < nrows;
     const __nv_bfloat16* src = in ? g + (size_t)(r0 + r) * D + cc * 8 : g;
-    const uint32_t a = a0 + u * (128 / CPR) * 128;
+    const int r8 = (NT / CPR) % 8 == 0 ? rr & 7 : r & 7;  // r % 8
+    const uint32_t a = dst + (cc >> 3) * (64 * 128) + r * 128 + (((cc & 7) ^ r8) << 4);
     asm volatile("cp.async.cg.shared.global [%0], [%1], 16, %2;\n" ::"r"(a), "l"(src),
                  "r"(in ? 16 : 0)
                  : "memory");
@@ -205,6 +209,14 @@ __device__ __forceinline__ void pv<64>(float* o, const uint32_t* a, uint64_t db)
 template <>
 __device__ __forceinline__ void pv<128>(float* o, const uint32_t* a, uint64_t db) {
   wgmma_m64n128k16_rs(o, a, db, 1);
+}
+// D = 256: two m64n128 products over B's column halves (two 8 KB column
+// blocks each: the descriptor's address, in 16-byte units, moves 16 KB);
+// the m64n256 fragment's columns 128.. are floats 64.. of a thread
+template <>
+__device__ __forceinline__ void pv<256>(float* o, const uint32_t* a, uint64_t db) {
+  wgmma_m64n128k16_rs(o, a, db, 1);
+  wgmma_m64n128k16_rs(o + 64, a, db + ((2 * 64 * 128) >> 4), 1);
 }
 
 // d (m64nDP) (+)= A x B, both from shared memory and both MN-major

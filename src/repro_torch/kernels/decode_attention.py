@@ -3,11 +3,12 @@ the hand-written Hopper kernel (``csrc/decode_attention.cu``) and its
 plain PyTorch version.
 
 Replaces the JAX package's Pallas ``kernels/decode_attention.py::
-decode_attention`` (``_dec_kernel``). The kernel splits the keys of each
-(slot, kv head) over the card's SMs by the plan of ``splits``, one thread
-block cluster a (slot, kv head), and merges the splits' float32 partials
-through the cluster's distributed shared memory; see the source for the
-design. A CPU tensor takes the plain version; ``launches`` counts kernel
+decode_attention`` (``_dec_kernel``). A block takes
+``heads_per_block(G)`` query heads of one kv head; the kernel splits the
+keys of each (slot, kv head, head group) over the card's SMs by the plan
+of ``splits``, one thread block cluster a (slot, kv head, head group),
+and merges the splits' float32 partials through the cluster's
+distributed shared memory; see the source for the design. A CPU tensor takes the plain version; ``launches`` counts kernel
 launches. It has no gradient: where autograd would record it, it raises
 (``_build.refuse_grad``).
 """
@@ -29,20 +30,34 @@ launches = 0
 MIN_KEYS = 16                # keys a split holds at least, where S has them
 MAX_SPLITS = 8               # splits of one (slot, kv head): one cluster, 8 blocks at most
 BLOCKS_PER_SM = 2            # the plan aims at least at this many blocks per SM
-GROUPS = (1, 2, 4, 8)        # query heads per kv head the kernel is built for
-HEAD_DIMS = (16, 112, 128)
+HEAD_DIMS = (8, 16, 112, 128, 256)
 
 # csrc/decode_attention.cu's DecodeArgs, passed as one block (a ctypes
-# call costs per argument): 5 pointers, 7 ints, 2 floats, an int, the stream
-_PACK = struct.Struct("<5Q7i2fiQ")
+# call costs per argument): 5 pointers, 8 ints, 2 floats, an int, padding,
+# the stream
+_PACK = struct.Struct("<5Q8i2fi4xQ")
+
+
+def heads_per_block(G: int) -> int:
+    """Query heads one block takes (the kernel is built for 1, 2, 4, 8):
+    all G up to 8 where it is one of those, else the largest of 8, 4, 2
+    that divides G (granite-20b's G = 48: six blocks of 8). A lane keeps
+    heads x (its 4 to 8 values of D) accumulators and as many query
+    values in registers, so a block takes at most 8."""
+    for gb in (8, 4, 2):
+        if G % gb == 0:
+            return gb
+    return 1
 
 
 @functools.cache
 def splits(B: int, Hkv: int, S: int, n_sm: int) -> tuple[int, int]:
-    """The split plan: (n_split, chunk). The keys [0, S) of each (slot, kv
-    head) are cut into n_split <= MAX_SPLITS ranges of ``chunk`` positions
-    (the last range is what is left), each of at least MIN_KEYS keys where
-    S has them, so that the B * Hkv * n_split blocks come to about
+    """The split plan: (n_split, chunk). The keys [0, S) of each of the
+    B * Hkv rows -- (slot, kv head, head group) rows, Hkv standing for the
+    kv heads times their head groups -- are cut into n_split <= MAX_SPLITS
+    ranges of ``chunk`` positions (the last range is what is left), each
+    of at least MIN_KEYS keys where S has them, so that the B * Hkv *
+    n_split blocks come to about
     BLOCKS_PER_SM a SM, and to at least ``n_sm`` where those caps allow.
     ``chunk = ceil(S / n)`` cuts S into exactly n ranges: the shortfall
     n * chunk - S is below n <= MAX_SPLITS < MIN_KEYS <= chunk. (More,
@@ -73,9 +88,9 @@ def decode_attention(q, k, v, *, kv_len, scale=None, logit_soft_cap: float = 0.0
     if Sq != 1 or Bk != B or Dk != D or v.shape != k.shape or Hkv == 0 or Hq % Hkv:
         raise ValueError(f"bad shapes q {tuple(q.shape)}, k {tuple(k.shape)}, "
                          f"v {tuple(v.shape)}")
-    if D not in HEAD_DIMS or Hq // Hkv not in GROUPS:
-        raise ValueError(f"decode_attention kernel is built for D in {HEAD_DIMS} and "
-                         f"Hq / Hkv in {GROUPS}, got D={D}, Hq={Hq}, Hkv={Hkv}")
+    if D not in HEAD_DIMS:
+        raise ValueError(f"decode_attention kernel is built for D in {HEAD_DIMS}, "
+                         f"got D={D}")
     if k.dtype != q.dtype or v.dtype != q.dtype:
         raise TypeError("k and v must be in q's dtype")
     for t in (q, k, v):
@@ -88,12 +103,14 @@ def decode_attention(q, k, v, *, kv_len, scale=None, logit_soft_cap: float = 0.0
     if B == 0 or S == 0:
         return out
     scale = scale if scale is not None else 1.0 / math.sqrt(D)
-    n_split, chunk = splits(B, Hkv, S, _sm_count(dev.index))
+    gb = heads_per_block(Hq // Hkv)
+    n_split, chunk = splits(B, Hq // gb, S, _sm_count(dev.index))
     args = _PACK.pack(q.data_ptr(), k.data_ptr(), v.data_ptr(), kv_len.data_ptr(),
-                      out.data_ptr(), B, Hq, Hkv, S, D, n_split, chunk, scale,
+                      out.data_ptr(), B, Hq, Hkv, S, D, n_split, chunk, gb, scale,
                       logit_soft_cap, dtype, _build.raw_stream(dev))
     err = _build.bind("decode_attention", "decode_attention_launch", (ctypes.c_char_p,))(
         args)
-    _build.check(err, f"decode_attention ({n_split} splits of {chunk} keys)")
+    _build.check(err, f"decode_attention ({n_split} splits of {chunk} keys, {gb} query "
+                      "heads a block)")
     launches += 1
     return out

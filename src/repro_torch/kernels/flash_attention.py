@@ -42,7 +42,7 @@ from repro_torch.kernels.ref import mha, mha_chunked
 launches = 0
 launches_bwd = 0
 CHUNK_Q = 512              # the plain version's query chunk past 1024 queries
-HEAD_DIMS = (16, 112, 128)
+HEAD_DIMS = (8, 16, 112, 128, 256)
 
 _ARGS = (ctypes.c_void_p,) * 6 + (ctypes.c_int,) * 6 + (
     ctypes.c_float, ctypes.c_float, ctypes.c_int, ctypes.c_int, ctypes.c_void_p)

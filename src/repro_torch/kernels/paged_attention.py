@@ -1,6 +1,8 @@
 """Paged decode attention over a shared KV page pool: the hand-written
-Hopper kernel (``csrc/attention.cu``, paged addressing) and its plain
-PyTorch version.
+Hopper kernel (``csrc/paged_attention.cuh``, instantiated by
+``csrc/attention.cu`` over pages in q's type and by
+``csrc/attention_quant.cu`` over int8/fp8 codes) and its plain PyTorch
+version.
 
 Replaces the JAX package's Pallas ``kernels/paged_attention.py::
 paged_attention``: the unquantized body ``_paged_kernel`` for pages in
@@ -33,12 +35,12 @@ launches = 0
 launches_quant = 0
 
 KV_CODES = {torch.int8: 2, torch.float8_e4m3fn: 3}
-HEAD_DIMS = (16, 112, 128)
+HEAD_DIMS = (8, 16, 112, 128, 256)
 GROUPS = (1, 2, 4, 6, 8, 48)   # query heads per kv head the kernel takes
 MAX_SPLITS = 8                 # splits of one (slot, kv head): one cluster, 8 blocks at most
 BLOCKS_PER_SM = 2              # the plan aims at least at this many blocks per SM
 
-# csrc/attention.cu's PagedArgs, passed as one block (a ctypes call costs
+# csrc/paged_attention.cuh's PagedArgs, passed as one block (a ctypes call costs
 # per argument): 9 pointers, 11 ints, 2 floats, padding, the stream
 _PACK = struct.Struct("<9Q11i2f4xQ")
 
@@ -109,8 +111,7 @@ def paged_attention(q, k_pages, v_pages, *, block_tables, kv_len, scale=None,
                          f"{tuple(k_pages.shape)} / {tuple(v_pages.shape)}")
     if D not in HEAD_DIMS or Hq // Hkv not in GROUPS:
         raise ValueError(f"paged_attention kernel is built for D in {HEAD_DIMS} and "
-                         f"Hq / Hkv in {GROUPS}, got D={D}, Hq={Hq}, Hkv={Hkv} (other "
-                         "head shapes come with their configs: ROADMAP queue 1 item 2)")
+                         f"Hq / Hkv in {GROUPS}, got D={D}, Hq={Hq}, Hkv={Hkv}")
     quant = k_scales is not None or v_scales is not None
     if v_pages.dtype != k_pages.dtype:
         raise TypeError(f"k pages {k_pages.dtype} and v pages {v_pages.dtype} differ")
@@ -148,7 +149,9 @@ def paged_attention(q, k_pages, v_pages, *, block_tables, kv_len, scale=None,
                       D, page, n_pages, n_split, chunk, gb, _build.dtype_code(q),
                       KV_CODES[k_pages.dtype] if quant else 0, scale, logit_soft_cap,
                       _build.raw_stream(dev))
-    err = _build.bind("attention", "paged_attention_launch", (ctypes.c_char_p,))(args)
+    lib, fn = (("attention_quant", "paged_attention_quant_launch") if quant
+               else ("attention", "paged_attention_launch"))
+    err = _build.bind(lib, fn, (ctypes.c_char_p,))(args)
     _build.check(err, f"paged_attention ({n_split} splits of {chunk} keys, {gb} query "
                       "heads a block)")
     if quant:

@@ -335,12 +335,23 @@ FLASH_SHAPES = [
     (1, 32, 32, 250, 250, 112, True, 0.0),       # zamba2's shared block
     (2, 4, 2, 63, 63, 16, True, 0.0),            # the smoke config's training shape
     (1, 32, 8, 300, 200, 128, True, 0.0),        # causal Skv < Sq
+    (2, 16, 16, 1023, 1023, 256, True, 0.0),     # gemma-7b training: D 256
+    (1, 16, 16, 250, 250, 256, True, 0.0),       # gemma-7b whole-prompt prefill
+    (1, 4, 2, 100, 250, 256, True, 30.0),        # D 256: offset diagonal, cap, G 2
+    (1, 4, 2, 200, 130, 256, True, 0.0),         # D 256: causal Skv < Sq
+    (2, 8, 2, 63, 63, 8, True, 0.0),             # deepseek-67b's smoke: D 8
+    (1, 8, 2, 70, 130, 8, False, 0.0),           # D 8, non-causal
 ]
+
+
+# granite-20b's whole-prompt prefill, G 48: the forward only (no path
+# trains granite; its float32 dK sums 48 heads' terms)
+FLASH_FWD_SHAPES = FLASH_SHAPES + [(1, 48, 1, 250, 250, 128, True, 0.0)]
 
 
 @pytest.mark.cuda
 @pytest.mark.parametrize("dtype", ["float32", "bfloat16"])
-@pytest.mark.parametrize("B,Hq,Hkv,Sq,Skv,D,causal,cap", FLASH_SHAPES)
+@pytest.mark.parametrize("B,Hq,Hkv,Sq,Skv,D,causal,cap", FLASH_FWD_SHAPES)
 def test_flash_attention_matches_plain_on_card(dtype, B, Hq, Hkv, Sq, Skv, D, causal, cap):
     _card()
     dt = getattr(torch, dtype)
@@ -466,6 +477,13 @@ DECODE_CASES = [
     (37, 32, 8, 37, 128, list(range(1, 38)), 0.0),
     (8, 32, 8, 256, 128, [1, 17, 40, 64, 100, 150, 200, 256], 30.0),  # soft cap
     (8, 32, 32, 256, 112, [3, 9, 60, 61, 129, 200, 254, 256], 20.0),
+    (1, 48, 1, 256, 128, [256], 0.0),                              # granite-20b, B=1: G 48
+    (8, 48, 1, 256, 128, [1, 17, 40, 64, 100, 150, 200, 256], 0.0),  # six head groups
+    (1, 16, 16, 256, 256, [256], 0.0),                             # gemma-7b, B=1: D 256
+    (8, 16, 16, 256, 256, [3, 9, 60, 61, 129, 200, 254, 256], 30.0),
+    (2, 16, 2, 64, 256, [1, 64], 0.0),                             # D 256 at G 8
+    (2, 8, 2, 48, 8, [20, 41], 0.0),                               # deepseek-67b's smoke: D 8
+    (3, 12, 4, 48, 16, [5, 30, 48], 0.0),                          # G 3: three blocks of 1
 ]
 
 
@@ -492,7 +510,7 @@ def test_decode_attention_split_matches_plain_on_card(dtype, B, Hq, Hkv, S, D, l
 
 
 @pytest.mark.cuda
-@pytest.mark.parametrize("D", [16, 112, 128])
+@pytest.mark.parametrize("D", [8, 16, 112, 128, 256])
 @pytest.mark.parametrize("Sq,Skv,causal,cap", [
     (200, 200, True, 0.0), (65, 300, True, 0.0), (130, 70, True, 0.0),
     (100, 190, False, 0.0), (129, 129, True, 25.0), (1, 64, True, 0.0)])
@@ -501,7 +519,7 @@ def test_flash_attention_bf16_wgmma_body_matches_plain_on_card(D, Sq, Skv, causa
     tiles of both axes, the offset diagonal both ways, non-causal, cap."""
     _card()
     g = torch.Generator(device="cuda").manual_seed(10)
-    Hq, Hkv = (32, 32) if D == 112 else (32, 8)
+    Hq, Hkv = {112: (32, 32), 256: (16, 16), 8: (8, 2)}.get(D, (32, 8))
     q = torch.randn((2, Hq, Sq, D), generator=g, device="cuda").bfloat16()
     k, v = (torch.randn((2, Hkv, Skv, D), generator=g, device="cuda").bfloat16()
             for _ in "kv")
@@ -589,6 +607,9 @@ PAGED_HEADS = [
     (64, 8, 128),     # deepseek-67b: G 8
     (48, 1, 128),     # granite-20b: G 48
     (32, 32, 112),    # D 112, G 1
+    (16, 16, 256),    # gemma-7b: D 256, G 1
+    (16, 2, 256),     # D 256, G 8
+    (8, 2, 8),        # deepseek-67b's smoke: D 8, G 4
 ]
 
 
@@ -651,9 +672,49 @@ def test_paged_attention_refuses_a_head_shape_it_does_not_take_on_card():
     _card()
     bt = torch.tensor([[1, 2]], dtype=torch.int32, device="cuda")
     before = pa_k.launches
-    for Hq, Hkv, D in ((4, 2, 256), (4, 2, 8), (12, 1, 16)):
+    for Hq, Hkv, D in ((4, 2, 64), (4, 2, 32), (12, 1, 16)):
         q = torch.randn((1, Hq, 1, D), device="cuda")
         pages = torch.randn((3, Hkv, 16, D), device="cuda")
         with pytest.raises(ValueError, match="built for"):
             pa_k.paged_attention(q, pages, pages, block_tables=bt, kv_len=20)
     assert pa_k.launches == before
+
+
+@pytest.mark.cuda
+@pytest.mark.parametrize("arch,kv_dtype", [("gemma-7b", "fp32"), ("granite-20b", "fp32"),
+                                           ("deepseek-67b", "fp32"), ("deepseek-67b", "int8")])
+def test_dense_smoke_configs_serve_on_card_as_on_cpu(arch, kv_dtype):
+    """The other dense configs' smoke models (gemma's D 16 with GeGLU, (1+w)
+    norms and tied embeddings; granite's MQA; deepseek's D 8, also over
+    int8 pages with W4A16 weights) in float32, served on the card through
+    the kernels and on the CPU through the plain versions with the same
+    weights: greedy streams identical through generate() and the paged
+    batcher."""
+    _card()
+    from repro_torch.configs import get_smoke_config
+    from repro_torch.models.common import tree_map
+    from repro_torch.serving import ServingEngine
+    from repro_torch.serving.quantize import quantize_mlp_tree
+
+    cfg = get_smoke_config(arch).replace(vocab_size=300, vocab_pad_to=64,
+                                         compute_dtype="float32")
+    params = ServingEngine(cfg, max_seq=96, device="cuda").params
+    if kv_dtype != "fp32":
+        params = quantize_mlp_tree(params, group_size=64)
+    gpu = ServingEngine(cfg, max_seq=96, device="cuda", params=params, kv_dtype=kv_dtype)
+    cpu = ServingEngine(cfg, max_seq=96, device="cpu", kv_dtype=kv_dtype,
+                        params=tree_map(lambda t: t.cpu(), params))
+    prompts = ["hello world", "a prompt longer than one sixteen-token page, twice over", "x"]
+    before = (dec_k.launches, pa_k.launches + pa_k.launches_quant)
+    try:
+        for p in prompts:
+            assert gpu.generate(p, max_new_tokens=12).tokens == \
+                cpu.generate(p, max_new_tokens=12).tokens
+        hg = [gpu.submit(p, max_new_tokens=12) for p in prompts]
+        hc = [cpu.submit(p, max_new_tokens=12) for p in prompts]
+        for a, c in zip(hg, hc):
+            assert a.result(timeout=300).tokens == c.result(timeout=300).tokens
+    finally:
+        gpu.shutdown()
+        cpu.shutdown()
+    assert dec_k.launches > before[0] and pa_k.launches + pa_k.launches_quant > before[1]

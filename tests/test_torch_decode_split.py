@@ -12,7 +12,7 @@ from hypothesis import strategies as st  # noqa: E402
 
 from repro_torch.kernels import decode_attention as dec  # noqa: E402
 
-GRID_Y = 65535               # the kernel's grid is (n_split, B * Hkv)
+GRID_Y = 65535               # the kernel's grid is (n_split, B * Hkv * head groups)
 
 
 def _check_plan(B, Hkv, S, n_sm):
@@ -52,6 +52,42 @@ def test_split_ranges_tile_the_keys_once_and_fill_the_card(B, Hkv, S, n_sm):
 def test_split_plan_at_the_paths_shapes(B, Hkv, S, n_sm, want):
     assert dec.splits(B, Hkv, S, n_sm) == want
     _check_plan(B, Hkv, S, n_sm)
+
+
+@pytest.mark.parametrize("G", range(1, 65))
+def test_heads_per_block_divides_the_group_and_fits_the_kernel(G):
+    """A block takes 1, 2, 4 or 8 query heads (the kernel's instantiations),
+    a divisor of G: all of G up to 8 where it is one of those."""
+    gb = dec.heads_per_block(G)
+    assert gb in (1, 2, 4, 8) and G % gb == 0
+    if G in (1, 2, 4, 8):
+        assert gb == G
+    assert gb == max(d for d in (1, 2, 4, 8) if G % d == 0)
+
+
+@pytest.mark.parametrize("B,Hq,Hkv,S,want_gb,want", [
+    (1, 48, 1, 256, 8, (8, 32)),      # granite-20b at B=1: six groups of 8, 48 blocks
+    (8, 48, 1, 256, 8, (6, 43)),      # granite-20b at the serving batch
+    (1, 16, 16, 256, 1, (8, 32)),     # gemma-7b at B=1: 128 blocks
+    (1, 64, 8, 256, 8, (8, 32)),      # deepseek-67b at B=1
+    (2, 8, 2, 48, 4, (3, 16)),        # deepseek-67b's smoke (D 8)
+])
+def test_head_groups_and_splits_at_the_new_configs(B, Hq, Hkv, S, want_gb, want):
+    gb = dec.heads_per_block(Hq // Hkv)
+    assert gb == want_gb
+    assert dec.splits(B, Hq // gb, S, 132) == want      # rows: (slot, kv head, head group)
+    _check_plan(B, Hq // gb, S, 132)
+
+
+def test_packed_args_match_the_source():
+    """``_PACK`` is csrc/decode_attention.cu's DecodeArgs: size and format."""
+    import re
+    import struct
+    from pathlib import Path
+    text = (Path(dec.__file__).parent / "csrc" / "decode_attention.cu").read_text()
+    size = int(re.search(r"sizeof\(DecodeArgs\) == (\d+)", text).group(1))
+    assert struct.calcsize(dec._PACK.format) == dec._PACK.size == size
+    assert re.search(r'struct format "([^"]+)"', text).group(1) == dec._PACK.format
 
 
 def test_wrapper_refuses_a_device_it_does_not_take():

@@ -57,6 +57,10 @@ def _close(got, want, atol):
     (1, 4, 2, 32, 48, 16, False, 0.0),       # non-causal
     (1, 4, 1, 32, 32, 16, True, 30.0),       # soft cap, 4 query heads per kv head
     (1, 2, 2, 32, 32, 32, True, 5.0),        # soft cap that bites
+    (1, 2, 2, 32, 32, 256, True, 0.0),       # gemma-7b's D 256, G 1
+    (1, 4, 2, 32, 48, 256, False, 30.0),     # D 256, non-causal, soft cap
+    (1, 8, 2, 32, 32, 8, True, 0.0),         # deepseek-67b's smoke: D 8, G 4
+    (1, 48, 1, 16, 32, 16, True, 0.0),       # granite-20b's G 48 (MQA)
 ])
 def test_plain_matches_pallas_interpret(B, Hq, Hkv, Sq, Skv, D, causal, cap):
     q, k, v = _qkv(Sq + Skv + D, B, Hq, Hkv, Sq, Skv, D)

@@ -33,6 +33,11 @@ CASES = [
     (1, 2, 2, 20, 20, 16, True, 2.0),        # a cap that bites
     (1, 4, 1, 25, 14, 112, True, 30.0),      # D 112, no-key rows under a cap
     (1, 8, 2, 19, 19, 112, False, 0.0),
+    (1, 2, 2, 23, 23, 256, True, 0.0),       # gemma-7b's D 256, G 1
+    (2, 4, 2, 30, 12, 256, True, 30.0),      # D 256, no-key rows under a cap
+    (1, 8, 2, 23, 23, 8, True, 0.0),         # deepseek-67b's smoke: D 8, G 4
+    (1, 4, 1, 17, 29, 8, False, 0.0),        # D 8, non-causal
+    (1, 48, 1, 9, 20, 16, True, 0.0),        # granite-20b's G 48
 ]
 
 

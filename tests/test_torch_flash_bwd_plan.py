@@ -10,10 +10,12 @@ see its keys (the tiles holding rows that see no key first, then the
 others from the last down to the diagonal) for each query head of the kv
 head, forms S and dP once, and produces dV over P in two bf16 pieces (hi
 and lo), dK over dS in two pieces, and dQ's share over dS rounded once to
-bf16. dQ's
-shares of a (query head, query tile) are admitted in ascending key tile
-order, whatever order the units arrive in: the first stores, the others
-add, the last scales.
+bf16. At D = 256 a block is two warpgroups, each forming S and dP over
+all of D and producing 128 of the columns of dV, dK and dQ's share.
+dQ's shares of a (query head, query tile) are admitted in ascending key
+tile order, whatever order the units arrive in: the first stores, the
+others add, the last scales. The share's workspace layout (a thread's
+float4s at i NT + tid) is modelled lane by lane.
 
 Tolerance: the bf16 one of ``chip_smoke.py`` and the card tests, atol
 1e-2 + rtol 1.6e-2, between the model's gradients rounded to bf16 and the
@@ -47,7 +49,19 @@ CASES = [
     (1, 2, 2, 90, 90, 16, True, 2.0),        # a cap that bites
     (1, 2, 1, 90, 150, 112, True, 0.0),      # D 112, G 2
     (1, 4, 1, 80, 50, 112, True, 5.0),       # D 112, no-key rows under a cap, G 4
+    (1, 2, 2, 130, 130, 256, True, 0.0),     # gemma-7b's D 256: two warpgroups, G 1
+    (1, 4, 2, 100, 70, 256, True, 30.0),     # D 256, no-key rows, cap, G 2
+    (1, 4, 1, 130, 130, 8, True, 0.0),       # deepseek-67b's smoke D 8, G 4
+    (1, 2, 1, 90, 150, 8, False, 0.0),       # D 8, non-causal
 ]
+
+
+def warpgroup_columns(D):
+    """The column ranges of dV, dK and dQ that a block's warpgroups own:
+    one warpgroup over the padded width up to 128, two of 128 at 256."""
+    DP = -(-D // 64) * 64
+    W = DP // 2 if DP > 128 else DP
+    return [(c0, min(c0 + W, D)) for c0 in range(0, DP, W) if c0 < D]
 
 
 def _bf(t):
@@ -109,9 +123,12 @@ def plan_bwd(q, k, v, o, lse, do, *, causal, cap, order=None):
                 dp = dO @ V.T
                 ds = torch.where(vis & ~none[:, None],
                                  p * (dp - delta[b, hq, q0:q0 + TILE, None]) * capf, 0.0)
-                dv[b, h, k0:k0 + TILE] += _hilo(p).T @ dO
-                dk[b, h, k0:k0 + TILE] += _hilo(ds).T @ Qt
-                arrivals.append(((b, hq, mt), n, _bf(ds) @ K))
+                share = torch.zeros(Qt.shape[0], D)
+                for c0, c1 in warpgroup_columns(D):   # S and dP over all of D, each
+                    dv[b, h, k0:k0 + TILE, c0:c1] += _hilo(p).T @ dO[:, c0:c1]
+                    dk[b, h, k0:k0 + TILE, c0:c1] += _hilo(ds).T @ Qt[:, c0:c1]
+                    share[:, c0:c1] = _bf(ds) @ K[:, c0:c1]
+                arrivals.append(((b, hq, mt), n, share))
     dq = torch.zeros_like(q)
     for (b, hq, mt), acc in admit(arrivals).items():
         dq[b, hq, mt * TILE:mt * TILE + acc.shape[0]] = scale * acc
@@ -208,3 +225,29 @@ def test_packed_args_match_the_source():
     size = int(re.search(r"sizeof\(BwdArgs\) == (\d+)", text).group(1))
     assert struct.calcsize(fa._BWD_PACK.format) == fa._BWD_PACK.size == size
     assert re.search(r'struct format "([^"]+)"', text).group(1) == fa._BWD_PACK.format
+
+
+@pytest.mark.parametrize("D", [8, 16, 112, 128, 256])
+def test_dq_share_workspace_layout_covers_the_tile_once(D):
+    """dQ's share of a (query head, query tile) leaves the block as 64 x DP
+    floats: thread tid (of NT = 128 or 256) stores its m64nW fragment's
+    floats 4 i .. 4 i + 3 as float4 i NT + tid, and the last key tile
+    reads the sum back at the same places. Every (row, column) of the
+    padded tile is one float of it, and the warpgroups' columns tile D."""
+    DP = -(-D // 64) * 64
+    NWG = 2 if DP > 128 else 1
+    NT, W = 128 * NWG, DP // NWG
+    seen = {}
+    for tid in range(NT):
+        warp, lane = (tid >> 5) & 3, tid & 31
+        col0 = (tid >> 7) * W
+        for f in range(W // 2):                     # the fragment's floats
+            n, h, e = f // 4, (f % 4) // 2, f % 2
+            row = 16 * warp + lane // 4 + 8 * h
+            col = col0 + 8 * n + 2 * (lane % 4) + e
+            at = 4 * ((f // 4) * NT + tid) + f % 4
+            assert at not in seen
+            seen[at] = (row, col)
+    assert sorted(seen) == list(range(64 * DP))
+    assert sorted(seen.values()) == [(r, c) for r in range(64) for c in range(DP)]
+    assert [c for r in warpgroup_columns(D) for c in range(*r)] == list(range(D))

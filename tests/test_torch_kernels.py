@@ -130,6 +130,57 @@ def test_decode_attention_plain_matches_reference_and_pallas(Hq, Hkv, cap):
     close(out, pallas_decode(*jargs, interpret=True, **kw))
 
 
+# the other dense configs' head shapes: gemma-7b's D 256 (16/16), granite-20b's
+# G 48 (48/1), deepseek-67b's smoke D 8 (8/2)
+NEW_HEADS = [(4, 4, 256), (48, 1, 16), (8, 2, 8)]
+
+
+@pytest.mark.parametrize("Hq,Hkv,D", NEW_HEADS)
+def test_decode_attention_plain_matches_reference_and_pallas_at_new_heads(Hq, Hkv, D):
+    rng = np.random.default_rng(5)
+    q = rng.normal(size=(2, Hq, 1, D)).astype(np.float32)
+    k = rng.normal(size=(2, Hkv, 48, D)).astype(np.float32)
+    v = rng.normal(size=(2, Hkv, 48, D)).astype(np.float32)
+    kv_len = np.asarray([17, 48], np.int32)
+    k[0, :, 17:] = 1e6                  # dead cache slots past slot 0's live length
+    out = ref.decode_attention(*(torch.from_numpy(a) for a in (q, k, v)),
+                               kv_len=torch.from_numpy(kv_len))
+    jargs = tuple(jnp.asarray(a) for a in (q, k, v))
+    close(out, jref.decode_attention(*jargs, kv_len=jnp.asarray(kv_len)))
+    close(out, pallas_decode(*jargs, kv_len=jnp.asarray(kv_len), interpret=True))
+
+
+@pytest.mark.parametrize("kv", [None, "int8", "float8_e4m3fn"])
+@pytest.mark.parametrize("Hq,Hkv,D", NEW_HEADS)
+def test_paged_attention_plain_matches_reference_and_pallas_at_new_heads(Hq, Hkv, D, kv):
+    """Pages in q's type and int8 / fp8 codes with float32 scales (1e6 in
+    the trash page, which pads every row's tail)."""
+    rng = np.random.default_rng(6)
+    q, kp, vp, bt = _paged_inputs(rng, Hq=Hq, Hkv=Hkv, D=D)
+    kv_len = np.asarray([1, 37, 96], np.int32)
+    for b, n in enumerate((kv_len + 15) // 16):
+        bt[b, n:] = 0
+    kw = dict(block_tables=jnp.asarray(bt), kv_len=jnp.asarray(kv_len))
+    args = [jnp.asarray(q), jnp.asarray(kp), jnp.asarray(vp)]
+    targs = [torch.from_numpy(q), torch.from_numpy(kp), torch.from_numpy(vp)]
+    tkw = dict(block_tables=torch.from_numpy(bt), kv_len=torch.from_numpy(kv_len))
+    if kv is not None:
+        jdt = getattr(jnp, kv)
+        (kq, ks), (vq, vs) = (jref.quantize_kv(jnp.asarray(x), jdt) for x in (kp, vp))
+        ks, vs = np.array(ks), np.array(vs)
+        ks[0], vs[0] = 1e6, 1e6
+        args[1:] = kq, vq
+        kw.update(k_scales=jnp.asarray(ks), v_scales=jnp.asarray(vs))
+        tdt = getattr(torch, kv)
+        targs[1:] = (torch.from_numpy(np.array(c).view(np.uint8)).view(tdt)
+                     for c in (kq, vq))
+        tkw.update(k_scales=torch.from_numpy(ks), v_scales=torch.from_numpy(vs))
+    out = ref.paged_attention(*targs, **tkw)
+    assert out.shape == (3, Hq, 1, D) and bool(out.isfinite().all())
+    close(out, jref.paged_attention(*args, **kw))
+    close(out, pallas_paged(*args, interpret=True, **kw))
+
+
 def test_chunk_attention_matches_reference_mha():
     rng = np.random.default_rng(4)
     q = rng.normal(size=(1, 4, 5, 16)).astype(np.float32)

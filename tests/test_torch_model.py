@@ -1,7 +1,9 @@
 """Port model (dense TransformerLM) against the JAX package with the
 reference's weights carried over by ``interop.params_from_numpy``:
 chunked prefill and decode logits, contiguous and paged, at the smoke
-config in float32. Tolerance: logits max abs error <= 1e-4.
+configs of the dense family (minitron-8b; gemma-7b with GeGLU, (1+w)
+norms, sqrt(d) embedding scale and tied embeddings; granite-20b's MQA;
+deepseek-67b's D = 8) in float32. Tolerance: logits max abs error <= 1e-4.
 """
 
 import numpy as np
@@ -22,13 +24,14 @@ from repro_torch.serving.pagepool import chunk_plan  # noqa: E402
 ATOL = 1e-4
 KW = dict(vocab_size=300, vocab_pad_to=64, compute_dtype="float32")
 PAGE, MAX_SEQ = 16, 64
+DENSE = ["minitron-8b", "gemma-7b", "granite-20b", "deepseek-67b"]   # family "dense"
 
 
-@pytest.fixture(scope="module")
-def models():
-    jm = ref_build(ref_smoke("minitron-8b").replace(**KW))
+@pytest.fixture(scope="module", params=DENSE)
+def models(request):
+    jm = ref_build(ref_smoke(request.param).replace(**KW))
     jp = jm.init(jax.random.PRNGKey(0))
-    pm = build_model(get_smoke_config("minitron-8b").replace(**KW))
+    pm = build_model(get_smoke_config(request.param).replace(**KW))
     pp = params_from_numpy(jax.tree.map(np.asarray, jp))
     return jm, jp, pm, pp
 
@@ -37,10 +40,11 @@ def close(t, j, atol=ATOL):
     np.testing.assert_allclose(t.numpy(), np.asarray(j), atol=atol, rtol=0)
 
 
-def test_configs_match_reference_field_for_field():
+@pytest.mark.parametrize("arch", DENSE)
+def test_configs_match_reference_field_for_field(arch):
     from repro.configs import get_config as ref_full
-    for port, ref in ((get_config("minitron-8b"), ref_full("minitron-8b")),
-                      (get_smoke_config("minitron-8b"), ref_smoke("minitron-8b"))):
+    for port, ref in ((get_config(arch), ref_full(arch)),
+                      (get_smoke_config(arch), ref_smoke(arch))):
         for f in ref.__dataclass_fields__:
             assert getattr(port, f) == getattr(ref, f), f
     with pytest.raises(NotImplementedError, match="not ported"):
@@ -52,12 +56,10 @@ def test_param_tree_layout_matches_reference(models):
     ref = {path: tuple(a.shape) for path, a in flatten(jax.tree.map(np.asarray, jp))}
     port = {path: d.shape for path, d in flatten(pm.param_defs())}
     assert port == ref
-    p = build_model(get_smoke_config("minitron-8b").replace(
-        param_dtype="bfloat16")).init(seed=3)
+    p = build_model(pm.cfg.replace(param_dtype="bfloat16")).init(seed=3)
     leaves = [t for _, t in flatten(p)]
     assert all(t.dtype == torch.bfloat16 for t in leaves)
-    again = build_model(get_smoke_config("minitron-8b").replace(
-        param_dtype="bfloat16")).init(seed=3)
+    again = build_model(pm.cfg.replace(param_dtype="bfloat16")).init(seed=3)
     assert all(torch.equal(a, b) for (_, a), (_, b) in zip(flatten(p), flatten(again)))
 
 
@@ -153,8 +155,9 @@ def test_paged_prefill_and_decode_match_reference_and_contiguous(models):
 
 def test_pool_dtype_must_equal_compute_dtype(models):
     _, _, pm, pp = models
-    cache = {"k": torch.zeros(2, 4, 2, PAGE, 16, dtype=torch.bfloat16),
-             "v": torch.zeros(2, 4, 2, PAGE, 16, dtype=torch.bfloat16),
+    shape = (pm.cfg.n_layers, 4, pm.cfg.n_kv_heads, PAGE, pm.cfg.head_dim)
+    cache = {"k": torch.zeros(shape, dtype=torch.bfloat16),
+             "v": torch.zeros(shape, dtype=torch.bfloat16),
              "pos": torch.tensor([3], dtype=torch.int32),
              "pos_offset": torch.zeros(1, dtype=torch.int32),
              "block_tables": torch.tensor([[1, 0, 0, 0]], dtype=torch.int32)}

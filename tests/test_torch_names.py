@@ -34,7 +34,7 @@ KW = dict(vocab_size=300, vocab_pad_to=64, compute_dtype="float32")
 def test_list_archs_lists_every_reference_arch():
     assert list_archs() == ref_list_archs()
     with pytest.raises(NotImplementedError):
-        get_config("gemma-7b")
+        get_config("whisper-medium")
 
 
 @pytest.mark.parametrize("kv_dtype", ["fp32", "int8"])

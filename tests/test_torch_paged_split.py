@@ -68,6 +68,21 @@ def test_heads_per_block_divides_each_group_the_kernel_takes(G):
     assert dense == min(G, 8) and quant <= min(G, 4)
 
 
+@pytest.mark.parametrize("src", ["attention.cu", "attention_quant.cu"])
+def test_packed_args_match_the_source(src):
+    """``_PACK`` is csrc/paged_attention.cuh's PagedArgs (size and format),
+    which both entry points take."""
+    import re
+    import struct
+    from pathlib import Path
+    csrc = Path(pa.__file__).parent / "csrc"
+    text = (csrc / "paged_attention.cuh").read_text()
+    size = int(re.search(r"sizeof\(PagedArgs\) == (\d+)", text).group(1))
+    assert struct.calcsize(pa._PACK.format) == pa._PACK.size == size
+    assert re.search(r'struct format "([^"]+)"', text).group(1) == pa._PACK.format
+    assert '#include "paged_attention.cuh"' in (csrc / src).read_text()
+
+
 def test_wrapper_refuses_a_device_it_does_not_take():
     q = torch.zeros(1, 4, 1, 16, device="meta")
     pages = torch.zeros(3, 2, 16, 16, device="meta")
