@@ -30,11 +30,14 @@ Phases, each of which fails the run when it fails:
      streams, through generate() and through the paged batcher: dense with
      unquantized pages, and W4A16 (group 64) over int8 and fp8 pages;
   4. main path: build_system on the card with the HPC tier at the full
-     width of minitron-8b (bf16, 32 layers, random weights from seed 0),
-     four concurrent encrypted stream-hpc requests and one stream-auto
-     request through the OpenAI gateway; every kernel's launch counter,
-     zeroed just before, must grow; then a breakdown of the engine alone
-     and of one B=8 decode step;
+     width of minitron-8b (bf16, 32 layers, random weights from seed 0)
+     and the reference's default local tier, xlstm-125m at its published
+     width (bf16, 256-page stateful prefix pool), four concurrent
+     encrypted stream-hpc requests, one stream-auto and one stream-local
+     request (served by the xLSTM on the card) through the OpenAI
+     gateway; every kernel's launch counter, zeroed just before, must
+     grow; then a breakdown of the engine alone and of one B=8 decode
+     step, and of the xLSTM's B=8 decode step and 16-token prefill piece;
   5. quantized main path: once the dense system is freed, the same with
      int8 KV pages and W4A16 weights (the paper's AWQ HPC tier); the
      counters of awq_matmul, quantized paged attention and rmsnorm,
@@ -53,7 +56,19 @@ Phases, each of which fails the run when it fails:
      check and generate() at B = 1 (decode_attention at their heads), and
      deepseek-67b cut to 16 of its 95 layers over int8 pages with W4A16
      weights (95 bf16 layers cannot exist on the card before they are
-     quantized); every path's peak stays under the card's 80 GB;
+     quantized); every path's peak stays under the card's 80 GB; these
+     paths name their local tier, minitron-8b at smoke size, as before;
+  7b. speculative paths, each once the previous system is freed:
+     build_system(speculative=True, spec_k=4), HPC tier full-width
+     minitron-8b over bf16 pages, (a) beside the xLSTM local tier (the
+     HPC batcher drafts by n-grams, the local one runs plain decode) and
+     (b) beside a local minitron-8b at full width cut to 4 layers, which
+     drafts for the HPC tier (model drafting); the same requests, the
+     SpecStats, a forced-acceptance run on (a) (a draft_hook replays a
+     plain greedy run of the same prompt: a tick must accept all k
+     drafts; where the streams first differ is printed, not asserted)
+     and a breakdown of one B=8, W=5 verify step; rmsnorm and paged
+     attention (a) and decode attention (b, the drafter) must launch;
   8. training path: once the last system is freed, minitron-8b and then
      gemma-7b at full width cut to 4 layers (float32 params, bf16 compute,
      remat) train 6 steps each of the synthetic stream (batch 2 x seq
@@ -62,8 +77,19 @@ Phases, each of which fails the run when it fails:
      falling, the counters of flash_attention, its backward kernel and
      rmsnorm, zeroed just before, must grow;
   9. the training driver (python -m repro_torch.launch.train --smoke
-     --device cuda): 6 steps with a checkpoint every 3, then again to 8,
-     which must resume at step 6 with the data stream where it stopped.
+     --device cuda), for its default arch (xlstm-125m's smoke config) and
+     for --arch minitron-8b side by side: 6 steps with a checkpoint every
+     3, then again to 8, which must resume at step 6 with the data stream
+     where it stopped.
+The kernel phase also holds the new call sites' shapes (rmsnorm at 8 and
+16 rows of xLSTM's 768 and the verify window's 40 rows of 4096,
+awq_matmul at M = 40, decode attention at the drafter's B = 8) and times
+them. The reference phase also serves the small float32 xLSTM on card
+and CPU (generate and the splice batcher with a prefix hit), and runs
+speculative decoding of the small float32 minitron on the card (n-gram,
+model drafter, 100% / 0% / mid-window draft_hook replays; paged over
+float32 pages and over int8 pages with W4A16, and contiguous): every
+stream equals the CPU's plain greedy stream.
 The kernel phase also holds flash_attention against its plain version at
 the training shape (2, 32/8, 1023, 128), the prefill shape, an offset
 (Skv > Sq), a non-causal, a soft-cap, a D = 112 and a causal Skv < Sq
@@ -101,8 +127,9 @@ awq_matmul at deepseek's three W4A16 shapes. The reference phase also
 serves the smoke gemma, granite and deepseek (D = 8; and over int8 pages
 with W4A16) on card and CPU.
 In the kernels JSON, ``launches`` is a kernel's count summed over the
-six serving paths and the two training paths (each zeroed just before
-its path and read just after); ``shapes`` lists the other timed shapes.
+six serving paths, the two speculative paths and the two training paths
+(each zeroed just before its path and read just after); ``shapes`` lists
+the other timed shapes.
 The line before the last is the kernels JSON; the last line is
 {"ok": true, "device": {...}}. Exits nonzero with no result line when
 no CUDA device is present or the port's sources are missing.
@@ -140,6 +167,7 @@ ZAMBA_POOL_PAGES = 32      # ~152 MB of state snapshot per page at full width
 DEEPSEEK_LAYERS = 16
 CARD_BYTES = 80e9          # the H100's device memory: a path's peak stays under it
 B, HQ, HKV, D, PAGE, MAX_SEQ = 8, 32, 8, 128, 16, 256
+SPEC_K = 4                 # the speculative paths' drafts a tick: windows of W = 5
 N_TIMED = 100
 # W4A16 shapes of one decode step's layer (M = B rows): w1 and w3, w2, wo
 AWQ_SHAPES = {"w1/w3": (B, 4096, 16384), "w2": (B, 16384, 4096), "wo": (B, 4096, 4096)}
@@ -735,6 +763,7 @@ def kernel_phase(torch, timer):
 
     flash_phase(torch, timer, rows, randn)
     new_configs_phase(torch, timer, rows, randn, g)
+    spec_shapes_phase(torch, timer, rows, randn, g)
 
     for (name, dname), errs in sorted((k, v) for k, v in rows.items()
                                       if isinstance(k, tuple)):
@@ -941,6 +970,73 @@ def new_configs_phase(torch, timer, rows, randn, g):
                    int4pack_mm(torch, x, qw, sc, zr, 64),
                    qw.numel() * 4 + 2 * sc.numel() * 4 + x.numel() * 2 + M * N * 2,
                    2 * M * K * N, plain_n=20)
+
+
+def spec_shapes_phase(torch, timer, rows, randn, g):
+    """The kernels at this slice's new call sites, against the plain
+    versions in both types and timed in bf16 beside the library yardstick
+    with device times and bounds: rmsnorm at xLSTM-125M's width 768 (a B=8
+    decode step's 8 rows and a 16-token prefill piece) and at the
+    speculative verify window's B x W = 8 x 5 = 40 rows of 4096;
+    awq_matmul at M = 40 (the W4A16 verify window, w1/w3, group 64);
+    decode attention at the model drafter's B = 8 (32/8 heads of 128 over
+    MAX_SEQ positions, ragged)."""
+    import torch.nn.functional as F
+    from repro_torch.kernels import awq_matmul as awq_k
+    from repro_torch.kernels import decode_attention as dec_k
+    from repro_torch.kernels import ref
+    from repro_torch.kernels import rmsnorm as rms_k
+    for rws, width in ((B, 768), (PAGE, 768), (B * (SPEC_K + 1), 4096)):
+        for dname in ("float32", "bfloat16"):
+            dt = getattr(torch, dname)
+            x, w = randn(rws, width, dtype=dt), 1 + 0.1 * randn(width, dtype=dt)
+            rows[("rmsnorm", dname)].append(check_close(
+                f"rmsnorm {rws}x{width}", rms_k.rmsnorm(x, w), rms_k.plain(x, w), dname))
+        time_shape(torch, timer, rows, "rmsnorm", f"{rws}x{width}",
+                   lambda: rms_k.rmsnorm(x, w), lambda: rms_k.plain(x, w),
+                   lambda: F.rms_norm(x, (width,), w, eps=1e-5),
+                   2 * x.numel() * 2 + width * 2, 4 * x.numel())
+    M, K, N = B * (SPEC_K + 1), 4096, 16384
+    qw = ref.awq_pack(torch.randint(0, 16, (K, N), generator=g, device="cuda"))
+    sc = 0.002 * torch.rand((K // 64, N), generator=g, device="cuda")
+    zr = torch.randint(0, 16, (K // 64, N), generator=g, device="cuda").float()
+    for dname in ("float32", "bfloat16"):
+        x = randn(M, K, dtype=getattr(torch, dname))
+        got = awq_k.awq_matmul(x, qw, sc, zr, group_size=64)
+        rows[("awq_matmul", dname)].append(check_close(
+            f"awq_matmul verify window ({M}, {K}, {N}) group 64", got,
+            awq_k.plain(x, qw, sc, zr, group_size=64), dname))
+        if not torch.equal(got, awq_k.awq_matmul(x, qw, sc, zr, group_size=64)):
+            raise AssertionError(f"awq_matmul at M = {M}: two calls differ")
+    time_shape(torch, timer, rows, "awq_matmul",
+               f"verify window w1/w3 ({M}, {K}, {N}) group 64; "
+               f"{awq_k.splits(M, K, N, 64, awq_k._sm_count(0))}; library: tinygemm",
+               lambda: awq_k.awq_matmul(x, qw, sc, zr, group_size=64),
+               lambda: awq_k.plain(x, qw, sc, zr, group_size=64),
+               int4pack_mm(torch, x, qw, sc, zr, 64),
+               qw.numel() * 4 + 2 * sc.numel() * 4 + x.numel() * 2 + M * N * 2,
+               2 * M * K * N, plain_n=20)
+    lens = [20, 41, 64, 100, 128, 200, 255, 256]
+    kl = torch.tensor(lens, dtype=torch.int32, device="cuda")
+    for dname in ("float32", "bfloat16"):
+        dt = getattr(torch, dname)
+        q = randn(B, HQ, 1, D, dtype=dt)
+        k, v = randn(B, HKV, MAX_SEQ, D, dtype=dt), randn(B, HKV, MAX_SEQ, D, dtype=dt)
+        rows[("decode_attention", dname)].append(check_close(
+            "decode_attention drafter B=8 32/8 D=128", dec_k.decode_attention(q, k, v, kv_len=kl),
+            dec_k.plain(q, k, v, kv_len=kl), dname))
+    ke, ve = (t.repeat_interleave(HQ // HKV, dim=1) for t in (k, v))
+    mask = (torch.arange(MAX_SEQ, device="cuda")[None, :] < kl[:, None])[:, None, None, :]
+    gb = dec_k.heads_per_block(HQ // HKV)
+    n_split, chunk = dec_k.splits(B, HQ // gb, MAX_SEQ, dec_k._sm_count(0))
+    time_shape(torch, timer, rows, "decode_attention",
+               f"drafter B={B} {HQ}/{HKV} D={D} S={MAX_SEQ} ragged ({gb} query heads a "
+               f"block, {n_split} splits of {chunk} keys)",
+               lambda: dec_k.decode_attention(q, k, v, kv_len=kl),
+               lambda: dec_k.plain(q, k, v, kv_len=kl),
+               lambda: F.scaled_dot_product_attention(q, ke, ve, attn_mask=mask),
+               2 * q.numel() * 2 + 2 * sum(lens) * HKV * D * 2 + 4 * B,
+               4 * D * HQ * sum(lens))
 
 
 def paged_plan(torch, b, hq, hkv, n_pages, quant):
@@ -1254,6 +1350,123 @@ def reference_phase(torch):
         f"{b.bytes_copied_per_admission():.0f} B copied per admission)")
 
 
+def xlstm_reference_phase(torch):
+    """The small float32 xLSTM (the default local tier's family) on the
+    card (the rmsnorm kernel at its norms) and on the CPU with the same
+    weights: greedy streams identical through generate() and through the
+    contiguous splice batcher with a stateful prefix pool (the repeat is
+    a prefix hit)."""
+    from repro_torch.configs import get_smoke_config
+    from repro_torch.models.common import tree_map
+    from repro_torch.serving import ServingEngine
+
+    cfg = get_smoke_config("xlstm-125m").replace(vocab_size=300, vocab_pad_to=64,
+                                                 compute_dtype="float32")
+    prompts = ["hello world", "a prompt longer than one sixteen-token page, twice over",
+               "x"]
+    gpu = ServingEngine(cfg, max_seq=96, device="cuda")
+    cpu = ServingEngine(cfg, max_seq=96, device="cpu",
+                        params=tree_map(lambda t: t.cpu(), gpu.params))
+    for p in prompts:
+        a, c = gpu.generate(p, max_new_tokens=12).tokens, cpu.generate(p, max_new_tokens=12).tokens
+        if a != c:
+            raise AssertionError(f"xlstm: generate() differs card vs CPU: {a} vs {c}")
+    streams = []
+    for eng in (gpu, cpu):
+        res = [h.result(timeout=300) for h in
+               [eng.submit(p, max_new_tokens=12) for p in prompts]]
+        res.append(eng.submit(prompts[1], max_new_tokens=12).result(timeout=300))
+        streams.append(res)
+    for a, c in zip(*streams):
+        if a.tokens != c.tokens or a.prefix_hit_tokens != c.prefix_hit_tokens:
+            raise AssertionError(f"xlstm: batcher stream differs card vs CPU: "
+                                 f"{a.tokens} vs {c.tokens}")
+    b = gpu.scheduler.batcher
+    if b.paged or not b.pool.stateful or not streams[0][-1].prefix_hit_tokens:
+        raise AssertionError("xlstm: not served by the splice path with a prefix hit")
+    gpu.shutdown()
+    cpu.shutdown()
+    log(f"reference: {len(prompts)} prompts + a prefix hit token-identical card vs CPU "
+        f"(xlstm smoke, float32, generate and the contiguous splice batcher with a "
+        f"stateful pool; {b.bytes_copied_per_admission():.0f} B copied per admission)")
+
+
+def speculative_reference_phase(torch):
+    """Speculative decoding of the small float32 minitron on the card, over
+    float32 pages, over int8 pages with W4A16 weights (both paged) and on
+    the contiguous splice path: n-gram drafts, a model drafter (the smoke
+    gemma, decode_attention in its propose_k), and draft_hook replays of
+    the plain stream at 100% acceptance, with every draft wrong (0%) and
+    with the third draft of each window wrong (mid-window) all give the
+    CPU's plain greedy stream (float32: token identity is exact there)."""
+    from repro_torch.configs import get_smoke_config
+    from repro_torch.models.common import tree_map
+    from repro_torch.serving import ContinuousBatcher, Request, ServingEngine
+    from repro_torch.serving.quantize import quantize_mlp_tree
+
+    kw = dict(vocab_size=300, vocab_pad_to=64, compute_dtype="float32")
+    cfg = get_smoke_config("minitron-8b").replace(**kw)
+    small = get_smoke_config("gemma-7b").replace(**kw)
+    dense = ServingEngine(cfg, max_seq=96, device="cuda").params
+    dparams = ServingEngine(small, max_seq=96, device="cuda", seed=1).params
+    prompt = "speculative parity prompt, speculative parity prompt"
+
+    def run(eng, mode="off", hook=None):
+        eng.speculative = mode
+        cb = ContinuousBatcher(eng, slots=2, max_seq=96, page=16, prefix_pages=24)
+        eng.speculative = "off"
+        if cb.spec_mode != mode:
+            raise AssertionError(f"speculative mode {cb.spec_mode}, asked for {mode}")
+        if hook is not None:
+            cb.draft_hook = hook(cb.spec_k)
+        req = Request(rid="r", prompt_ids=eng.tokenizer.encode(prompt), max_new_tokens=16)
+        cb.submit(req)
+        cb.run_until_drained()
+        return req.output_ids, cb.spec_stats, cb.paged
+
+    def replay(plain, at=None):
+        def make(k):
+            def hook(slot, req):
+                d = list(plain[len(req.output_ids):len(req.output_ids) + k])
+                for i in range(len(d)):
+                    if at == "all" or i == at:
+                        d[i] = (d[i] + 1) % 300
+                return d
+            return hook
+        return make
+
+    for paged, kv_dtype in ((True, "fp32"), (False, "fp32"), (True, "int8")):
+        params = dense if kv_dtype == "fp32" else quantize_mlp_tree(dense, group_size=64)
+        gpu = ServingEngine(cfg, max_seq=96, device="cuda", params=params, paged_kv=paged,
+                            kv_dtype=kv_dtype, drafter_cfg=small, drafter_params=dparams)
+        cpu = ServingEngine(cfg, max_seq=96, device="cpu", paged_kv=paged, kv_dtype=kv_dtype,
+                            params=tree_map(lambda t: t.cpu(), params))
+        plain = run(cpu)[0]
+        out = []
+        for name, mode, hook in (("plain", "off", None), ("ngram", "ngram", None),
+                                 ("model", "model", None),
+                                 ("100%", "ngram", replay(plain)),
+                                 ("0%", "ngram", replay(plain, "all")),
+                                 ("mid-window", "ngram", replay(plain, 2))):
+            toks, st, is_paged = run(gpu, mode, hook)
+            if toks != plain or is_paged != paged:
+                raise AssertionError(f"speculative {name} ({kv_dtype} pages, paged {paged}): "
+                                     f"{toks} vs the CPU's plain {plain}")
+            if name == "100%" and st.acceptance_rate != 1.0:
+                raise AssertionError(f"speculative 100%: {st}")
+            if name == "0%" and st.accepted != 0:
+                raise AssertionError(f"speculative 0%: {st}")
+            if mode != "off" and st.spec_ticks == 0:
+                raise AssertionError(f"speculative {name}: no verify tick")
+            out.append(f"{name} {st.accepted}/{st.proposed} in {st.spec_ticks} verify + "
+                       f"{st.plain_ticks} plain ticks" if mode != "off" else name)
+        log(f"reference: speculative streams token-identical to the CPU's plain stream "
+            f"(minitron smoke, float32, {'paged' if paged else 'contiguous'}, {kv_dtype} "
+            f"pages{', W4A16 group 64' if kv_dtype != 'fp32' else ''}): " + "; ".join(out))
+        gpu.shutdown()
+        cpu.shutdown()
+
+
 def training_reference_phase(torch):
     """The small float32 minitron trains TRAIN_STEPS // 2 steps on the card
     (kernels) and on the CPU (plain versions) from the same weights and
@@ -1468,32 +1681,53 @@ def training_phase(torch, arch):
 
 
 def driver_phase(torch):
-    """The training driver on the card: 6 steps with a checkpoint every 3,
+    """The training driver on the card, for its default arch (the JAX
+    package's, xlstm-125m: its smoke config) and for minitron-8b named
+    explicitly, the two side by side: 6 steps with a checkpoint every 3,
     then again to 8, which must resume at step 6 with the data stream
     where it stopped."""
     import shutil
-    ckpt = ROOT / "build" / "train_ckpt"
-    shutil.rmtree(ckpt, ignore_errors=True)
     env = dict(os.environ, PYTHONPATH=str(ROOT / "src"))
-    outs = []
-    for steps in (6, 8):
-        t0 = time.perf_counter()
-        p = subprocess.run([sys.executable, "-m", "repro_torch.launch.train", "--smoke",
-                            "--device", "cuda", "--steps", str(steps), "--ckpt-every", "3",
-                            "--ckpt-dir", str(ckpt)], cwd=ROOT, env=env,
-                           capture_output=True, text=True, timeout=600)
-        if p.returncode != 0:
-            raise AssertionError(f"launch.train --steps {steps} failed:\n{p.stdout}\n{p.stderr}")
-        outs.append(p.stdout)
-        log(f"driver --steps {steps} ({time.perf_counter() - t0:.1f} s): "
-            + " | ".join(p.stdout.strip().splitlines()))
-    man = json.loads((ckpt / "step_000000008" / "MANIFEST.json").read_text())
-    if ("resumed from checkpoint step 6" not in outs[1] or "resumed" in outs[0]
-            or man["aux"]["data"]["step"] != 8
-            or not (ckpt / "step_000000006" / "MANIFEST.json").exists()):
-        raise AssertionError(f"the driver did not resume at step 6: {outs[1]!r}, "
-                             f"manifest aux {man['aux']}")
-    shutil.rmtree(ckpt, ignore_errors=True)
+    runs = {"xlstm-smoke": [], "minitron-smoke": ["--arch", "minitron-8b"]}
+    errors, logs = [], {}
+
+    def drive(name, extra):
+        ckpt = ROOT / "build" / f"train_ckpt_{name}"
+        shutil.rmtree(ckpt, ignore_errors=True)
+        outs = []
+        for steps in (6, 8):
+            t0 = time.perf_counter()
+            p = subprocess.run([sys.executable, "-m", "repro_torch.launch.train", "--smoke",
+                                "--device", "cuda", "--steps", str(steps), "--ckpt-every",
+                                "3", "--ckpt-dir", str(ckpt), *extra], cwd=ROOT, env=env,
+                               capture_output=True, text=True, timeout=600)
+            if p.returncode != 0:
+                errors.append(f"launch.train {extra} --steps {steps} failed:\n{p.stdout}\n"
+                              f"{p.stderr}")
+                return
+            outs.append(p.stdout)
+            logs.setdefault(name, []).append(
+                f"driver {' '.join(extra) or '(default arch)'} --steps {steps} "
+                f"({time.perf_counter() - t0:.1f} s): "
+                + " | ".join(p.stdout.strip().splitlines()))
+        man = json.loads((ckpt / "step_000000008" / "MANIFEST.json").read_text())
+        if (f"arch={name}" not in outs[0] or "resumed from checkpoint step 6" not in outs[1]
+                or "resumed" in outs[0] or man["aux"]["data"]["step"] != 8
+                or not (ckpt / "step_000000006" / "MANIFEST.json").exists()):
+            errors.append(f"the driver ({name}) did not resume at step 6: {outs[1]!r}, "
+                          f"manifest aux {man['aux']}")
+        shutil.rmtree(ckpt, ignore_errors=True)
+
+    threads = [threading.Thread(target=drive, args=item) for item in runs.items()]
+    for t in threads:
+        t.start()
+    for t in threads:
+        t.join()
+    for lines in logs.values():
+        for line in lines:
+            log(line)
+    if errors:
+        raise AssertionError("\n".join(errors))
 
 
 # ---------------------------------------------------------------- main path
@@ -1523,11 +1757,13 @@ def full_width(arch, **cut):
             "param_dtype": "bfloat16", "compute_dtype": "bfloat16", **cut}
 
 
-def main_path_phase(torch, label, must_launch, hpc_overrides=FULL, **system_kw):
+def main_path_phase(torch, label, must_launch, hpc_overrides=FULL, *, local_arch,
+                    local_request=False, **system_kw):
     """build_system on the card with the full-width HPC tier, then four
     concurrent stream-hpc requests and one stream-auto request through
-    the gateway. Every kernel of ``must_launch``, its counter zeroed
-    just before the path, must have launched."""
+    the gateway (and, with ``local_request``, one stream-local request,
+    which the local tier must serve). Every kernel of ``must_launch``,
+    its counter zeroed just before the path, must have launched."""
     from repro_torch.core import build_system
     from repro_torch.core.sse import parse_sse
     from repro_torch.models.common import flatten
@@ -1537,10 +1773,11 @@ def main_path_phase(torch, label, must_launch, hpc_overrides=FULL, **system_kw):
     t0 = time.perf_counter()
     for mod, attr in counters().values():
         setattr(mod, attr, 0)
-    sys_ = build_system(device="cuda", local_arch="minitron-8b", max_seq=MAX_SEQ,
+    sys_ = build_system(device="cuda", local_arch=local_arch, max_seq=MAX_SEQ,
                         hpc_overrides=hpc_overrides, dispatch_latency_s=0.05, **system_kw)
     torch.cuda.synchronize()
     build_s = time.perf_counter() - t0
+    built = {name: getattr(mod, attr) for name, (mod, attr) in counters().items()}
     build_peak = torch.cuda.max_memory_allocated()
     hpc = sys_.engines["hpc"]
     n_params = sum(t.numel() for _, t in flatten(hpc.params))
@@ -1571,7 +1808,7 @@ def main_path_phase(torch, label, must_launch, hpc_overrides=FULL, **system_kw):
         out[i] = dict(status=resp.status, headers=resp.headers, chunks=chunks,
                       t_sub=t_sub, stamps=stamps)
 
-    results = [None] * 5
+    results = [None] * 6
     threads = [threading.Thread(target=one, args=(
         "stream-hpc", f"Explain request {i} of the dual-channel relay.", results, i))
         for i in range(4)]
@@ -1586,6 +1823,8 @@ def main_path_phase(torch, label, must_launch, hpc_overrides=FULL, **system_kw):
         raise AssertionError("a stream-hpc request failed (traceback above)")
     wall = time.perf_counter() - t_wall
     one("stream-auto", "What is the capital of France?", results, 4)
+    if local_request:
+        one("stream-local", "Say hello to the local tier.", results, 5)
     torch.cuda.synchronize()
     launches = {name: getattr(mod, attr) for name, (mod, attr) in counters().items()}
     peak = torch.cuda.max_memory_allocated()
@@ -1595,12 +1834,16 @@ def main_path_phase(torch, label, must_launch, hpc_overrides=FULL, **system_kw):
 
     ttfts, rates, total_tokens = [], [], 0
     for i, r in enumerate(results):
-        alias = "stream-hpc" if i < 4 else "stream-auto"
+        if r is None:
+            continue
+        alias = "stream-hpc" if i < 4 else "stream-auto" if i == 4 else "stream-local"
         if r["status"] != 200:
             raise AssertionError(f"{alias}: status {r['status']}")
         tier = r["headers"]["x-stream-tier"]
         if i < 4 and tier != "hpc":
             raise AssertionError(f"stream-hpc served by tier {tier!r}")
+        if i == 5 and tier != "local":
+            raise AssertionError(f"stream-local served by tier {tier!r}")
         chunks = r["chunks"]
         usage = chunks[-1].get("usage")
         if not usage or chunks[-1].get("choices") != []:
@@ -1623,12 +1866,27 @@ def main_path_phase(torch, label, must_launch, hpc_overrides=FULL, **system_kw):
         if launches[name] <= 0:
             raise AssertionError(f"{label}: kernel {name} was not launched on the path")
     log(f"{label} launches: {json.dumps(launches)}")
+    during = {name: launches[name] - built[name] for name in launches}
+    log(f"{label} launches while serving the requests (after build and warmup): "
+        f"{json.dumps(during)}")
+    if local_request:
+        local = sys_.engines["local"]
+        lb = local.scheduler.batcher
+        lpool = lb.pool
+        if type(local.model).__name__ != "XLSTMLM" or local.device.type != "cuda":
+            raise AssertionError(f"local tier: {type(local.model).__name__} on {local.device}")
+        log(f"{label} local tier: {local.cfg.name} ({local.cfg.n_layers} layers, d_model "
+            f"{local.cfg.d_model}, vocab {local.cfg.vocab_size}, {local.cfg.param_dtype}) on "
+            f"{local.device}, {'paged' if lb.paged else 'contiguous splice'} path; stateful "
+            f"prefix pool of {lpool.capacity} pages, {lpool._state_bytes / 1e6:.2f} MB of "
+            f"state a page, {lpool.pool_bytes / 1e9:.3f} GB ({lpool.pool_bytes} B); "
+            f"{lb.bytes_copied_per_admission():.0f} B copied per admission")
     ttfts.sort()
     stats = dict(ttft_median_ms=ttfts[len(ttfts) // 2] * 1e3, ttft_max_ms=ttfts[-1] * 1e3,
                  tok_s_session=sum(rates) / len(rates), tok_s_all=total_tokens / wall,
                  wall_s=wall, peak_gib=peak / 2**30, build_peak_gib=build_peak / 2**30,
                  weight_gb=wb["total"] / 1e9, pool_bytes=pool_bytes,
-                 bytes_copied_per_admission=copied)
+                 bytes_copied_per_admission=copied, during=during)
     log(f"{label}: TTFT median {stats['ttft_median_ms']:.1f} ms "
         f"(max {stats['ttft_max_ms']:.1f} ms) over 4 concurrent stream-hpc requests; "
         f"decode {stats['tok_s_session']:.1f} tok/s per session, "
@@ -1714,10 +1972,7 @@ def breakdown_phase(torch, label, sys_):
         f"(wall {wall:.2f} s), TTFT median {ttft[2] * 1e3:.1f} ms, max {ttft[-1] * 1e3:.1f} ms")
 
     b = hpc.scheduler.batcher
-    for e in sys_.engines.values():
-        e.shutdown()
-    sys_.endpoint.shutdown()
-    sys_.gateway.shutdown()
+    stop_system(sys_)
     # a synthetic B=8 step over the (now idle) slots: 40 cached tokens each
     pos = torch.full((b.B,), 40, dtype=torch.int32, device=hpc.device)
     if b.paged:
@@ -1777,6 +2032,175 @@ def breakdown_phase(torch, label, sys_):
     return out
 
 
+def xlstm_breakdown(torch, label, sys_):
+    """The local tier's xLSTM alone at its published width: one B=8 decode
+    step and one 16-token prefill piece (its time loop runs 12 layers x 16
+    steps of small launches), host wall time against device time."""
+    local = sys_.engines["local"]
+    m, p, dev = local.model, local.params, local.device
+    cache = m.init_cache(B, MAX_SEQ, dev)
+    cache["pos"] = torch.full((B,), 40, dtype=torch.int32, device=dev)
+    tok = torch.full((B, 1), 42, dtype=torch.int64, device=dev)
+    what = f"{label} local tier ({local.cfg.name})"
+    step_ms, dev_ms, n_launch, _ = profile_phase(
+        torch, what, f"B={B} decode step at full width", lambda: m.decode_step(p, tok, cache)[0])
+    piece = torch.arange(3, 3 + PAGE, dtype=torch.int64, device=dev)[None]
+    one = m.init_cache(1, MAX_SEQ, dev)
+    piece_ms, pdev_ms, p_launch, _ = profile_phase(
+        torch, what, f"one {PAGE}-token prefill piece at full width",
+        lambda: m.prefill_chunk(p, piece, one)[0])
+    return dict(local_step_ms=step_ms, local_dev_ms=dev_ms, local_n_launch=n_launch,
+                local_piece_ms=piece_ms, local_piece_dev_ms=pdev_ms,
+                local_piece_launch=p_launch)
+
+
+def stop_system(sys_):
+    """Shut a system's engines (their broker threads), endpoint and
+    gateway down."""
+    for e in sys_.engines.values():
+        e.shutdown()
+    sys_.endpoint.shutdown()
+    sys_.gateway.shutdown()
+
+
+def free_system(sys_):
+    """Stop a system and let its weights go."""
+    stop_system(sys_)
+    for e in sys_.engines.values():
+        e.params = None
+        e.drafter = None
+
+
+def forced_acceptance(torch, label, hpc):
+    """On the speculative HPC engine: a plain greedy run of one prompt
+    through its own batcher (a draft_hook that offers nothing makes every
+    tick plain), then the same prompt with a draft_hook that replays that
+    run. At least one verify tick must accept all k drafts; where the two
+    streams first differ is printed (bf16 at full width: verify scores the
+    window over gathered pages, a plain tick through the paged kernel, so
+    a near-tie may flip) and not asserted."""
+    b = hpc.scheduler.batcher
+    k, W = b.spec_k, b.spec_k + 1
+    prompt = "Explain the dual-channel relay of the HPC tier, step by step."
+    b.draft_hook = lambda slot, req: []
+    plain = hpc.submit(prompt, max_new_tokens=32).result(timeout=600).tokens
+    ticks, orig = [], b._verify
+
+    def spy(drafts, lens, rng):
+        packed = orig(drafts, lens, rng)
+        ticks.append([(int(lens[s]), int(packed[s, W + 2])) for s in range(b.B) if lens[s]])
+        return packed
+
+    b._verify = spy
+    b.draft_hook = lambda slot, req: plain[len(req.output_ids):len(req.output_ids) + k]
+    st0 = dict(vars(b.spec_stats))
+    res = hpc.submit(prompt, max_new_tokens=32).result(timeout=600)
+    del b._verify
+    b.draft_hook = None
+    st = {key: v - st0[key] for key, v in vars(b.spec_stats).items()}
+    full = sum(1 for t in ticks if any(n_l == k and n_a == k for n_l, n_a in t))
+    first = next((i for i, (a, c) in enumerate(zip(plain, res.tokens)) if a != c), None)
+    rate = st["accepted"] / max(st["proposed"], 1)
+    log(f"{label} forced acceptance: a draft_hook replays the plain greedy run "
+        f"({len(plain)} tokens): {st['spec_ticks']} verify ticks, {full} accepted all {k} "
+        f"drafts; acceptance {rate:.4f} ({st['accepted']}/{st['proposed']}), "
+        f"{st['emitted'] / max(st['spec_ticks'], 1):.3f} tokens per verify tick; the streams "
+        + ("are identical" if first is None and len(plain) == len(res.tokens) else
+           f"first differ at output position {first}") + f" (lengths {len(plain)}, "
+        f"{len(res.tokens)})")
+    if full < 1:
+        raise AssertionError(f"{label}: no verify tick accepted all {k} replayed drafts")
+    return dict(forced_rate=rate, forced_full_ticks=full,
+                forced_first_diff=-1 if first is None else first)
+
+
+def verify_breakdown(torch, label, hpc):
+    """One B=8, W=5 verify step of the HPC model over the paged pool (40
+    cached tokens a slot, windows in one page): logits finite, the kernel
+    launches of one call counted, host wall time against device time.
+    Overwrites pool pages 1-24: runs after the path's last request."""
+    b = hpc.scheduler.batcher
+    W = b.spec_k + 1
+    dev = hpc.device
+    bt = torch.zeros((b.B, b.n_pages), dtype=torch.int32, device=dev)
+    bt[:, :3] = torch.arange(1, 1 + 3 * b.B, dtype=torch.int32, device=dev).reshape(b.B, 3)
+    cache = {key: b.cache[key] for key in b._pool_keys}
+    cache.update(pos=torch.full((b.B,), 40, dtype=torch.int32, device=dev), block_tables=bt,
+                 pos_offset=torch.zeros(b.B, dtype=torch.int32, device=dev))
+    win = torch.full((b.B, W), 42, dtype=torch.int64, device=dev)
+    before = {name: getattr(mod, attr) for name, (mod, attr) in counters().items()}
+    with torch.inference_mode():
+        logits, _ = hpc.model.verify_chunk(hpc.params, win, cache)
+    torch.cuda.synchronize()
+    per_call = {name: getattr(mod, attr) - before[name]
+                for name, (mod, attr) in counters().items()
+                if getattr(mod, attr) != before[name]}
+    if tuple(logits.shape) != (b.B, W, hpc.cfg.padded_vocab) or not bool(
+            logits.isfinite().all()):
+        raise AssertionError(f"verify logits: shape {tuple(logits.shape)}")
+    step_ms, dev_ms, n_launch, host_ms = profile_phase(
+        torch, label, f"B={b.B} W={W} verify step at full width ({b.pool.kv_dtype} pages)",
+        lambda: hpc.model.verify_chunk(hpc.params, win, cache)[0])
+    log(f"{label} verify step: hand kernels a call {json.dumps(per_call)} (the window's "
+        f"attention is the plain gather + chunk attention, as in the JAX package)")
+    return dict(verify_ms=step_ms, verify_dev_ms=dev_ms, verify_n_launch=n_launch,
+                verify_busy=dev_ms / step_ms, verify_host_ops_ms=host_ms)
+
+
+def speculative_path_phase(torch, label, mode, must_grow, **kw):
+    """build_system(speculative=True, spec_k=SPEC_K) on the card, the main
+    path's requests through the gateway; the HPC batcher must run
+    ``mode`` ("ngram" beside a recurrent local tier, which runs plain
+    decode; "model" beside a dense one). Then (the n-gram path) the
+    forced-acceptance run, whose plain run takes plain ticks: every kernel
+    of ``must_grow`` must have launched after the build and warmup, in the
+    requests or that run, which the path's launches include. Then the
+    verify step's breakdown. Frees the system; returns (launches, stats)."""
+    launches, stats, sys_ = main_path_phase(torch, label, (), speculative=True,
+                                            spec_k=SPEC_K, **kw)
+    at_build = {name: launches[name] - stats["during"][name] for name in launches}
+    hpc = sys_.engines["hpc"]
+    b = hpc.scheduler.batcher
+    lb = sys_.engines["local"]._get_broker().batcher
+    if b.spec_mode != mode or b.spec_k != SPEC_K or (
+            mode == "ngram" and lb.spec_mode != "off"):
+        raise AssertionError(f"{label}: HPC spec_mode {b.spec_mode} (k {b.spec_k}), local "
+                             f"{lb.spec_mode}")
+    top = max(stats["peak_gib"], stats["build_peak_gib"]) * 2**30
+    if top > CARD_BYTES:
+        raise AssertionError(f"{label}: peak {top / 1e9:.2f} GB, over the card's "
+                             f"{CARD_BYTES / 1e9:.0f} GB")
+    st = b.spec_stats
+    stats.update(spec_ticks=st.spec_ticks, plain_ticks=st.plain_ticks, proposed=st.proposed,
+                 accepted=st.accepted, acceptance=st.acceptance_rate,
+                 tokens_per_tick=st.tokens_per_tick)
+    log(f"{label}: HPC spec_mode {b.spec_mode}, local tier {lb.spec_mode} "
+        f"({type(sys_.engines['local'].model).__name__}); SpecStats over the requests: "
+        f"{st.spec_ticks} verify ticks, {st.plain_ticks} plain ticks, {st.proposed} drafts "
+        f"proposed, {st.accepted} accepted (acceptance {st.acceptance_rate:.4f}), "
+        f"{st.tokens_per_tick:.3f} tokens per verify tick")
+    if mode == "ngram":
+        stats.update(forced_acceptance(torch, label, hpc))
+    torch.cuda.synchronize()
+    launches = {name: getattr(mod, attr) for name, (mod, attr) in counters().items()}
+    grew = {name: launches[name] - at_build[name] for name in launches}
+    log(f"{label} launches after build and warmup, requests"
+        f"{' and forced-acceptance run' if mode == 'ngram' else ''}: {json.dumps(grew)}; "
+        f"the path's count (the kernels line's share): {json.dumps(launches)}")
+    for name in must_grow:
+        if grew[name] <= 0:
+            raise AssertionError(f"{label}: {name} did not launch while serving")
+    stats.update(verify_breakdown(torch, label, hpc))
+    held = torch.cuda.memory_allocated()
+    free_system(sys_)
+    del sys_, hpc, b, lb
+    gc.collect()
+    torch.cuda.empty_cache()
+    log(f"{label} system freed: {held / 2**30:.2f} GiB -> "
+        f"{torch.cuda.memory_allocated() / 2**30:.2f} GiB allocated")
+    return launches, stats
+
+
 def main() -> int:
     import torch
     if not torch.cuda.is_available():
@@ -1810,6 +2234,8 @@ def main() -> int:
     timer = Timer(torch)
     rows = kernel_phase(torch, timer)
     reference_phase(torch)
+    xlstm_reference_phase(torch)
+    speculative_reference_phase(torch)
     training_reference_phase(torch)
 
     paths = {}
@@ -1817,23 +2243,34 @@ def main() -> int:
     log(f"deepseek path: deepseek-67b at full width cut to {DEEPSEEK_LAYERS} of its 95 "
         "layers (95 bf16 layers, 134 GB, cannot exist on one card before the W4A16 "
         "quantization)")
+    xlstm = {**full_width("xlstm-125m"), "name": "xlstm-125m"}
+    log(f"dense path: the local tier is the reference's default, xlstm-125m at its "
+        f"published width ({xlstm['n_layers']} layers, d_model {xlstm['d_model']}, "
+        f"vocab {xlstm['vocab_size']}, bf16); the other paths keep minitron-8b at smoke "
+        f"size there, as in earlier runs")
     for label, must, kw in (
-            ("dense", dense_must, {}),
+            ("dense", dense_must, dict(local_arch="xlstm-125m", local_overrides=xlstm,
+                                       local_request=True)),
             ("quantized", ("rmsnorm", "paged_attention_quant", "awq_matmul"),
-             dict(kv_dtype="int8", quantize_mlp=True)),
+             dict(kv_dtype="int8", quantize_mlp=True, local_arch="minitron-8b")),
             ("hybrid", ("ssd", "decode_attention", "rmsnorm"),
              dict(hpc_arch="zamba2-7b", hpc_overrides=ZAMBA_FULL,
-                  prefix_cache_pages=ZAMBA_POOL_PAGES)),
+                  prefix_cache_pages=ZAMBA_POOL_PAGES, local_arch="minitron-8b")),
             ("gemma", dense_must,
-             dict(hpc_arch="gemma-7b", hpc_overrides=full_width("gemma-7b"))),
+             dict(hpc_arch="gemma-7b", hpc_overrides=full_width("gemma-7b"),
+                  local_arch="minitron-8b")),
             ("granite", dense_must,
-             dict(hpc_arch="granite-20b", hpc_overrides=full_width("granite-20b"))),
+             dict(hpc_arch="granite-20b", hpc_overrides=full_width("granite-20b"),
+                  local_arch="minitron-8b")),
             ("deepseek", ("rmsnorm", "paged_attention_quant", "awq_matmul", "decode_attention"),
              dict(hpc_arch="deepseek-67b", kv_dtype="int8", quantize_mlp=True,
-                  hpc_overrides=full_width("deepseek-67b", n_layers=DEEPSEEK_LAYERS)))):
+                  hpc_overrides=full_width("deepseek-67b", n_layers=DEEPSEEK_LAYERS),
+                  local_arch="minitron-8b"))):
         launches, stats, sys_ = main_path_phase(torch, f"{label} path", must, **kw)
         if label in ("dense", "gemma", "granite"):
             prefill_check(torch, sys_.engines["hpc"], label)
+        if label == "dense":
+            stats.update(xlstm_breakdown(torch, f"{label} path", sys_))
         held = torch.cuda.memory_allocated()
         top = max(stats["peak_gib"], stats["build_peak_gib"]) * 2**30
         if top > CARD_BYTES:
@@ -1851,6 +2288,32 @@ def main() -> int:
                                  f"GiB -> {freed / 2**30:.2f} GiB allocated")
         log(f"{label} system freed: {held / 2**30:.2f} GiB -> {freed / 2**30:.2f} GiB "
             f"allocated")
+
+    specs = {"ngram": speculative_path_phase(
+                 torch, "speculative n-gram path", "ngram", ("rmsnorm", "paged_attention"),
+                 local_arch="xlstm-125m", local_overrides=xlstm),
+             "model": speculative_path_phase(
+                 torch, "speculative model-drafting path", "model",
+                 ("rmsnorm", "decode_attention"),
+                 local_arch="minitron-8b", local_overrides={**FULL, "n_layers": 4})}
+    log(f"{card}: speculative paths, HPC tier full-width minitron-8b (bf16 pages), "
+        f"spec_k {SPEC_K}: n-gram drafts beside the xlstm-125m local tier | the local "
+        f"tier's minitron-8b at full width cut to 4 layers drafting; the same 4 + 1 requests")
+    for key, what in (("ttft_median_ms", "TTFT median ms"), ("ttft_max_ms", "TTFT max ms"),
+                      ("tok_s_session", "decode tok/s per session"),
+                      ("tok_s_all", "tok/s over all 4 sessions"),
+                      ("spec_ticks", "verify ticks"), ("plain_ticks", "plain ticks"),
+                      ("proposed", "drafts proposed"), ("accepted", "drafts accepted"),
+                      ("acceptance", "acceptance rate"),
+                      ("tokens_per_tick", "tokens per verify tick"),
+                      ("verify_ms", "B=8 W=5 verify step wall ms"),
+                      ("verify_dev_ms", "B=8 W=5 verify step device ms"),
+                      ("verify_n_launch", "B=8 W=5 verify step device kernels"),
+                      ("verify_busy", "B=8 W=5 verify step device busy share"),
+                      ("peak_gib", "peak device memory while serving GiB"),
+                      ("build_peak_gib", "peak device memory building GiB")):
+        log(f"compare {what:38s} " + "  ".join(
+            f"{label} {stats[key]:14.4f}" for label, (_, stats) in specs.items()))
 
     trains = {arch: training_phase(torch, arch) for arch in ("minitron-8b", "gemma-7b")}
     driver_phase(torch)
@@ -1885,6 +2348,7 @@ def main() -> int:
         kernels.append({"name": name, "route": "cuda", "source": src,
                         "replaces": replaces,
                         "launches": sum(l[name] for l, _ in paths.values())
+                        + sum(l[name] for l, _ in specs.values())
                         + sum(l[name] for l, _ in trains.values()),
                         "max_abs_err": r["max_abs_err"], "ms": r["ms"],
                         "plain_ms": r["plain_ms"], "bound_ms": r["bound_ms"],

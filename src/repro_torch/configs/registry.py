@@ -24,7 +24,7 @@ ARCHS = [
 
 PORTED = {"minitron-8b": "minitron_8b", "zamba2-7b": "zamba2_7b",
           "gemma-7b": "gemma_7b", "granite-20b": "granite_20b",
-          "deepseek-67b": "deepseek_67b"}
+          "deepseek-67b": "deepseek_67b", "xlstm-125m": "xlstm_125m"}
 
 
 def _load(arch: str):

@@ -51,7 +51,7 @@ class StreamSystem:
 
 def build_system(*, relay_enabled: bool = True, encrypt: bool = True,
                  dispatch_latency_s: float = 0.05, cloud_ttft_s: float = 0.03,
-                 judge=None, local_arch: str = "minitron-8b",
+                 judge=None, local_arch: str = "xlstm-125m",
                  hpc_arch: str = "minitron-8b", max_seq: int = 128,
                  summarizer_policies: dict | None = None,
                  hpc_fail: bool = False, cloud_fail: bool = False,
@@ -81,14 +81,17 @@ def build_system(*, relay_enabled: bool = True, encrypt: bool = True,
     Qwen-72B-AWQ HPC tier. Each tier's dense params are built on
     ``device``, quantized once there, and dropped.
 
-    Not ported yet, and refused: ``speculative`` and ``replicas > 1``.
-    The local tier defaults to ``minitron-8b`` at smoke size until xLSTM
-    is ported (the JAX package defaults to ``xlstm-125m``)."""
-    unported = [name for name, on in (
-        ("speculative", speculative), (f"replicas={replicas}", replicas > 1)) if on]
-    if unported:
-        raise NotImplementedError(f"not ported yet: {', '.join(unported)}")
-    del spec_k, fleet_overrides      # kept for the reference's signature
+    ``speculative=True`` turns on speculative decoding per tier, as in
+    the JAX package: the local tier self-drafts with prompt-lookup
+    n-grams, and the HPC tier verifies drafts from the LOCAL tier's model
+    (params and all: the cross-tier pairing) when that model implements
+    ``propose_k``; a recurrent local tier (the default xLSTM) leaves the
+    HPC tier on n-gram drafts. Output tokens are the same either way.
+
+    Not ported yet, and refused: ``replicas > 1`` (the engine fleet)."""
+    if replicas > 1:
+        raise NotImplementedError(f"not ported yet: replicas={replicas}")
+    del fleet_overrides              # kept for the reference's signature
     device = resolve_device(device)
 
     # --- engines (the per-tier model servers) ---
@@ -109,16 +112,25 @@ def build_system(*, relay_enabled: bool = True, encrypt: bool = True,
         return quantize_mlp_tree(build_model(cfg).init(0, device), group_size=64,
                                  in_place=True)
 
+    spec_local = spec_hpc = {}
+    if speculative:
+        spec_local = {"speculative": "ngram", "spec_k": spec_k}
+        spec_hpc = dict(spec_local)
     local_engine = ServingEngine(local_cfg, params=params_for(local_cfg),
                                  max_seq=max_seq, seed=0,
                                  scheduler_slots=scheduler_slots,
                                  prefix_cache_pages=prefix_cache_pages,
-                                 kv_dtype=kv_dtype, device=device)
+                                 kv_dtype=kv_dtype, device=device, **spec_local)
+    if speculative and hasattr(local_engine.model, "propose_k"):
+        # cross-tier: the local tier's model (params and all) drafts for
+        # the HPC tier's verifier
+        spec_hpc = {"drafter_cfg": local_cfg, "drafter_params": local_engine.params,
+                    "spec_k": spec_k}
     hpc_engine = ServingEngine(hpc_cfg, params=params_for(hpc_cfg),
                                max_seq=max_seq, seed=0,
                                scheduler_slots=scheduler_slots,
                                prefix_cache_pages=prefix_cache_pages,
-                               kv_dtype=kv_dtype, device=device)
+                               kv_dtype=kv_dtype, device=device, **spec_hpc)
     local_engine.warmup()
     hpc_engine.warmup()
 

@@ -1,13 +1,14 @@
-"""Training driver: a dense --arch on one device, with checkpoint/restart
-fault tolerance and a resumable data pipeline (the JAX package's
-``launch/train.py``, plus ``--device``).
+"""Training driver: an --arch of the dense or ssm family on one device,
+with checkpoint/restart fault tolerance and a resumable data pipeline
+(the JAX package's ``launch/train.py``, plus ``--device``).
 
   PYTHONPATH=src python -m repro_torch.launch.train --steps 50 --batch 8 \
       --seq 64 --ckpt-dir /tmp/ckpt [--smoke] [--device cpu]
 
 It trains on the CUDA card unless ``--device`` names another device, and
-raises where there is no card. The port trains the dense family only
-(minitron-8b, the default arch here).
+raises where there is no card. The default arch is the JAX package's,
+xlstm-125m (its smoke config under ``--smoke``); the hybrid family does
+not train in the port yet.
 """
 
 from __future__ import annotations
@@ -28,7 +29,7 @@ from repro_torch.training.train import init_train_state
 
 def main(argv=None):
     ap = argparse.ArgumentParser()
-    ap.add_argument("--arch", default="minitron-8b")
+    ap.add_argument("--arch", default="xlstm-125m")
     ap.add_argument("--steps", type=int, default=50)
     ap.add_argument("--batch", type=int, default=8)
     ap.add_argument("--seq", type=int, default=64)

@@ -260,11 +260,41 @@ class LeafLayout:
         return tuple(s)
 
 
+def _is_spec(s) -> bool:
+    return isinstance(s, tuple) and all(isinstance(e, (str, type(None))) for e in s)
+
+
 def cache_layout(specs: dict) -> dict:
-    """cache_specs() -> {key: LeafLayout}."""
-    return {k: LeafLayout(spec.index("batch") if "batch" in spec else -1,
-                          spec.index("kv_seq") if "kv_seq" in spec else -1)
-            for k, spec in specs.items()}
+    """cache_specs() -> {key: LeafLayout}, one entry per leaf. A top-level
+    leaf keeps its name; a leaf of a nested spec tree (xLSTM's
+    ``{"states": {"l0": (spec, ...)}, "pos": ()}``) is keyed by its path
+    tuple, e.g. ``("states", "l0", 1)``. :func:`cache_leaf` reads either."""
+    out = {}
+
+    def walk(node, path):
+        if _is_spec(node):
+            out[path[0] if len(path) == 1 else path] = LeafLayout(
+                node.index("batch") if "batch" in node else -1,
+                node.index("kv_seq") if "kv_seq" in node else -1)
+        elif isinstance(node, dict):
+            for k, v in node.items():
+                walk(v, path + (k,))
+        else:                       # a tuple or list of specs
+            for i, v in enumerate(node):
+                walk(v, path + (i,))
+
+    walk(specs, ())
+    return out
+
+
+def cache_leaf(cache, key):
+    """The leaf of ``cache`` at a :func:`cache_layout` key (a top-level
+    name or a path tuple)."""
+    if not isinstance(key, tuple):
+        return cache[key]
+    for k in key:
+        cache = cache[k]
+    return cache
 
 
 def has_state_leaves(layout: dict) -> bool:

@@ -132,12 +132,15 @@ def update_cache_at(buf, new, idx, axis: int):
     """Write ``new`` into ``buf`` in place at position ``idx`` along
     ``axis``. ``idx`` is an int (the same position for every row) or a
     (B,) tensor (per-slot positions; ``buf`` and ``new`` lead with the
-    batch axis), as the JAX package's ``update_cache_at`` takes it."""
-    n = new.shape[axis]
+    batch axis), as the JAX package's ``update_cache_at`` takes it. A
+    start past ``size - n`` is clamped to it, as ``dynamic_update_slice``
+    clamps (a drafter's steps past the end of its cache)."""
+    n, size = new.shape[axis], buf.shape[axis]
     if not torch.is_tensor(idx):
-        buf.narrow(axis, idx, n).copy_(new)
+        buf.narrow(axis, min(max(idx, 0), size - n), n).copy_(new)
         return buf
-    pos = idx.long()[:, None] + torch.arange(n, device=buf.device)       # (B, n)
+    start = idx.long().clamp(0, size - n)
+    pos = start[:, None] + torch.arange(n, device=buf.device)             # (B, n)
     rows = torch.arange(buf.shape[0], device=buf.device)[:, None]
     buf.movedim(axis, 1)[rows, pos] = new.movedim(axis, 1).to(buf.dtype)
     return buf
@@ -164,6 +167,13 @@ def attention(x, p, cfg: ModelConfig, *, positions, cache=None, cache_index=None
         ``cache_index`` an int): the chunk lies inside one page
         (``chunk_plan``) and is written there; it attends to the gathered
         view of the slot's pages.
+      * paged verify window (``block_tables`` (B, n_pages), S > 1,
+        ``cache_index`` a (B,) tensor): speculative decoding's window of
+        S tokens per slot, which may cross a page. Each (slot, position)
+        is scattered to its own (page id, offset); a position past the
+        slot's mapped pages goes to the trash page 0. It attends to the
+        gathered view of the slot's pages (``chunk_attention``), at
+        per-slot offsets.
       * contiguous decode (S == 1): cache (B, Hkv, S_max, D) written at
         ``cache_index`` -- an int, or a (B,) tensor of per-slot positions
         (the continuous batcher's splice path); ``kv_len`` (B,) int32 is
@@ -174,9 +184,9 @@ def attention(x, p, cfg: ModelConfig, *, positions, cache=None, cache_index=None
 
     A quantized pool arrives as ``(ck, cv, ks, vs)``: int8/fp8 pages and
     their (P, Hkv, page) float32 scales. Both paged modes quantize the
-    new K/V (``ops.quantize_kv``) and write codes and scales in place;
-    decode attends through the quantized kernel, prefill over the
-    gathered, dequantized view.
+    new K/V (``ops.quantize_kv``, one scale per position) and write codes
+    and scales in place; decode attends through the quantized kernel,
+    prefill and the verify window over the gathered, dequantized view.
 
     An unquantized pool or cache must be in the compute dtype: a cast
     here would copy the layer's whole cache on every call.
@@ -243,8 +253,27 @@ def attention(x, p, cfg: ModelConfig, *, positions, cache=None, cache_index=None
                 gv = ops.gather_kv_pages(cv, block_tables)
             out = ops.chunk_attention(q, gk, gv, q_offset=si, kv_len=si + S)
         else:
-            raise NotImplementedError(
-                "paged multi-token windows (speculative verify) are not ported yet")
+            pos = torch.as_tensor(cache_index, device=q.device).reshape(-1).expand(B)
+            spos = pos if pos_offset is None else pos - pos_offset
+            pos2d = spos.long()[:, None] + torch.arange(S, device=q.device)   # (B, S)
+            npg = block_tables.shape[1]
+            valid = (pos2d // page) < npg
+            pid = torch.gather(block_tables, 1, (pos2d // page).clamp(max=npg - 1)).long()
+            pid = torch.where(valid, pid, 0)
+            off = torch.where(valid, pos2d % page, 0)
+            kt, vt = k.transpose(1, 2), v.transpose(1, 2)               # (B, S, Hkv, D)
+            if quant:
+                kvq, kvs = ops.quantize_kv(torch.stack((kt, vt)), ck.dtype)
+                ck[pid, :, off, :], cv[pid, :, off, :] = kvq[0], kvq[1]
+                ks[pid, :, off], vs[pid, :, off] = kvs[0], kvs[1]
+                gk = ops.gather_dequant_kv_pages(ck, ks, block_tables)
+                gv = ops.gather_dequant_kv_pages(cv, vs, block_tables)
+            else:
+                ck[pid, :, off, :] = kt
+                cv[pid, :, off, :] = vt
+                gk = ops.gather_kv_pages(ck, block_tables)
+                gv = ops.gather_kv_pages(cv, block_tables)
+            out = ops.chunk_attention(q, gk, gv, q_offset=spos, kv_len=spos + S)
     elif S == 1:
         update_cache_at(ck, k, cache_index, axis=2)
         update_cache_at(cv, v, cache_index, axis=2)

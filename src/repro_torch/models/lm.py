@@ -162,7 +162,11 @@ class TransformerLM:
         """Prefill continuation: process a prompt chunk starting at
         ``cache["pos"]`` (an int), attending against the already-cached
         prefix. Returns the last position's logits (B, V) and the cache
-        with ``pos`` advanced (K/V written in place)."""
+        with ``pos`` advanced (K/V written in place). The head runs over
+        every row of the chunk, as ``verify_chunk``'s does, so the two
+        give the same bits for the same window (a matmul's summation
+        order may depend on its row count); its cost is the head's
+        weight read either way."""
         B, T = tokens.shape
         start = int(cache["pos"])
         sstart = start - int(cache.get("pos_offset", 0) or 0)
@@ -170,8 +174,47 @@ class TransformerLM:
         positions = torch.arange(sstart, sstart + T, device=tokens.device)
         x = self._run_cached(params, x, positions, cache, cache_index=start,
                              chunked=True)
-        logits = self._head(params, x[:, -1:])[:, 0]
+        logits = self._head(params, x)[:, -1]
         return logits, {**cache, "pos": start + T}
+
+    def verify_chunk(self, params, tokens, cache, extra=None):
+        """Speculative verification (the verifier's side of the
+        ``propose_k``/``verify_chunk`` contract): score a (B, W) window --
+        each slot's last emitted token followed by its draft -- whose
+        first token sits at ``cache["pos"]`` (an int or a (B,) tensor),
+        through the chunked-prefill machinery (contiguous, or the paged
+        verify window). K/V are written at pos .. pos + W - 1 and logits
+        come back for all W positions: (B, W, V).
+
+        ``cache["pos"]`` is NOT advanced: the caller moves it by the
+        number of accepted tokens. Rejected positions need no undo: they
+        sit beyond the new ``pos``, are masked out by ``kv_len`` and are
+        rewritten before ``pos`` reaches them again."""
+        T = tokens.shape[1]
+        start = cache["pos"]
+        sstart = start - cache["pos_offset"] if "pos_offset" in cache else start
+        x = layers.embed(tokens, params["embed"], self.cfg)
+        ar = torch.arange(T, device=tokens.device)
+        positions = sstart[:, None] + ar[None, :] if torch.is_tensor(sstart) else sstart + ar
+        x = self._run_cached(params, x, positions, cache, cache_index=start, chunked=True)
+        return self._head(params, x), {**cache, "pos": start}
+
+    def propose_k(self, params, token, cache, k: int, extra=None):
+        """Speculative drafting (the drafter's side of the contract):
+        greedily decode ``k`` tokens from ``token`` (B, 1), writing K/V
+        for the input token and all k drafts at pos .. pos + k -- one
+        step past the last draft, so a fully accepted window (which
+        advances the caller's pos by k + 1) leaves no hole in the
+        drafter's history. Returns (drafts (B, k), cache with pos
+        advanced by k + 1)."""
+        cfg = self.cfg
+        valid = torch.arange(cfg.padded_vocab, device=token.device) < cfg.vocab_size
+        tok, drafts = token, []
+        for _ in range(k + 1):
+            logits, cache = self.decode_step(params, tok, cache)
+            tok = torch.argmax(torch.where(valid, logits.float(), -1e30), dim=-1)[:, None]
+            drafts.append(tok[:, 0])
+        return torch.stack(drafts[:k], dim=1), cache
 
     def decode_step(self, params, token, cache):
         """One token per slot: ``token`` (B, 1); ``cache["pos"]`` an int

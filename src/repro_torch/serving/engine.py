@@ -17,6 +17,9 @@ the page pool's storage (``pagepool.KV_DTYPES``: int8/fp8 codes with
 f32 scales, or the compute dtype); ``params`` may be a W4A16 tree from
 ``serving.quantize.quantize_mlp_tree``. ``paged_kv=False`` pins the
 batcher to its contiguous splice path (stateful models take it anyway).
+``speculative`` ("off", "ngram" or "model") turns on speculative
+decoding in the batcher; ``drafter_cfg`` registers a drafter model
+(``serving.speculative``), and then "off" becomes "model".
 """
 
 from __future__ import annotations
@@ -36,6 +39,7 @@ from repro_torch.serving.pagepool import SlotSplicer, chunk_plan, kv_storage
 from repro_torch.serving.sampler import (GenerationParams, SamplerConfig,
                                          StopMatcher, sample_slots)
 from repro_torch.serving.scheduler import clip_prompt
+from repro_torch.serving.speculative import DraftModel
 from repro_torch.serving.tokenizer import ByteTokenizer
 
 
@@ -71,7 +75,10 @@ class ServingEngine:
                  max_seq: int = 256, sampler: SamplerConfig | None = None,
                  scheduler_slots: int = 4, prefill_chunk: int = 32,
                  page: int = 16, prefix_cache_pages: int = 256,
-                 paged_kv: bool = True, kv_dtype: str = "fp32", device=None):
+                 paged_kv: bool = True, kv_dtype: str = "fp32",
+                 speculative: str = "off", spec_k: int = 4,
+                 drafter_cfg: ModelConfig | None = None, drafter_params=None,
+                 device=None):
         kv_storage(kv_dtype)            # refuse an unknown one before any work
         self.cfg = cfg
         self.device = resolve_device(device)
@@ -90,6 +97,27 @@ class ServingEngine:
         # False pins it to the contiguous splice path
         self.paged_kv = paged_kv
         self.kv_dtype = kv_dtype
+        # speculative decoding in the batcher: "off", "ngram" (prompt-lookup
+        # self-drafting) or "model" (the drafter registered here: STREAM's
+        # cross-tier pairing). Families without the verify_chunk contract
+        # run plain decode whatever this says (serving/scheduler.py).
+        self.speculative = speculative
+        self.spec_k = spec_k
+        self.drafter = None
+        if drafter_cfg is not None:
+            assert drafter_cfg.vocab_size == cfg.vocab_size, \
+                "drafter and verifier must share a vocabulary"
+            dmodel = build_model(drafter_cfg)
+            if drafter_params is None:
+                # the JAX package draws the drafter from fold_in(rng, 7); the
+                # port cannot reproduce jax.random, so it seeds the drafter's
+                # init with the second word of fold_in(PRNGKey(seed), 7)
+                drafter_params = dmodel.init(prng.fold_in(prng.PRNGKey(seed), 7)[1],
+                                             self.device)
+            self.drafter = DraftModel(model=dmodel, params=drafter_params,
+                                      cfg=drafter_cfg)
+            if speculative == "off":
+                self.speculative = "model"
         self.scheduler_slots = scheduler_slots
         self.prefill_chunk = prefill_chunk
         self._broker = None

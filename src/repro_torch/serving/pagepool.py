@@ -39,7 +39,8 @@ from typing import Callable, Optional
 
 import torch
 
-from repro_torch.models.common import LeafLayout, cache_layout, has_state_leaves
+from repro_torch.models.common import (LeafLayout, cache_layout, cache_leaf,
+                                       has_state_leaves)
 
 TRASH_PAGE = 0
 
@@ -121,7 +122,8 @@ class SlotSplicer:
         for name, lay in self.layout.items():
             if lay.batch_axis < 0:
                 continue
-            src, dst = one[name], cache[name].narrow(lay.batch_axis, slot, 1)
+            src = cache_leaf(one, name)
+            dst = cache_leaf(cache, name).narrow(lay.batch_axis, slot, 1)
             sa = lay.seq_axis
             if sa >= 0 and used < src.shape[sa]:
                 src, dst = src.narrow(sa, 0, used), dst.narrow(sa, 0, used)
@@ -154,7 +156,7 @@ class PagePool:
         self._page_bytes = 0         # device bytes one page spans (paged leaves)
         self._state_bytes = 0        # device bytes one state snapshot spans
         for name, lay in self.layout.items():
-            leaf = template[name] if lay.batch_axis >= 0 else None
+            leaf = cache_leaf(template, name) if lay.batch_axis >= 0 else None
             if lay.paged:
                 shape = lay.pool_shape(leaf.shape, page, capacity + 1)
                 self._paged[name] = torch.zeros(
@@ -255,7 +257,7 @@ class PagePool:
         for name, pool in self._paged.items():
             lay = self.layout[name]
             ba, sa = lay.batch_axis, lay.seq_axis - 1     # seq axis once batch is gone
-            run = cache[name].select(ba, batch_idx).narrow(
+            run = cache_leaf(cache, name).select(ba, batch_idx).narrow(
                 sa, first_page * self.page, n * self.page)
             shape = list(run.shape)
             shape[sa:sa + 1] = [n, self.page]
@@ -270,7 +272,8 @@ class PagePool:
         self._movable()
         self.bytes_copied += self._state_bytes
         for name, snap in self._state.items():
-            snap[pid].copy_(cache[name].select(self.layout[name].batch_axis, batch_idx))
+            snap[pid].copy_(cache_leaf(cache, name).select(self.layout[name].batch_axis,
+                                                           batch_idx))
 
     def load(self, cache: dict, batch_idx: int, page_ids: list, state_pid=None) -> dict:
         """Splice the cached pages ``page_ids`` into slot ``batch_idx`` of a
@@ -288,13 +291,13 @@ class PagePool:
             blocks = pool.movedim(ba, 0)[idx].movedim(0, sa)        # n beside the page axis
             shape = list(blocks.shape)
             shape[sa:sa + 2] = [n * self.page]
-            cache[name].select(ba, batch_idx).narrow(sa, 0, n * self.page).copy_(
+            cache_leaf(cache, name).select(ba, batch_idx).narrow(sa, 0, n * self.page).copy_(
                 blocks.reshape(shape))
         if state_pid is not None:
             self.bytes_copied += self._state_bytes
             for name, snap in self._state.items():
-                cache[name].select(self.layout[name].batch_axis, batch_idx).copy_(
-                    snap[state_pid])
+                cache_leaf(cache, name).select(self.layout[name].batch_axis,
+                                               batch_idx).copy_(snap[state_pid])
         if torch.is_tensor(cache["pos"]):
             cache["pos"][batch_idx] = n * self.page
         else:
@@ -302,4 +305,5 @@ class PagePool:
         return cache
 
     def _device(self):
-        return next(iter(self._paged.values())).device
+        # a recurrent model's pool holds state snapshots and no pages
+        return next(iter((*self._paged.values(), *self._state.values()))).device

@@ -224,3 +224,34 @@ def sample_slots(logits, rng, sc: SamplerConfig, temps, top_ps, seeds, steps):
     keys = torch.from_numpy(np.stack(slot_keys(rng, seeds, steps))).to(dev)
     drawn = prng.categorical(keys[0], keys[1], z)
     return torch.where(torch.as_tensor(temps <= 0.0, device=dev), greedy, drawn)
+
+
+def speculative_accept(logits, drafts, draft_len, rng, sc: SamplerConfig,
+                       temps, top_ps, seeds, steps):
+    """Acceptance step of speculative decoding: the deterministic-stream
+    form of rejection sampling (the JAX package's ``speculative_accept``).
+
+    ``logits`` (B, W, V) are ``verify_chunk`` scores for a window whose
+    first element is each slot's last emitted token; ``drafts`` (B, W-1)
+    the proposed continuations (device), ``draft_len`` (B,) how many of
+    them are real; ``temps``/``top_ps``/``seeds``/``steps`` the per-slot
+    host arrays of :func:`sample_slots`, ``steps`` each slot's stream
+    step for window position 0.
+
+    Window position i draws its TARGET token g_i through the exact
+    ``sample_slots`` call plain decode would make there -- the (seed,
+    step + i) key for seeded slots, ``fold_in(rng, i)`` for the others --
+    and a draft is accepted iff it equals that draw. The emitted tokens
+    are a prefix of g, so speculative output is token-identical to plain
+    decode. Returns ``(g (B, W) int64, n_acc (B,) int64)`` on the device.
+    """
+    B, W, _ = logits.shape
+    steps = np.asarray(steps, np.int64)
+    g = torch.stack([sample_slots(logits[:, i], prng.fold_in(rng, i), sc,
+                                  temps, top_ps, seeds, steps + i)
+                     for i in range(W)], dim=1)
+    dl = torch.as_tensor(draft_len, device=g.device)
+    ok = (drafts.to(g.dtype) == g[:, :-1]) & (
+        torch.arange(W - 1, device=g.device)[None, :] < dl[:, None])
+    n_acc = torch.cumprod(ok.to(torch.int64), dim=1).sum(dim=1)
+    return g, n_acc

@@ -27,8 +27,16 @@ pools), and is spliced into its slot at activation (``SlotSplicer``);
 The pool is then always in the compute dtype: ``kv_dtype`` applies to
 the paged path only, as in the JAX package.
 
-Not ported yet: speculative decoding and rolling windows
-(``WindowPolicy``); the JAX package declines both on the splice path.
+**Speculative decoding** (``engine.speculative``: "ngram" or "model"),
+on both paths: a tick with drafts runs ONE ``verify_chunk`` over a
+(B, W) window (W = spec_k + 1: each slot's last emitted token and its
+draft) and emits the accepted prefix plus the target's correction or
+bonus draw (``sampler.speculative_accept``), still with one packed host
+read. A family without ``verify_chunk`` (the recurrent ones), or a
+"model" mode without a drafter, runs plain decode (``spec_mode ==
+"off"``), as in the JAX package.
+
+Not ported yet: rolling windows (``WindowPolicy``).
 """
 
 from __future__ import annotations
@@ -44,7 +52,9 @@ from repro_torch.models.common import cache_layout, has_state_leaves, round_up
 from repro_torch.serving import prng
 from repro_torch.serving.pagepool import PagePool, SlotSplicer, chunk_plan
 from repro_torch.serving.prefix_cache import PrefixCache, PrefixLease
-from repro_torch.serving.sampler import GenerationParams, StopMatcher, sample_slots
+from repro_torch.serving.sampler import (GenerationParams, StopMatcher, sample_slots,
+                                         speculative_accept)
+from repro_torch.serving.speculative import ModelDrafter, NgramDrafter, SpecStats
 from repro_torch.serving.tokenizer import ByteTokenizer
 
 
@@ -212,19 +222,48 @@ class ContinuousBatcher:
         self.transfers = 0           # packed reads; one per decode tick
         self.adm_transfers = 0       # scalar first-token reads; one per admission
 
+        # ---- speculative decoding (the propose_k / verify_chunk contract):
+        # spec_k is clamped below a page, so a window crosses at most one
+        # page boundary. ``_pos`` mirrors each slot's absolute position
+        # on the host, for the contiguous path's end-of-cache check.
+        spec_mode = getattr(engine, "speculative", "off") or "off"
+        self.spec_k = min(int(getattr(engine, "spec_k", 4)), max(page - 1, 1))
+        draft = getattr(engine, "drafter", None)
+        ok = (spec_mode != "off" and self.spec_k > 0
+              and hasattr(self.model, "verify_chunk"))
+        if spec_mode == "model":
+            ok = ok and draft is not None and hasattr(draft.model, "propose_k")
+        self.spec_mode = spec_mode if ok else "off"
+        self.spec = self.spec_mode != "off"
+        self.spec_stats = SpecStats()
+        # test and benchmark injection point: draft_hook(slot, req) -> the
+        # proposed token ids (forces exact acceptance patterns)
+        self.draft_hook: Optional[Callable[[int, Request], list]] = None
+        self._pos = np.zeros(self.B, np.int64)
+        if self.spec:
+            self._draft_len = np.zeros(self.B, np.int32)
+            self._draft_host = np.zeros((self.B, self.spec_k), np.int64)
+            self._ngram = (NgramDrafter(self.spec_k)
+                           if self.spec_mode == "ngram" else None)
+            self._drafter = (ModelDrafter(draft, self.B, self.max_seq, page=page,
+                                          k=self.spec_k, device=self.device)
+                             if self.spec_mode == "model" else None)
+
     # ------------------------------------------------------------ device steps
-    def _fused(self):
-        """One tick: decode all slots, sample, mask EOS/length per slot.
-        Returns the packed (B, 3) int32 [next, emitted, done] on the host
-        -- the tick's single token transfer. Splits the engine's key once
-        per tick, greedy or not, as the JAX package's scheduler does (host
-        arithmetic only)."""
-        self.engine.rng, rng = prng.split(self.engine.rng)
-        eos, pad = self.tokenizer.eos_id, self.tokenizer.pad_id
+    def _slot_state(self):
+        """The per-slot (active, gen, max_gen) mirrors on the device: one
+        host-to-device copy a tick."""
         state = torch.from_numpy(np.stack(
             [self._active_m.astype(np.int32), self._gen, self._maxgen])).to(
                 self.device, non_blocking=True)
-        run, gen, max_gen = state[0].bool(), state[1], state[2]
+        return state[0].bool(), state[1], state[2]
+
+    def _fused(self, rng):
+        """One tick: decode all slots, sample (``rng``, the tick's key),
+        mask EOS/length per slot. Returns the packed (B, 3) int32 [next,
+        emitted, done] on the host -- the tick's single token transfer."""
+        eos, pad = self.tokenizer.eos_id, self.tokenizer.pad_id
+        run, gen, max_gen = self._slot_state()
         logits, cache = self.model.decode_step(self.engine.params, self.tok,
                                                self.cache)
         nxt = sample_slots(logits, rng, self.engine.sampler,
@@ -244,6 +283,127 @@ class ContinuousBatcher:
         packed = torch.stack([nxt.to(torch.int32), run.to(torch.int32),
                               done_now.to(torch.int32)], dim=1)
         return packed.cpu().numpy()
+
+    def _verify(self, drafts, draft_len, rng):
+        """One speculative tick on the device: score every slot's (B, W)
+        window in one ``verify_chunk``, replay the target's sample stream
+        over it (``speculative_accept``) and emit the accepted prefix
+        plus the correction/bonus draw -- n_acc + 1 tokens a slot,
+        clamped by its budget and cut after the first EOS, as plain
+        decode would have produced them one tick at a time.
+
+        Rollback is position arithmetic: ``pos`` advances by the emitted
+        count only, so rejected window positions lie beyond it, masked by
+        ``kv_len`` and rewritten before ``pos`` reaches them (a paged
+        slot's writes past its mapped pages went to the trash page).
+
+        Returns the packed (B, W + 3) int32 [g_0 .. g_{W-1}, n_emit,
+        done, n_acc] on the host: still one transfer a tick."""
+        eos, pad = self.tokenizer.eos_id, self.tokenizer.pad_id
+        W = self.spec_k + 1
+        run, gen, max_gen = self._slot_state()
+        win = torch.cat([self.tok, drafts.to(self.tok.dtype)], dim=1)       # (B, W)
+        logits, cache = self.model.verify_chunk(self.engine.params, win, self.cache)
+        g, n_acc = speculative_accept(
+            logits, drafts, torch.from_numpy(draft_len).to(self.device),
+            rng, self.engine.sampler, self._temp, self._topp, self._seed, self._gen)
+        # the budget first (>= 1: a running slot always emits its
+        # correction token), then cut after the first EOS of the emission
+        n_emit = torch.minimum(n_acc + 1, (max_gen - gen).clamp(min=1))
+        idx = torch.arange(W, device=g.device)[None, :]
+        eos_hit = (g == eos) & (idx < n_emit[:, None])
+        any_eos = eos_hit.any(dim=1)
+        first_eos = torch.where(any_eos, eos_hit.to(torch.int32).argmax(dim=1), W)
+        n_emit = torch.where(run, torch.minimum(n_emit, first_eos + 1), 0)
+        done_now = run & (any_eos | (gen + n_emit >= max_gen))
+        alive = run & ~done_now
+        # the rollback: pos advances past emitted tokens only; finished
+        # and empty slots park at 0, as in the plain tick
+        cache["pos"] = torch.where(alive, cache["pos"] + n_emit, 0).to(torch.int32)
+        if "pos_offset" in cache:
+            cache["pos_offset"] = torch.where(alive, cache["pos_offset"],
+                                              0).to(torch.int32)
+        last = torch.gather(g, 1, (n_emit - 1).clamp(min=0)[:, None])
+        self.cache = cache
+        self.tok = torch.where(run[:, None], last, pad)
+        out = torch.where(run[:, None], g, pad)
+        packed = torch.cat([out, n_emit[:, None], done_now.to(torch.int64)[:, None],
+                            n_acc[:, None]], dim=1).to(torch.int32)
+        return packed.cpu().numpy()
+
+    def _prepare_drafts(self) -> bool:
+        """Fill the per-slot draft buffers for this tick. False when the
+        tick should run plain decode: nothing drafted anywhere, or (the
+        contiguous path only) an active slot so close to the end of the
+        cache that a W-token window write would clip. Paged slots need no
+        such check: window positions past a slot's mapped pages go to the
+        trash page."""
+        W = self.spec_k + 1
+        self._draft_len[:] = 0
+        any_draft = False
+        for slot, req in enumerate(self.active):
+            if req is None:
+                continue
+            if not self.paged and self._pos[slot] + W > self.max_seq:
+                return False
+            cap = min(self.spec_k, int(self._maxgen[slot]) - int(self._gen[slot]) - 1)
+            if cap <= 0:
+                continue
+            if self.draft_hook is not None:
+                d = list(self.draft_hook(slot, req))[:cap]
+            elif self.spec_mode == "model":
+                # the drafter proposes for the whole batch on the device
+                # (_spec_tick); only the per-slot clamp is decided here
+                self._draft_len[slot] = cap
+                any_draft = True
+                continue
+            else:
+                d = self._ngram.propose((req._kv_ids or []) + req.output_ids)[:cap]
+            if d:
+                self._draft_host[slot, :len(d)] = d
+                self._draft_len[slot] = len(d)
+                any_draft = True
+        return any_draft
+
+    def _spec_tick(self, rng):
+        """One speculative tick (drafts prepared): propose, verify, emit.
+        A slot with ``draft_len == 0`` rides the same window as a plain
+        decode: it emits exactly its one target draw."""
+        W = self.spec_k + 1
+        if self.spec_mode == "model" and self.draft_hook is None:
+            drafts = self._drafter.propose(self.tok, self.cache["pos"])
+        else:
+            drafts = torch.from_numpy(self._draft_host).to(self.device)
+        lens = self._draft_len.copy()
+        packed = self._verify(drafts, lens, rng)
+        self.transfers += 1
+        self.spec_stats.spec_ticks += 1
+        now = time.perf_counter()
+        for slot, req in enumerate(self.active):
+            if req is None:
+                continue
+            n_emit, done, n_acc = (int(v) for v in packed[slot, W:W + 3])
+            self.spec_stats.proposed += int(lens[slot])
+            self.spec_stats.accepted += n_acc
+            self.spec_stats.emitted += n_emit
+            self._pos[slot] += n_emit
+            self._gen[slot] += n_emit
+            stopped = False
+            for j in range(n_emit):
+                t = int(packed[slot, j])
+                req.output_ids.append(t)
+                if req.emit(t, self.tokenizer.decode_token(t)):
+                    # a stop completed mid-window: the later window tokens
+                    # are discarded, as plain decode never produced them
+                    req.finish_reason = "stop"
+                    self._finish(slot)
+                    stopped = True
+                    break
+            if stopped:
+                continue
+            over = req.deadline_s and (now - req.submitted_at) > req.deadline_s
+            if done or over:
+                self._finish(slot, cancelled=bool(over))
 
     def _first(self, logits, adm: _Admission) -> int:
         """Sample an admission's first token from its prefill logits (step 0
@@ -473,6 +633,13 @@ class ContinuousBatcher:
         self._temp[slot] = adm.temp
         self._topp[slot] = adm.top_p
         self._seed[slot] = adm.seed
+        self._pos[slot] = len(adm.ids)
+        if self.spec:
+            self._draft_len[slot] = 0
+            if self._drafter is not None:
+                # the drafter takes the prompt after the first token left
+                # (off the TTFT path); its splice traffic is its own
+                self._drafter.admit(slot, adm.ids)
 
     # ------------------------------------------------------------ tick
     def _finish(self, slot: int, cancelled=False):
@@ -509,6 +676,9 @@ class ContinuousBatcher:
             req.on_done(req)
         self.active[slot] = None
         self._active_m[slot] = False
+        self._pos[slot] = 0
+        if self.spec:
+            self._draft_len[slot] = 0     # the slot re-admits with a clean window
         self._freed = True
 
     def _in_flight(self) -> int:
@@ -551,7 +721,16 @@ class ContinuousBatcher:
             self.cache["block_tables"] = torch.from_numpy(self._bt.copy()).to(
                 self.device, non_blocking=True)
             self._bt_dirty = False
-        packed = self._fused()
+        # one key a tick, split on the host as the JAX package splits it
+        self.engine.rng, rng = prng.split(self.engine.rng)
+        if self.spec and self._prepare_drafts():
+            self._spec_tick(rng)
+            if self._freed and self._adm is None:
+                self._advance_admissions()
+            return self._in_flight()
+        if self.spec:
+            self.spec_stats.plain_ticks += 1
+        packed = self._fused(rng)
         self.transfers += 1
         now = time.perf_counter()
         for slot, req in enumerate(self.active):
@@ -561,6 +740,7 @@ class ContinuousBatcher:
             if emitted:
                 req.output_ids.append(nxt)
                 self._gen[slot] += 1
+                self._pos[slot] += 1
                 if req.emit(nxt, self.tokenizer.decode_token(nxt)):
                     req.finish_reason = "stop"
                     self._finish(slot)

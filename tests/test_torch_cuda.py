@@ -718,3 +718,124 @@ def test_dense_smoke_configs_serve_on_card_as_on_cpu(arch, kv_dtype):
         gpu.shutdown()
         cpu.shutdown()
     assert dec_k.launches > before[0] and pa_k.launches + pa_k.launches_quant > before[1]
+
+
+@pytest.mark.cuda
+def test_xlstm_smoke_serves_on_card_as_on_cpu():
+    """The xLSTM smoke model (the default local tier) in float32 on the card
+    (rmsnorm kernel at its norms) and on the CPU with the same weights:
+    greedy streams identical through generate() and the contiguous splice
+    batcher with a stateful prefix pool (the repeat is a prefix hit)."""
+    _card()
+    from repro_torch.configs import get_smoke_config
+    from repro_torch.models.common import tree_map
+    from repro_torch.serving import ServingEngine
+
+    cfg = get_smoke_config("xlstm-125m").replace(vocab_size=300, vocab_pad_to=64,
+                                                 compute_dtype="float32")
+    gpu = ServingEngine(cfg, max_seq=96, device="cuda")
+    cpu = ServingEngine(cfg, max_seq=96, device="cpu",
+                        params=tree_map(lambda t: t.cpu(), gpu.params))
+    prompts = ["hello world", "a prompt longer than one sixteen-token page, twice over", "x"]
+    before = rms_k.launches
+    try:
+        for p in prompts:
+            assert gpu.generate(p, max_new_tokens=12).tokens == \
+                cpu.generate(p, max_new_tokens=12).tokens
+        outs = []
+        for eng in (gpu, cpu):
+            res = [h.result(timeout=300) for h in
+                   [eng.submit(p, max_new_tokens=12) for p in prompts]]
+            res.append(eng.submit(prompts[1], max_new_tokens=12).result(timeout=300))
+            outs.append(res)
+        for a, c in zip(*outs):
+            assert a.tokens == c.tokens and a.prefix_hit_tokens == c.prefix_hit_tokens
+        assert outs[0][-1].prefix_hit_tokens > 0 and not gpu.scheduler.batcher.paged
+    finally:
+        gpu.shutdown()
+        cpu.shutdown()
+    assert rms_k.launches > before
+
+
+@pytest.mark.cuda
+@pytest.mark.parametrize("paged,kv_dtype", [(True, "fp32"), (False, "fp32"), (True, "int8")],
+                         ids=["paged-fp32", "contig-fp32", "paged-int8-w4a16"])
+def test_speculative_smoke_streams_on_card_as_plain(paged, kv_dtype):
+    """Speculative decoding of the small float32 minitron on the card:
+    n-gram drafts, a model drafter (the smoke gemma; decode_attention in
+    its propose_k) and forced 100% / 0% acceptance through draft_hook all
+    give the plain greedy stream, which equals the CPU's."""
+    _card()
+    from repro_torch.configs import get_smoke_config
+    from repro_torch.models.common import tree_map
+    from repro_torch.serving import ContinuousBatcher, Request, ServingEngine
+    from repro_torch.serving.quantize import quantize_mlp_tree
+
+    kw = dict(vocab_size=300, vocab_pad_to=64, compute_dtype="float32")
+    cfg = get_smoke_config("minitron-8b").replace(**kw)
+    small = get_smoke_config("gemma-7b").replace(**kw)
+    params = ServingEngine(cfg, max_seq=96, device="cuda").params
+    if kv_dtype != "fp32":
+        params = quantize_mlp_tree(params, group_size=64)
+    dparams = ServingEngine(small, max_seq=96, device="cuda", seed=1).params
+
+    def run(eng, mode="off", hook=None):
+        eng.speculative = mode
+        cb = ContinuousBatcher(eng, slots=2, max_seq=96, page=16, prefix_pages=24)
+        eng.speculative = "off"
+        assert cb.spec_mode == mode and cb.paged == paged
+        if hook is not None:
+            cb.draft_hook = hook(cb.spec_k)
+        req = Request(rid="r", prompt_ids=eng.tokenizer.encode("speculative parity prompt"),
+                      max_new_tokens=16)
+        cb.submit(req)
+        cb.run_until_drained()
+        return req.output_ids, cb.spec_stats
+
+    gpu = ServingEngine(cfg, max_seq=96, device="cuda", params=params, paged_kv=paged,
+                        kv_dtype=kv_dtype, drafter_cfg=small, drafter_params=dparams)
+    cpu = ServingEngine(cfg, max_seq=96, device="cpu", paged_kv=paged, kv_dtype=kv_dtype,
+                        params=tree_map(lambda t: t.cpu(), params))
+    plain, _ = run(cpu)
+    assert run(gpu)[0] == plain
+    before = dec_k.launches
+    got, st = run(gpu, "model")
+    assert got == plain and st.spec_ticks > 0 and dec_k.launches > before
+    assert run(gpu, "ngram")[0] == plain
+    full = lambda k: lambda slot, req: plain[len(req.output_ids):len(req.output_ids) + k]
+    zero = lambda k: lambda slot, req: [(t + 1) % 300 for t in full(k)(slot, req)]
+    got, st = run(gpu, "ngram", full)
+    assert got == plain and st.acceptance_rate == 1.0 and st.tokens_per_tick > 4
+    got, st = run(gpu, "ngram", zero)
+    assert got == plain and st.accepted == 0
+
+
+@pytest.mark.cuda
+@pytest.mark.parametrize("dtype", ["float32", "bfloat16"])
+def test_new_call_site_shapes_on_card(dtype):
+    """The kernels at this slice's new shapes: rmsnorm at xLSTM's width 768
+    (8 and 16 rows) and the verify window's 40 rows of 4096; awq_matmul
+    at M = 40 (group 64); decode attention at the drafter's B = 8, 32/8
+    heads of 128 over 256 positions."""
+    _card()
+    dt = getattr(torch, dtype)
+    atol, rtol = _tol(dtype)
+    g = torch.Generator(device="cuda").manual_seed(3)
+
+    def rn(*s):
+        return torch.randn(s, generator=g, device="cuda").to(dt)
+
+    for rows, width in ((8, 768), (16, 768), (40, 4096)):
+        x, w = rn(rows, width), 1 + 0.1 * rn(width)
+        torch.testing.assert_close(rms_k.rmsnorm(x, w), rms_k.plain(x, w), atol=atol, rtol=rtol)
+    K, N = 4096, 16384
+    qw = ref.awq_pack(torch.randint(0, 16, (K, N), generator=g, device="cuda"))
+    sc = 0.002 * torch.rand((K // 64, N), generator=g, device="cuda")
+    zr = torch.randint(0, 16, (K // 64, N), generator=g, device="cuda").float()
+    x = rn(40, K)
+    torch.testing.assert_close(awq_k.awq_matmul(x, qw, sc, zr, group_size=64),
+                               awq_k.plain(x, qw, sc, zr, group_size=64), atol=atol, rtol=rtol)
+    q, k, v = rn(8, 32, 1, 128), rn(8, 8, 256, 128), rn(8, 8, 256, 128)
+    kl = torch.tensor([20, 41, 64, 100, 128, 200, 255, 256], dtype=torch.int32, device="cuda")
+    torch.testing.assert_close(dec_k.decode_attention(q, k, v, kv_len=kl),
+                               dec_k.plain(q, k, v, kv_len=kl), atol=atol, rtol=rtol)

@@ -46,6 +46,8 @@ def test_importing_the_port_loads_no_jax():
             "repro_torch.kernels.paged_attention, repro_torch.kernels.decode_attention, "
             "repro_torch.kernels.awq_matmul, repro_torch.kernels.ssm_scan, "
             "repro_torch.models.ssm, repro_torch.configs.zamba2_7b, "
+            "repro_torch.models.xlstm, repro_torch.configs.xlstm_125m, "
+            "repro_torch.serving.speculative, "
             "repro_torch.serving.quantize, "
             "repro_torch.serving.prng, repro_torch.launch.serve, "
             "repro_torch.training, repro_torch.kernels.flash_attention, "

@@ -72,7 +72,7 @@ def test_one_packed_transfer_per_tick(engines):
     cb = ContinuousBatcher(port, slots=3, max_seq=96, prefix_pages=32)
     ticks = []
     fused = cb._fused
-    cb._fused = lambda: ticks.append(1) or fused()
+    cb._fused = lambda *a: ticks.append(1) or fused(*a)
     done = []
     for i, p in enumerate(PROMPTS[:3]):
         cb.submit(Request(rid=str(i), prompt_ids=port.tokenizer.encode(p),
@@ -133,8 +133,9 @@ def test_unported_paths_refuse(engines):
     """Unaligned max_seq and prefix_pages=0 take the contiguous splice
     path (tests/test_torch_contiguous.py), and the whole-prompt prefill
     branch runs (through flash_attention; held against the reference in
-    tests/test_torch_flash.py); what is still unported -- the paged
-    verify window of speculative decoding -- refuses."""
+    tests/test_torch_flash.py), and so does the paged verify window of
+    speculative decoding (held against the reference in
+    tests/test_torch_speculative.py); an unknown kv_dtype refuses."""
     _, port = engines
     assert not ContinuousBatcher(port, slots=2, max_seq=90, prefix_pages=32).paged
     assert not ContinuousBatcher(port, slots=2, max_seq=96, prefix_pages=0).paged
@@ -148,10 +149,12 @@ def test_unported_paths_refuse(engines):
     assert y.shape == x.shape and bool(y.isfinite().all())
     assert bool((ck[:, :, :4] != 0).any()) and not bool(ck[:, :, 4:].any())
     pages = torch.zeros((3, cfg.n_kv_heads, 16, cfg.head_dim))
-    with pytest.raises(NotImplementedError, match="speculative verify"):
-        layers.attention(x, attn, cfg, positions=torch.arange(4), cache=(pages, pages),
+    kp, vp = pages.clone(), pages.clone()
+    y = layers.attention(x, attn, cfg, positions=torch.arange(4)[None], cache=(kp, vp),
                          cache_index=torch.zeros(1, dtype=torch.int32),
                          block_tables=torch.ones((1, 2), dtype=torch.int32))
+    assert y.shape == x.shape and bool(y.isfinite().all())
+    assert bool(kp[1, :, :4].any()) and not bool(kp[1, :, 4:].any()) and not kp[2].any()
     with pytest.raises(ValueError, match="kv_dtype must be one of"):
         ContinuousBatcher(ServingEngine(port.cfg, params=port.params, max_seq=96,
                                         device="cpu", kv_dtype="int4"), slots=2)

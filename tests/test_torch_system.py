@@ -119,9 +119,8 @@ def test_relay_never_sees_plaintext(systems, monkeypatch):
 
 
 def test_unported_options_refuse():
-    for kw in ({"speculative": True}, {"replicas": 2}):
-        with pytest.raises(NotImplementedError, match="not ported"):
-            build_system(device="cpu", **kw)
+    with pytest.raises(NotImplementedError, match="not ported"):
+        build_system(device="cpu", replicas=2)
     with pytest.raises(ValueError, match="kv_dtype must be one of"):
         build_system(device="cpu", kv_dtype="int4")
 

@@ -278,8 +278,8 @@ def test_resume_is_exact(models, tmp_path):
 
 # ---------------------------------------------------------------- driver
 def test_driver_trains_checkpoints_and_resumes_on_cpu(tmp_path, capsys):
-    argv = ["--device", "cpu", "--smoke", "--batch", "2", "--seq", "16",
-            "--ckpt-dir", str(tmp_path), "--ckpt-every", "2"]
+    argv = ["--device", "cpu", "--smoke", "--arch", "minitron-8b", "--batch", "2",
+            "--seq", "16", "--ckpt-dir", str(tmp_path), "--ckpt-every", "2"]
     train_driver.main(argv + ["--steps", "3"])
     first = capsys.readouterr().out
     train_driver.main(argv + ["--steps", "4"])
