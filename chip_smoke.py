@@ -69,6 +69,26 @@ Phases, each of which fails the run when it fails:
      drafts; where the streams first differ is printed, not asserted)
      and a breakdown of one B=8, W=5 verify step; rmsnorm and paged
      attention (a) and decode attention (b, the drafter) must launch;
+  7c. rolling windows, inside the dense and the quantized paths (before
+     their breakdowns free the weights): a second ServingEngine on the
+     HPC tier's params under WindowPolicy(sink 1, window 12, roll 4: a cap
+     of 14 pages), 8 concurrent sessions of 300-token prompts (they roll
+     while they prefill) and 1024 new tokens (512 quantized) through
+     submit; every session must roll, the pool's high-water stay at or
+     under 8 x cap_pages and the spans reach the summarizer; decode tok/s
+     of the last quarter against the first; then a batcher driven tick by
+     tick (a B=8 tick with a roll against one without, wall and device)
+     and one _shift_pages call's device time and kernels beside its byte
+     bound; rmsnorm and paged attention (the quantized body, and
+     awq_matmul, on the quantized path), zeroed just before, must launch;
+  7d. desktop fleet, once the speculative paths are freed:
+     build_desktop_system(replicas=2) with the xlstm-125m local tier at
+     its published width on two replicas sharing the card and the params
+     (the HPC tier the smoke minitron): stream-local chats through the
+     gateway (x-stream-replica, fleet meta, one SQLite row a request), a
+     replica killed mid-stream, greedy and seeded (the failed-over stream
+     must equal an unkilled run), and 16 concurrent sessions on two
+     replicas against one; rmsnorm must launch;
   8. training path: once the last system is freed, minitron-8b and then
      gemma-7b at full width cut to 4 layers (float32 params, bf16 compute,
      remat) train 6 steps each of the synthetic stream (batch 2 x seq
@@ -89,7 +109,10 @@ and CPU (generate and the splice batcher with a prefix hit), and runs
 speculative decoding of the small float32 minitron on the card (n-gram,
 model drafter, 100% / 0% / mid-window draft_hook replays; paged over
 float32 pages and over int8 pages with W4A16, and contiguous): every
-stream equals the CPU's plain greedy stream.
+stream equals the CPU's plain greedy stream; and rolling windows of the
+small float32 minitron (float32 pages, int8 pages with W4A16): greedy
+and seeded streams, roll counts, high-water and summarizer spans equal
+on card and CPU, and n-gram speculation under the window equals plain.
 The kernel phase also holds flash_attention against its plain version at
 the training shape (2, 32/8, 1023, 128), the prefill shape, an offset
 (Skv > Sq), a non-causal, a soft-cap, a D = 112 and a causal Skv < Sq
@@ -127,8 +150,9 @@ awq_matmul at deepseek's three W4A16 shapes. The reference phase also
 serves the smoke gemma, granite and deepseek (D = 8; and over int8 pages
 with W4A16) on card and CPU.
 In the kernels JSON, ``launches`` is a kernel's count summed over the
-six serving paths, the two speculative paths and the two training paths
-(each zeroed just before its path and read just after); ``shapes`` lists
+six serving paths, the two speculative paths, the two rolling paths, the
+desktop fleet and the two training paths (each zeroed just before its
+path and read just after); ``shapes`` lists
 the other timed shapes.
 The line before the last is the kernels JSON; the last line is
 {"ok": true, "device": {...}}. Exits nonzero with no result line when
@@ -234,6 +258,17 @@ TRAIN_OC = dict(lr=2e-5, warmup_steps=5, decay_steps=10)
 # about lr * dg / (sqrt(vh) + eps) (tests/test_torch_training.py)
 TRAIN_LOSS_ATOL, TRAIN_PARAM_ATOL, TRAIN_G_TOL = 1e-4, 1e-5, 1e-6
 PREFILL_E2E_REL = 0.05     # end-to-end prefill vs chunked: share of max |logit|
+# rolling windows on the full-width HPC tier: 1 sink + 12 rolling pages + 1
+# spare = a cap of 14 pages (224 tokens) a slot, 4 pages (64 tokens) a roll;
+# 8 concurrent sessions of ~300-token prompts (they roll while they
+# prefill) and 1024 new tokens each, about 6 windows; the quantized path
+# takes half the tokens
+WINDOW = dict(sink_pages=1, window_pages=12, roll_pages=4)
+ROLL_SESSIONS, ROLL_PROMPT, ROLL_NEW = 8, 300, 1024
+ROLL_TICKS = 140           # the per-tick measurement's tokens a session: 2 roll ticks
+# the desktop fleet: two replicas of the local tier on the one card, 16
+# concurrent sessions against one replica's share
+FLEET_SESSIONS, FLEET_TOKENS = 16, 64
 
 
 def log(*a):
@@ -1730,6 +1765,360 @@ def driver_phase(torch):
         raise AssertionError("\n".join(errors))
 
 
+def rolling_reference_phase(torch):
+    """Rolling windows of the small float32 minitron on the card against
+    the CPU with the same weights: a greedy prompt that rolls while it
+    prefills and a seeded one that rolls while it decodes give the same
+    tokens, roll counts, pool high-water and spans handed to the
+    summarizer, over float32 pages and over int8 pages with W4A16
+    weights; and speculative n-gram decoding under the window equals
+    plain decoding under it, on the card."""
+    from repro_torch.configs import get_smoke_config
+    from repro_torch.models.common import tree_map
+    from repro_torch.serving import (ContinuousBatcher, GenerationParams, Request,
+                                     ServingEngine, WindowPolicy)
+    from repro_torch.serving.quantize import quantize_mlp_tree
+
+    cfg = get_smoke_config("minitron-8b").replace(vocab_size=300, vocab_pad_to=64,
+                                                  compute_dtype="float32")
+    pol = WindowPolicy(sink_pages=1, window_pages=2, roll_pages=1)
+    dense = ServingEngine(cfg, max_seq=96, device="cuda").params
+    seeded = GenerationParams(max_tokens=70, temperature=0.9, seed=7)
+
+    def serve(eng, spec="off"):
+        spans = []
+        submit = eng.span_summarizer.submit
+        eng.span_summarizer.submit = lambda rid, ids, f=submit: (
+            spans.append((rid, list(ids))), f(rid, ids))
+        eng.speculative = spec
+        cb = ContinuousBatcher(eng, slots=2, max_seq=96, prefix_pages=24)
+        eng.speculative = "off"
+        if cb.window is not pol or cb.spec_mode != spec:
+            raise AssertionError(f"rolling reference: window {cb.window}, spec {cb.spec_mode}")
+        done = {}
+        for rid, ids, gp in (("greedy", list(range(2, 102)), None),
+                             ("seeded", eng.tokenizer.encode("rolling on the card"), seeded)):
+            cb.submit(Request(rid=rid, prompt_ids=ids, max_new_tokens=70, params=gp,
+                              on_done=lambda r: done.update(
+                                  {r.rid: (list(r.output_ids), r._rolls)})))
+        cb.run_until_drained()
+        eng.span_summarizer.submit = submit
+        return done, cb.rolls, cb.pool_stats().high_water, sorted(spans), cb.spec_stats
+
+    for kv_dtype in ("fp32", "int8"):
+        params = dense if kv_dtype == "fp32" else quantize_mlp_tree(dense, group_size=64)
+        gpu = ServingEngine(cfg, max_seq=96, device="cuda", params=params, kv_dtype=kv_dtype,
+                            window_policy=pol)
+        cpu = ServingEngine(cfg, max_seq=96, device="cpu", kv_dtype=kv_dtype,
+                            window_policy=pol, params=tree_map(lambda t: t.cpu(), params))
+        card, host = serve(gpu), serve(cpu)
+        if card[:4] != host[:4]:
+            raise AssertionError(f"rolling {kv_dtype}: card {card[:3]} vs CPU {host[:3]}")
+        done, rolls, hw, spans, _ = card
+        if done["greedy"][1] < 3 or done["seeded"][1] < 2 or hw > 2 * pol.cap_pages:
+            raise AssertionError(f"rolling {kv_dtype}: rolls {rolls}, high-water {hw}")
+        spec = serve(gpu, "ngram")
+        if spec[0] != done or spec[4].spec_ticks == 0:
+            raise AssertionError(f"rolling {kv_dtype}: speculation under the window "
+                                 f"differs from plain: {spec[0]} vs {done}")
+        gpu.shutdown()
+        cpu.shutdown()
+        log(f"reference: rolling windows (minitron smoke, float32, {kv_dtype} pages"
+            f"{', W4A16 group 64' if kv_dtype != 'fp32' else ''}, cap {pol.cap_pages} pages): "
+            f"greedy and seeded streams token-identical card vs CPU with {rolls} rolls "
+            f"({done['greedy'][1]} + {done['seeded'][1]}), high-water {hw} pages and "
+            f"{len(spans)} spans to the summarizer the same on both; n-gram speculation "
+            f"under the window ({spec[4].spec_ticks} verify ticks, {spec[4].accepted}/"
+            f"{spec[4].proposed} accepted) gives the plain streams")
+
+
+def one_call_device(torch, fn):
+    """Device time (ms) and kernel count of ONE call of ``fn``, under the
+    profiler (a call that cannot be repeated as it was: a tick that
+    rolls)."""
+    from torch.profiler import ProfilerActivity, profile
+    torch.cuda.synchronize()
+    with profile(activities=[ProfilerActivity.CUDA]) as prof:
+        fn()
+        torch.cuda.synchronize()
+    evs = [e for e in prof.key_averages() if getattr(e, "self_device_time_total", 0) > 0]
+    return sum(e.self_device_time_total for e in evs) / 1e3, sum(e.count for e in evs)
+
+
+def rolling_path_phase(torch, label, hpc, n_new, must_launch):
+    """Rolling windows on the full-width HPC tier: a second ServingEngine
+    on the built engine's params (no second init) with
+    WindowPolicy(**WINDOW), ROLL_SESSIONS concurrent sessions of
+    ROLL_PROMPT-token prompts and ``n_new`` new tokens through
+    ServingEngine.submit. Every session must roll and the pool's
+    high-water stay at or under ROLL_SESSIONS x cap_pages; every kernel
+    of ``must_launch``, its counter zeroed just before, must launch. Then
+    a batcher driven tick by tick: wall and device time of a B=8 tick
+    with a roll and one without, and one _shift_pages call's device time
+    and kernels beside its byte bound. Returns (launches, stats)."""
+    from repro_torch.serving import ContinuousBatcher, Request, ServingEngine, WindowPolicy
+
+    pol = WindowPolicy(**WINDOW)
+    cap = pol.cap_pages
+    eng = ServingEngine(hpc.cfg, params=hpc.params, device=hpc.device, max_seq=MAX_SEQ,
+                        page=PAGE, scheduler_slots=ROLL_SESSIONS, kv_dtype=hpc.kv_dtype,
+                        prefix_cache_pages=ROLL_SESSIONS * cap + 2 * PAGE,
+                        window_policy=pol)
+    prompts = [[(i * 37 + j * 11) % 250 + 3 for j in range(ROLL_PROMPT)]
+               for i in range(ROLL_SESSIONS)]
+    torch.cuda.synchronize()
+    for mod, attr in counters().values():
+        setattr(mod, attr, 0)
+    stamps = [[] for _ in prompts]
+    t0 = time.perf_counter()
+    handles = [eng.submit(p, max_new_tokens=n_new,
+                          on_token=lambda t, s, st=stamps[i]: st.append(time.perf_counter()))
+               for i, p in enumerate(prompts)]
+    res = [h.result(timeout=900) for h in handles]
+    torch.cuda.synchronize()
+    wall = time.perf_counter() - t0
+    launches = {name: getattr(mod, attr) for name, (mod, attr) in counters().items()}
+    b = eng.scheduler.batcher
+    hw = b.pool_stats().high_water
+    if b.window is not pol or not b.paged:
+        raise AssertionError(f"{label}: the window policy was not taken")
+    rolls = [r.rolls for r in res]
+    if min(rolls) < 1 or hw > ROLL_SESSIONS * cap or any(r.error for r in res):
+        raise AssertionError(f"{label}: rolls {rolls}, high-water {hw} pages (cap "
+                             f"{ROLL_SESSIONS} x {cap}), errors {[r.error for r in res]}")
+    for name in must_launch:
+        if launches[name] <= 0:
+            raise AssertionError(f"{label}: kernel {name} was not launched on the path")
+    if not eng.span_summarizer.flush(timeout=60):
+        raise AssertionError(f"{label}: the span summarizer did not drain")
+    rolled = sum(eng.span_summarizer.rolled_tokens(h.rid) for h in handles)
+    if rolled != sum(rolls) * pol.roll_pages * PAGE:
+        raise AssertionError(f"{label}: {rolled} tokens summarized for {sum(rolls)} rolls")
+    # flatness over the steady span, when all sessions decode: from the
+    # last session's first token (admissions that arrive after the first
+    # tick prefill a chunk a tick between decode ticks) to the first
+    # session's last; a session's tok/s in its first and last quarter
+    lo_t, hi_t = max(st[0] for st in stamps), min(st[-1] for st in stamps)
+    span = (hi_t - lo_t) / 4
+
+    def quarter_rate(a, b):
+        return sum(sum(1 for t in st if a < t <= b) for st in stamps) / len(stamps) / (b - a)
+
+    first, last = quarter_rate(lo_t, lo_t + span), quarter_rate(hi_t - span, hi_t)
+    n_gen = [r.n_generated for r in res]
+    log(f"{label}: {ROLL_SESSIONS} sessions of {ROLL_PROMPT}-token prompts x {n_new} new "
+        f"tokens under WindowPolicy({WINDOW}) (cap {cap} pages = {cap * PAGE} tokens, "
+        f"{b.cache['k'].dtype} pages), wall {wall:.2f} s, {sum(n_gen) / wall:.1f} tok/s over "
+        f"all sessions; generated {n_gen}, finish {sorted({r.finish_reason for r in res})}; "
+        f"rolls per session {rolls} ({b.rolls} in all, {rolled} tokens to the summarizer); "
+        f"pool high-water {hw} pages against {ROLL_SESSIONS} x {cap} = "
+        f"{ROLL_SESSIONS * cap} (capacity {b.pool.capacity}); over the {hi_t - lo_t:.2f} s "
+        f"all sessions decode, tok/s a session in the first quarter {first:.2f}, the last "
+        f"{last:.2f}: last/first {last / first:.4f}")
+    log(f"{label} launches: {json.dumps(launches)}")
+    eng.shutdown()
+
+    # tick by tick: B=8 ticks that roll against ticks that do not
+    cb = ContinuousBatcher(eng, slots=ROLL_SESSIONS, max_seq=MAX_SEQ, page=PAGE,
+                           prefix_pages=ROLL_SESSIONS * cap + 2 * PAGE)
+    for i, p in enumerate(prompts):
+        cb.submit(Request(rid=f"t{i}", prompt_ids=[(t + 1) % 250 + 3 for t in p],
+                          max_new_tokens=ROLL_TICKS))
+    walls = {True: [], False: []}
+    dev = {}
+    cap_tok = cap * PAGE
+    with torch.inference_mode():
+        while cb.queue or cb._adm is not None or any(r is not None for r in cb.active):
+            full = (not cb.queue and cb._adm is None
+                    and all(r is not None for r in cb.active))
+            will = full and any(int(cb._pos[s]) - int(cb._poff[s]) + PAGE > cap_tok
+                                for s in range(cb.B))
+            if full and will not in dev and walls[will]:
+                r0 = cb.rolls
+                dev[will] = one_call_device(torch, cb.step)
+                if (cb.rolls > r0) != will:
+                    raise AssertionError(f"{label}: the profiled tick rolled "
+                                         f"{cb.rolls - r0} times, predicted {will}")
+                continue
+            torch.cuda.synchronize()
+            r0, t0 = cb.rolls, time.perf_counter()
+            cb.step()
+            torch.cuda.synchronize()
+            if full:
+                if (cb.rolls > r0) != will:
+                    raise AssertionError(f"{label}: a tick rolled {cb.rolls - r0} times, "
+                                         f"predicted {will}")
+                walls[will].append((time.perf_counter() - t0) * 1e3)
+    if not walls[True] or not walls[False] or len(dev) < 2:
+        raise AssertionError(f"{label}: ticks with a roll {len(walls[True])}, without "
+                             f"{len(walls[False])}")
+    med = {k: sorted(v)[len(v) // 2] for k, v in walls.items()}
+    # one _shift_pages call over a roll's kept pages (sink + roll pages out)
+    kept = cap - pol.sink_pages - pol.roll_pages
+    pids = list(range(1, 1 + kept))
+    delta = pol.roll_pages * PAGE
+    with torch.inference_mode():
+        for _ in range(3):
+            cb._shift_pages(pids, delta)
+        shift_dev, shift_n = one_call_device(torch, lambda: cb._shift_pages(pids, delta))
+        shift_ms = Timer(torch).ms(lambda: cb._shift_pages(pids, delta), n=20)
+    nbytes = 0
+    for key, ba in cb._rope_leaves:
+        for k in (key, f"{key}_qscale"):
+            if k in cb.cache:
+                t = cb.cache[k]
+                nbytes += 2 * kept * t.numel() // t.shape[ba] * t.element_size()
+    shift_bound, _ = bound_ms(nbytes, 0, "bfloat16")
+    log(f"{label} ticks (B={cb.B}, all slots decoding): with a roll median "
+        f"{med[True]:.2f} ms wall over {len(walls[True])} ticks, device "
+        f"{dev[True][0]:.3f} ms in {dev[True][1]} kernels (one profiled tick); without "
+        f"{med[False]:.2f} ms wall over {len(walls[False])} ticks, device "
+        f"{dev[False][0]:.3f} ms in {dev[False][1]} kernels; {cb.rolls} rolls")
+    log(f"{label} _shift_pages over {kept} kept pages x {hpc.cfg.n_layers} layers "
+        f"({cb.cache['k'].dtype} pages): device {shift_dev:.4f} ms in {shift_n} kernels, "
+        f"{shift_ms:.4f} ms a call (timer, cold L2); byte bound {shift_bound:.6f} ms "
+        f"({nbytes} B read and written)")
+    stats = dict(roll_wall_s=wall, roll_tok_s=sum(n_gen) / wall, roll_first_q=first,
+                 roll_last_q=last, roll_flat=last / first, roll_rolls=sum(rolls),
+                 roll_hw=hw, roll_cap=ROLL_SESSIONS * cap, roll_tick_ms=med[True],
+                 roll_tick_dev_ms=dev[True][0], roll_tick_kernels=dev[True][1],
+                 plain_tick_ms=med[False], plain_tick_dev_ms=dev[False][0],
+                 plain_tick_kernels=dev[False][1], shift_dev_ms=shift_dev,
+                 shift_kernels=shift_n, shift_ms=shift_ms, shift_bound_ms=shift_bound)
+    del cb, eng
+    gc.collect()
+    torch.cuda.empty_cache()
+    return launches, stats
+
+
+def desktop_fleet_phase(torch, xlstm):
+    """Desktop mode with a fleet: build_desktop_system(replicas=2) on the
+    card, the local tier xlstm-125m at its published width (``xlstm``)
+    on two replicas sharing params and the card, the HPC tier the smoke
+    minitron. stream-local chats through the gateway (x-stream-replica
+    header and fleet meta), a replica killed mid-stream, greedy and
+    seeded (the failed-over stream must equal an unkilled run token for
+    token), the aggregate tok/s of FLEET_SESSIONS concurrent sessions on
+    two replicas and on one, the SQLite rows against the requests, the
+    peak memory. rmsnorm, its counter zeroed just before, must launch.
+    Returns (launches, stats); frees the system."""
+    from repro_torch.core.desktop import build_desktop_system
+    from repro_torch.core.sse import parse_sse
+    from repro_torch.serving import EngineFleet
+
+    torch.cuda.reset_peak_memory_stats()
+    for mod, attr in counters().values():
+        setattr(mod, attr, 0)
+    t0 = time.perf_counter()
+    sys_ = build_desktop_system(replicas=2, local_arch="xlstm-125m", local_overrides=xlstm,
+                                max_seq=MAX_SEQ, device="cuda")
+    build_s = time.perf_counter() - t0
+    built = torch.cuda.memory_allocated()
+    fleet = sys_.engines["local"]
+    if not isinstance(fleet, EngineFleet) or len(fleet.engines) != 2 or \
+            fleet.engines[1].params is not fleet.engines[0].params:
+        raise AssertionError("desktop fleet: not two replicas sharing params")
+    token = sys_.globus.issue_token("desktop@uic.edu")
+    requests = 0
+    seen = set()
+    for i in range(4):
+        resp = sys_.gateway.handle_chat_completions(
+            {"model": "stream-local", "max_tokens": 16, "stream": True,
+             "stream_options": {"include_usage": True},
+             "messages": [{"role": "user", "content": f"Desktop chat {i} for the fleet."}]},
+            bearer=token)
+        requests += 1
+        if resp.status != 200:
+            raise AssertionError(f"desktop stream-local: status {resp.status}: {resp.body}")
+        chunks = parse_sse("".join(resp.stream))
+        meta = chunks[-1]["stream"]
+        rep = resp.headers["x-stream-replica"]
+        if resp.headers["x-stream-tier"] != "local" or rep not in ("0", "1") or \
+                meta["replica"] != int(rep) or len(meta["fleet"]["routed"]) != 2:
+            raise AssertionError(f"desktop stream-local: headers {resp.headers}, meta {meta}")
+        seen.add(rep)
+    rows = sys_.tracker.db_rows()
+    if len(rows) != requests or any(r[1] != "local" for r in rows):
+        raise AssertionError(f"desktop: {len(rows)} SQLite rows for {requests} requests")
+    log(f"desktop fleet: build_desktop_system(replicas=2) {build_s:.1f} s; {requests} "
+        f"stream-local chats through the gateway served by replicas {sorted(seen)}, each "
+        f"with x-stream-replica and the fleet meta; {len(rows)} SQLite usage rows for "
+        f"{requests} requests, no content column")
+
+    failover = []
+    for params in ({"max_tokens": 32}, {"max_tokens": 32, "seed": 1234, "temperature": 0.9}):
+        prompt = f"Failover of the desktop fleet, {params.get('seed', 'greedy')}."
+        want = fleet.submit(prompt, params=dict(params)).result(timeout=300)
+        streamed, killed, state = [], [], {}
+
+        def on_tok(tid, s):
+            streamed.append(tid)
+            if not killed and len(streamed) >= 3 and state.get("h") is not None:
+                killed.append(state["h"].replica)
+                fleet.engines[killed[0]].scheduler.kill("chip smoke: killed mid-stream")
+
+        state["h"] = h = fleet.submit(prompt, params=dict(params), on_token=on_tok)
+        res = h.result(timeout=300)
+        if res.error or not killed or h.replica == killed[0] or \
+                streamed != res.tokens or res.tokens != want.tokens:
+            raise AssertionError(f"desktop failover {params}: killed {killed}, now on "
+                                 f"{h.replica}, error {res.error}: {res.tokens} vs unkilled "
+                                 f"{want.tokens}")
+        failover.append(f"{'seeded' if 'seed' in params else 'greedy'}: replica "
+                        f"{killed[0]} killed after 3 tokens, {len(res.tokens)} tokens "
+                        f"token-identical on replica {h.replica} in {h.attempts} attempts")
+        fleet.engines[killed[0]].shutdown()          # revive: a fresh broker
+        r = fleet.replicas[killed[0]]
+        r.open_until, r.dead, r.failures = 0.0, False, 0
+        gc.collect()            # the killed broker's pool goes before the next one
+    log("desktop fleet failover: " + "; ".join(failover))
+
+    def ticks():
+        return [e.scheduler.batcher.transfers if e.scheduler is not None else 0
+                for e in fleet.engines]
+
+    rate, tick_ms = {}, {}
+    for n_rep, submit in ((2, fleet.submit), (1, fleet.engines[0].submit)):
+        # prompts of their own a run: no prefix hit from the other run
+        prompts = [f"Session {i} of the {n_rep}-replica run on the desktop fleet."
+                   for i in range(FLEET_SESSIONS)]
+        t0, k0 = time.perf_counter(), ticks()
+        res = [h.result(timeout=600) for h in
+               [submit(p, max_new_tokens=FLEET_TOKENS) for p in prompts]]
+        wall = time.perf_counter() - t0
+        rate[n_rep] = sum(r.n_generated for r in res) / wall
+        # decode ticks each replica took in the run, and wall ms a tick
+        tick_ms[n_rep] = [(b - a, wall * 1e3 / max(b - a, 1))
+                          for a, b in zip(k0, ticks()) if b > a]
+        if any(r.error or r.cancelled for r in res):
+            raise AssertionError(f"desktop aggregate run on {n_rep} replica(s) failed")
+    torch.cuda.synchronize()
+    launches = {name: getattr(mod, attr) for name, (mod, attr) in counters().items()}
+    if launches["rmsnorm"] <= 0:
+        raise AssertionError("desktop fleet: rmsnorm was not launched")
+    peak = torch.cuda.max_memory_allocated()
+    local = fleet.engines[0]
+    log(f"desktop fleet: {FLEET_SESSIONS} concurrent sessions x {FLEET_TOKENS} tokens of "
+        f"{local.cfg.name} ({local.cfg.n_layers} layers, d_model {local.cfg.d_model}, "
+        f"{local.cfg.param_dtype}): {rate[2]:.1f} tok/s on 2 replicas, {rate[1]:.1f} tok/s "
+        f"on 1 (ratio {rate[2] / rate[1]:.4f}; both on the one card); "
+        f"{built / 2**30:.2f} GiB allocated once built, peak device memory "
+        f"{peak / 2**30:.2f} GiB; routed {fleet.metrics.snapshot()}; decode ticks and "
+        f"wall ms a tick, per replica that ticked: 2 replicas "
+        f"{[(n, round(ms, 2)) for n, ms in tick_ms[2]]}, 1 replica "
+        f"{[(n, round(ms, 2)) for n, ms in tick_ms[1]]}")
+    log(f"desktop fleet launches: {json.dumps(launches)}")
+    stats = dict(fleet_tok_s_2=rate[2], fleet_tok_s_1=rate[1], fleet_peak_gib=peak / 2**30,
+                 fleet_tick_ms_2=max(ms for _, ms in tick_ms[2]),
+                 fleet_tick_ms_1=max(ms for _, ms in tick_ms[1]),
+                 fleet_rows=len(sys_.tracker.db_rows()))
+    free_system(sys_)
+    del sys_, fleet, local
+    gc.collect()
+    torch.cuda.empty_cache()
+    return launches, stats
+
+
 # ---------------------------------------------------------------- main path
 def counters():
     """kernel -> (module, counter attribute) of its wrapper's launch count."""
@@ -2064,11 +2453,12 @@ def stop_system(sys_):
 
 
 def free_system(sys_):
-    """Stop a system and let its weights go."""
+    """Stop a system and let its weights go (every replica's, for a fleet)."""
     stop_system(sys_)
     for e in sys_.engines.values():
-        e.params = None
-        e.drafter = None
+        for one in getattr(e, "engines", [e]):
+            one.params = None
+            one.drafter = None
 
 
 def forced_acceptance(torch, label, hpc):
@@ -2236,9 +2626,10 @@ def main() -> int:
     reference_phase(torch)
     xlstm_reference_phase(torch)
     speculative_reference_phase(torch)
+    rolling_reference_phase(torch)
     training_reference_phase(torch)
 
-    paths = {}
+    paths, rolling = {}, {}
     dense_must = ("rmsnorm", "paged_attention", "decode_attention")
     log(f"deepseek path: deepseek-67b at full width cut to {DEEPSEEK_LAYERS} of its 95 "
         "layers (95 bf16 layers, 134 GB, cannot exist on one card before the W4A16 "
@@ -2271,6 +2662,13 @@ def main() -> int:
             prefill_check(torch, sys_.engines["hpc"], label)
         if label == "dense":
             stats.update(xlstm_breakdown(torch, f"{label} path", sys_))
+        if label in ("dense", "quantized"):
+            # the same HPC tier's params under a rolling window
+            rolling[label] = rolling_path_phase(
+                torch, f"rolling {label} path", sys_.engines["hpc"],
+                ROLL_NEW if label == "dense" else ROLL_NEW // 2,
+                ("rmsnorm", "paged_attention") if label == "dense"
+                else ("rmsnorm", "paged_attention_quant", "awq_matmul"))
         held = torch.cuda.memory_allocated()
         top = max(stats["peak_gib"], stats["build_peak_gib"]) * 2**30
         if top > CARD_BYTES:
@@ -2315,6 +2713,28 @@ def main() -> int:
         log(f"compare {what:38s} " + "  ".join(
             f"{label} {stats[key]:14.4f}" for label, (_, stats) in specs.items()))
 
+    fleet = desktop_fleet_phase(torch, xlstm)
+    log(f"{card}: rolling paths (HPC tier full-width minitron-8b; WindowPolicy({WINDOW}), "
+        f"{ROLL_SESSIONS} sessions of {ROLL_PROMPT}-token prompts): bf16 pages x {ROLL_NEW} "
+        f"new tokens | int8 pages + W4A16 x {ROLL_NEW // 2}")
+    for key, what in (("roll_tok_s", "tok/s over all sessions"),
+                      ("roll_first_q", "tok/s a session, steady first quarter"),
+                      ("roll_last_q", "tok/s a session, steady last quarter"),
+                      ("roll_flat", "last quarter / first quarter"),
+                      ("roll_rolls", "rolls over all sessions"),
+                      ("roll_hw", "pool high-water pages"), ("roll_cap", "8 x cap_pages"),
+                      ("roll_tick_ms", "B=8 tick with a roll, wall ms"),
+                      ("roll_tick_dev_ms", "B=8 tick with a roll, device ms"),
+                      ("roll_tick_kernels", "B=8 tick with a roll, kernels"),
+                      ("plain_tick_ms", "B=8 tick without, wall ms"),
+                      ("plain_tick_dev_ms", "B=8 tick without, device ms"),
+                      ("plain_tick_kernels", "B=8 tick without, kernels"),
+                      ("shift_dev_ms", "_shift_pages device ms"),
+                      ("shift_kernels", "_shift_pages kernels"),
+                      ("shift_bound_ms", "_shift_pages byte bound ms")):
+        log(f"compare {what:38s} " + "  ".join(
+            f"{label} {stats[key]:14.4f}" for label, (_, stats) in rolling.items()))
+
     trains = {arch: training_phase(torch, arch) for arch in ("minitron-8b", "gemma-7b")}
     driver_phase(torch)
 
@@ -2349,6 +2769,7 @@ def main() -> int:
                         "replaces": replaces,
                         "launches": sum(l[name] for l, _ in paths.values())
                         + sum(l[name] for l, _ in specs.values())
+                        + sum(l[name] for l, _ in rolling.values()) + fleet[0][name]
                         + sum(l[name] for l, _ in trains.values()),
                         "max_abs_err": r["max_abs_err"], "ms": r["ms"],
                         "plain_ms": r["plain_ms"], "bound_ms": r["bound_ms"],

@@ -29,7 +29,7 @@ from repro_torch.core.router import TierRouter
 from repro_torch.core.summarizer import DEFAULT_POLICIES, TierAwareSummarizer
 from repro_torch.core.tiers import CloudBackend, HPCBackend, LocalBackend, TierSpec
 from repro_torch.models import build_model
-from repro_torch.serving import ServingEngine, resolve_device
+from repro_torch.serving import EngineFleet, ServingEngine, resolve_device
 from repro_torch.serving.quantize import quantize_mlp_tree
 
 
@@ -88,10 +88,13 @@ def build_system(*, relay_enabled: bool = True, encrypt: bool = True,
     ``propose_k``; a recurrent local tier (the default xLSTM) leaves the
     HPC tier on n-gram drafts. Output tokens are the same either way.
 
-    Not ported yet, and refused: ``replicas > 1`` (the engine fleet)."""
-    if replicas > 1:
-        raise NotImplementedError(f"not ported yet: replicas={replicas}")
-    del fleet_overrides              # kept for the reference's signature
+    ``replicas=N`` (N > 1) puts an :class:`~repro_torch.serving.EngineFleet`
+    of N local engines behind the local tier (and the cloud tier's token
+    source), all on ``device``: the N - 1 peers share replica 0's params
+    (quantized ones included), so a failed-over stream is the same
+    tokens. Cache-aware routing, work stealing and mid-stream failover
+    stay behind the tier/gateway contract. ``fleet_overrides`` tunes the
+    fleet (``steal_threshold``, ``tick_timeout_s``, ...)."""
     device = resolve_device(device)
 
     # --- engines (the per-tier model servers) ---
@@ -121,6 +124,14 @@ def build_system(*, relay_enabled: bool = True, encrypt: bool = True,
                                  scheduler_slots=scheduler_slots,
                                  prefix_cache_pages=prefix_cache_pages,
                                  kv_dtype=kv_dtype, device=device, **spec_local)
+    local_tier_engine = local_engine
+    if replicas > 1:
+        peers = [ServingEngine(local_cfg, params=local_engine.params, max_seq=max_seq,
+                               seed=0, scheduler_slots=scheduler_slots,
+                               prefix_cache_pages=prefix_cache_pages, kv_dtype=kv_dtype,
+                               device=device, **spec_local)
+                 for _ in range(replicas - 1)]
+        local_tier_engine = EngineFleet([local_engine] + peers, **(fleet_overrides or {}))
     if speculative and hasattr(local_engine.model, "propose_k"):
         # cross-tier: the local tier's model (params and all) drafts for
         # the HPC tier's verifier
@@ -131,7 +142,7 @@ def build_system(*, relay_enabled: bool = True, encrypt: bool = True,
                                scheduler_slots=scheduler_slots,
                                prefix_cache_pages=prefix_cache_pages,
                                kv_dtype=kv_dtype, device=device, **spec_hpc)
-    local_engine.warmup()
+    local_tier_engine.warmup()
     hpc_engine.warmup()
 
     # --- data plane ---
@@ -160,10 +171,10 @@ def build_system(*, relay_enabled: bool = True, encrypt: bool = True,
                           cost_per_1k_prompt=0.003, cost_per_1k_completion=0.015),
     }
     backends = {
-        "local": LocalBackend(specs["local"], local_engine),
+        "local": LocalBackend(specs["local"], local_tier_engine),
         "hpc": HPCBackend(specs["hpc"], endpoint, relay, relay_secret, enc_key),
         "cloud": CloudBackend(specs["cloud"], ttft_s=cloud_ttft_s,
-                              engine=local_engine, fail=cloud_fail),
+                              engine=local_tier_engine, fail=cloud_fail),
     }
 
     # --- routing / summarization / handler ---
@@ -193,5 +204,5 @@ def build_system(*, relay_enabled: bool = True, encrypt: bool = True,
                         tracker=tracker, relay=relay, endpoint=endpoint,
                         proxy=proxy, globus=globus, api_keys=api_keys,
                         backends=backends,
-                        engines={"local": local_engine, "hpc": hpc_engine},
+                        engines={"local": local_tier_engine, "hpc": hpc_engine},
                         gateway=gateway)

@@ -95,6 +95,21 @@ def apply_rope(x, cos, sin):
     return out.to(x.dtype)
 
 
+def rope_shift(x, delta: int, theta: float):
+    """Re-rotate already-roped keys by ``delta`` positions (StreamingLLM's
+    pos_shift): rope is a rotation per pair, so keys roped at position p
+    and rotated by ``delta`` are the keys a fresh rope at p + delta gives,
+    up to float rounding. A window roll moves the kept keys toward 0 with
+    ``delta = -rolled_tokens`` and never recomputes K. The angles come
+    from :func:`rope_freqs`, the table prefill ropes with.
+
+    x: (..., D) roped keys, any leading axes; delta: an int."""
+    cos, sin = rope_freqs(torch.tensor(delta, device=x.device), x.shape[-1], theta)
+    x1, x2 = x.float().chunk(2, dim=-1)
+    out = torch.cat([x1 * cos - x2 * sin, x2 * cos + x1 * sin], dim=-1)
+    return out.to(x.dtype)
+
+
 def _split_heads(x, n_heads, head_dim):
     B, S, _ = x.shape
     return x.reshape(B, S, n_heads, head_dim).transpose(1, 2)

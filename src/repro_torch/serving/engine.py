@@ -20,6 +20,9 @@ batcher to its contiguous splice path (stateful models take it anyway).
 ``speculative`` ("off", "ngram" or "model") turns on speculative
 decoding in the batcher; ``drafter_cfg`` registers a drafter model
 (``serving.speculative``), and then "off" becomes "model".
+``window_policy`` (a ``scheduler.WindowPolicy``) gives the batcher's
+paged path attention sinks and a rolling window, whose evicted spans go
+to the engine's ``span_summarizer``.
 """
 
 from __future__ import annotations
@@ -78,7 +81,7 @@ class ServingEngine:
                  paged_kv: bool = True, kv_dtype: str = "fp32",
                  speculative: str = "off", spec_k: int = 4,
                  drafter_cfg: ModelConfig | None = None, drafter_params=None,
-                 device=None):
+                 window_policy=None, device=None):
         kv_storage(kv_dtype)            # refuse an unknown one before any work
         self.cfg = cfg
         self.device = resolve_device(device)
@@ -118,6 +121,15 @@ class ServingEngine:
                                       cfg=drafter_cfg)
             if speculative == "off":
                 self.speculative = "model"
+        # rolling-window KV: attention sinks, a rolling paged window and
+        # async span summarization, for sessions of any length on a flat
+        # page budget a slot. None keeps append-only KV. The batcher's
+        # native paged path only; the recurrent families decline it.
+        self.window_policy = window_policy
+        self.span_summarizer = None
+        if window_policy is not None:
+            from repro_torch.core.summarizer import SpanSummarizer
+            self.span_summarizer = SpanSummarizer(self.tokenizer)
         self.scheduler_slots = scheduler_slots
         self.prefill_chunk = prefill_chunk
         self._broker = None

@@ -36,7 +36,14 @@ read. A family without ``verify_chunk`` (the recurrent ones), or a
 "model" mode without a drafter, runs plain decode (``spec_mode ==
 "off"``), as in the JAX package.
 
-Not ported yet: rolling windows (``WindowPolicy``).
+**Rolling windows** (``engine.window_policy``, a :class:`WindowPolicy`;
+the paged path only): a slot keeps its sink pages and rolls the rest.
+When it fills ``cap_pages`` the oldest non-sink pages are evicted (their
+token span goes to ``engine.span_summarizer``), the kept window's keys
+are re-rotated in place by ``-roll_pages * page`` positions
+(:meth:`ContinuousBatcher._shift_pages`), fresh pages join at the tail,
+and the slot's ``pos_offset`` grows by the rolled tokens, so a session
+decodes without end on a flat page budget.
 """
 
 from __future__ import annotations
@@ -48,7 +55,9 @@ from typing import Callable, Optional
 import numpy as np
 import torch
 
+from repro_torch.kernels import ops
 from repro_torch.models.common import cache_layout, has_state_leaves, round_up
+from repro_torch.models.layers import rope_shift
 from repro_torch.serving import prng
 from repro_torch.serving.pagepool import PagePool, SlotSplicer, chunk_plan
 from repro_torch.serving.prefix_cache import PrefixCache, PrefixLease
@@ -83,6 +92,39 @@ def clip_prompt(ids, max_new_tokens: int, max_seq: int) -> tuple:
     return ids[:keep], max_new
 
 
+@dataclass(frozen=True)
+class WindowPolicy:
+    """Attention-sink rolling window over a slot's paged KV.
+
+    ``sink_pages`` pages are pinned for the session's life (the
+    StreamingLLM attention sinks: the prompt head every later token
+    attends to); the rest roll. When the slot has filled its
+    ``cap_pages = sink_pages + window_pages + 1`` pages, the oldest
+    ``roll_pages`` non-sink pages are evicted in place (a block-table
+    rewrite and a per-slot ``pos_offset`` bump, no KV copy) and their
+    token span is handed to the span summarizer. Rope positions are
+    slot-relative (``pos - pos_offset``): the sinks keep their rotations
+    and the kept window is re-rotated by ``-roll_pages * page``, the key a
+    fresh prefill at the shifted position would give.
+
+    The spare page of ``cap_pages`` keeps every decode or verify write
+    inside the mapping between roll checks. Only the native paged path
+    takes a policy: the recurrent families have no page-granular state
+    to evict and keep append-only KV.
+    """
+    sink_pages: int = 1
+    window_pages: int = 4
+    roll_pages: int = 1
+
+    def __post_init__(self):
+        assert self.sink_pages >= 1 and self.window_pages >= 1
+        assert 1 <= self.roll_pages <= self.window_pages
+
+    @property
+    def cap_pages(self) -> int:
+        return self.sink_pages + self.window_pages + 1
+
+
 @dataclass
 class Request:
     rid: str
@@ -108,7 +150,7 @@ class Request:
     # (freed or published at finish) vs matched tree pages (pinned)
     _pages: list = field(default_factory=list)
     _own: list = field(default_factory=list)
-    _rolls: int = 0                  # window rolls (always 0: not ported)
+    _rolls: int = 0                  # window rolls this session has taken
 
     def _matcher(self) -> Optional[StopMatcher]:
         if self._stop is None and self.params and self.params.stop:
@@ -153,6 +195,7 @@ class _Admission:
     ids: list                        # clipped prompt (absolute token basis)
     pieces: list                     # remaining chunk lengths
     pos: int = 0                     # tokens prefilled so far (incl. cached)
+    poff: int = 0                    # tokens rolled out during this prefill
     lease: Optional[PrefixLease] = None
     temp: float = 0.0                # resolved per-request sampling params
     top_p: float = 1.0
@@ -174,7 +217,7 @@ class ContinuousBatcher:
         self.page = page
         if prefix_pages is None:
             prefix_pages = engine.prefix_cache_pages
-        layout = cache_layout(self.model.cache_specs())
+        self._layout = layout = cache_layout(self.model.cache_specs())
         self._splicer = SlotSplicer(layout)
         self.n_pages = self.max_seq // page
         # paged decode needs an attention-only model, page-aligned max_seq
@@ -203,7 +246,20 @@ class ContinuousBatcher:
             self.cache = self.model.init_cache(self.B, self.max_seq, self.device)
             self.cache["pos"] = torch.zeros((self.B,), dtype=torch.int32,
                                             device=self.device)
-        self.window = None               # rolling windows: not ported (broker reads it)
+        # rolling-window policy: the roll is block-table surgery plus a
+        # pos_offset bump, so only the native paged path takes it, and only
+        # when the table can map a whole window; recurrent state has no
+        # page address, so the splice path keeps append-only KV
+        policy = getattr(engine, "window_policy", None)
+        self.window: Optional[WindowPolicy] = (
+            policy if (policy is not None and self.paged
+                       and policy.cap_pages <= self.n_pages) else None)
+        # rolled-out token spans go here per (rid, ids), off the decode path
+        self.span_sink = getattr(engine, "span_summarizer", None)
+        self.rolls = 0               # window rolls across all sessions
+        self._poff = np.zeros(self.B, np.int64)   # host pos_offset mirror
+        if self.window is not None:
+            self._rope_leaves = self._roped_leaf_axes()
         self.active: list[Optional[Request]] = [None] * self.B
         self.queue: list[Request] = []
         self._adm: Optional[_Admission] = None
@@ -347,11 +403,24 @@ class ContinuousBatcher:
             if not self.paged and self._pos[slot] + W > self.max_seq:
                 return False
             cap = min(self.spec_k, int(self._maxgen[slot]) - int(self._gen[slot]) - 1)
+            if self.window is not None:
+                # clamp the verify window at the roll boundary: a window
+                # written past it would compute post-boundary tokens with
+                # pre-roll context, where plain decode rolls first. With
+                # the clamp, rolls land where plain decode takes them and
+                # speculative streams stay the plain ones under rolling.
+                bnd = (self.window.cap_pages - 1) * self.page
+                cap = min(cap, bnd - (int(self._pos[slot]) - int(self._poff[slot])))
             if cap <= 0:
                 continue
             if self.draft_hook is not None:
                 d = list(self.draft_hook(slot, req))[:cap]
             elif self.spec_mode == "model":
+                if self.window is not None and self._pos[slot] + W > self.max_seq:
+                    # the drafter's contiguous (B, max_seq) cache cannot
+                    # hold a rolled session past max_seq: plain decode for
+                    # this slot (its tokens are the target's either way)
+                    continue
                 # the drafter proposes for the whole batch on the device
                 # (_spec_tick); only the per-slot clamp is decided here
                 self._draft_len[slot] = cap
@@ -364,6 +433,113 @@ class ContinuousBatcher:
                 self._draft_len[slot] = len(d)
                 any_draft = True
         return any_draft
+
+    # ------------------------------------------------------------ rolling window
+    def _roped_leaf_axes(self) -> list:
+        """(cache key, pool axis) of every pooled leaf that holds roped
+        keys: the leaves a roll re-rotates. GQA caches roped k; MLA ropes
+        only its decoupled k_rope part (the latent c_kv is position-free).
+        V is never rotated. A key is a leaf name (the paged path's keys
+        are top-level names; nested specs give path tuples)."""
+        out = []
+        for key in self._pool_keys:
+            name = key[-1] if isinstance(key, tuple) else key
+            if name == "k_rope" or name.endswith("_krope"):
+                out.append((key, self._layout[key].batch_axis))
+            elif self.cfg.use_rope and (name == "k" or name.endswith("_k")):
+                out.append((key, self._layout[key].batch_axis))
+        return out
+
+    def _shift_pages(self, pids: list, delta: int):
+        """Re-rotate the kept window's cached keys by ``-delta`` positions,
+        in place in the pool buffers (the pool IS the decode cache, and
+        every admission's batch=1 cache views the same tensors, so the
+        rotated pages are written into the existing storage, never into
+        new tensors). Touches only the kept pages; unwritten ones ride
+        along, masked by kv_len until overwritten.
+
+        Quantized pools dequantize the pages with their scale sidecar,
+        rotate in float32 and requantize codes and scales in place: one
+        more rounding a roll."""
+        if not pids or not self._rope_leaves:
+            return
+        idx = torch.tensor(pids, dtype=torch.long, device=self.device)
+        theta = self.cfg.rope_theta
+        for key, ba in self._rope_leaves:
+            pool = self.cache[key].movedim(ba, 0)         # a view: pages first
+            skey = f"{key}_qscale"
+            if skey not in self.cache:
+                pool[idx] = rope_shift(pool[idx], -delta, theta)
+                continue
+            # the sidecar is the pool's shape minus its feature axis, so ba
+            # is the page axis of both
+            spool = self.cache[skey].movedim(ba, 0)
+            rot = rope_shift(ops.dequantize_kv(pool[idx], spool[idx]), -delta, theta)
+            pool[idx], spool[idx] = ops.quantize_kv(rot, pool.dtype)
+
+    def _roll_once(self, req: Request, poff: int) -> int:
+        """One roll of ``req``'s mapping: evict the oldest non-sink pages,
+        hand their token span to the summarizer, re-rotate the kept
+        window and append fresh pages at the tail. Returns the new
+        pos_offset; the caller updates the position state wherever the
+        mapping lives (a decode slot or the admission in flight)."""
+        w = self.window
+        s, r = w.sink_pages, w.roll_pages
+        delta = r * self.page
+        evicted, ev_own = req._pages[s:s + r], req._own[s:s + r]
+        kept = req._pages[s + r:]
+        # a roll touches session-private pages past the sinks only: prefix
+        # matching and publishing stop at the sinks for a rolling session,
+        # so no tree page sits in the window (free_guard would catch one)
+        assert all(req._own[s:]), "tree-owned page inside the rolling window"
+        # the span before any state moves: slot-space pages [s, s + r) hold
+        # the absolute tokens [s * page + poff, (s + r) * page + poff)
+        lo = s * self.page + poff
+        span = ((req._kv_ids or []) + req.output_ids)[lo:lo + delta]
+        # free, then allocate: the free list is LIFO, so the same pages come
+        # straight back as the new tail, occupancy stays flat and the
+        # allocation cannot fail
+        for pid, own in zip(evicted, ev_own):
+            if own:
+                self.pool.free(pid)
+        fresh = self.prefix._alloc_many(len(evicted))
+        assert len(fresh) == len(evicted), "roll re-allocation failed"
+        req._pages = req._pages[:s] + kept + fresh
+        req._own = req._own[:s] + req._own[s + r:] + [True] * len(fresh)
+        self._shift_pages(kept, delta)
+        if self.span_sink is not None and span:
+            self.span_sink.submit(req.rid, span)
+        req._rolls += 1
+        self.rolls += 1
+        return poff + delta
+
+    def _maybe_roll_slots(self):
+        """Roll every active slot whose next tick could write past its
+        mapped cap. Runs before drafts are prepared, so a verify window
+        (W <= page) never straddles a roll: the spare page of cap_pages
+        takes the largest window between checks. A roll writes the slot's
+        pos_offset on the device and marks the block tables for upload."""
+        w = self.window
+        if w is None:
+            return
+        cap_tok = w.cap_pages * self.page
+        for slot, req in enumerate(self.active):
+            if req is None:
+                continue
+            poff = int(self._poff[slot])
+            rolled = False
+            while int(self._pos[slot]) - poff + self.page > cap_tok:
+                poff = self._roll_once(req, poff)
+                rolled = True
+            if rolled:
+                self._poff[slot] = poff
+                self.cache["pos_offset"][slot] = poff
+                self._bt[slot, :] = 0
+                self._bt[slot, :len(req._pages)] = req._pages
+                self._bt_dirty = True
+                if self.spec:
+                    # drafts from before the roll saw the old window
+                    self._draft_len[slot] = 0
 
     def _spec_tick(self, rng):
         """One speculative tick (drafts prepared): propose, verify, emit.
@@ -435,8 +611,10 @@ class ContinuousBatcher:
             adm = self._adm
             if self.paged and adm.lease is not None:
                 # transfer the completed pages to the tree FIRST, then free
-                # what the session still owns (pool.free asserts the order)
-                self.prefix.publish_paged(adm.lease, adm.ids, adm.pos,
+                # what the session still owns (pool.free asserts the order);
+                # a rolling session publishes its sinks only (its window
+                # pages are position-shifted, not what a cold prefill gives)
+                self.prefix.publish_paged(adm.lease, adm.ids, self._publishable(adm.pos),
                                           req._pages, req._own)
             elif adm.lease is not None and not self.pool.stateful:
                 # a cancelled prefill still publishes the pages it completed
@@ -462,6 +640,11 @@ class ContinuousBatcher:
         if req._lease is not None and self.prefix is not None:
             self.prefix.release(req._lease)
             req._lease = None
+
+    def _publishable(self, n: int) -> int:
+        """How many of ``n`` prefilled tokens a paged session may publish:
+        all of them, or under a window its sink pages' tokens at most."""
+        return n if self.window is None else min(n, self.window.sink_pages * self.page)
 
     def _free_pages(self, req: Request):
         for pid, own in zip(req._pages, req._own):
@@ -490,8 +673,14 @@ class ContinuousBatcher:
         req = self._pop_request()
         if req is None:
             return None
-        ids, req.max_new_tokens = clip_prompt(
-            req.prompt_ids, req.max_new_tokens, self.max_seq)
+        if self.window is None:
+            ids, req.max_new_tokens = clip_prompt(
+                req.prompt_ids, req.max_new_tokens, self.max_seq)
+        else:
+            # a rolling session has no end: the prompt rolls through the
+            # window while it prefills, so the capacity rule does not apply
+            ids = list(req.prompt_ids)
+            req.max_new_tokens = max(int(req.max_new_tokens), 1)
         req._kv_ids = ids
         if self.paged:
             if not self._map_pages(req, ids):
@@ -533,9 +722,16 @@ class ContinuousBatcher:
         nothing in the serving loop can run out of pages mid-stream (the
         last written position is len(ids) + max_new - 2). False, with the
         request back at the queue's head, when the pool is exhausted even
-        after eviction."""
-        lease = self.prefix.begin(req.cache_salt, ids)
+        after eviction. A rolling session matches at most its sink pages
+        (everything past them is evicted and re-rotated by rolls, which
+        must never touch a page the tree shares) and maps at most
+        ``cap_pages``."""
+        w = self.window
+        lease = self.prefix.begin(req.cache_salt,
+                                  ids if w is None else ids[:w.sink_pages * self.page + 1])
         need = -(-(len(ids) + req.max_new_tokens - 1) // self.page)
+        if w is not None:
+            need = min(need, w.cap_pages)
         private = need - len(lease.chain)
         pids = self.prefix._alloc_many(private)
         if len(pids) < private:
@@ -551,6 +747,20 @@ class ContinuousBatcher:
         req._own = [False] * len(lease.chain) + [True] * len(pids)
         req._lease = lease
         return True
+
+    def _roll_admission(self, adm: _Admission, n: int):
+        """A prompt longer than the window rolls while it prefills: the
+        decode-time roll, applied to the admission's own block-table row
+        before the ``n``-token chunk whose write would pass the cap."""
+        rolled = False
+        while adm.pos - adm.poff + n > self.window.cap_pages * self.page:
+            adm.poff = self._roll_once(adm.req, adm.poff)
+            rolled = True
+        if rolled:
+            row = np.zeros((1, self.n_pages), np.int32)
+            row[0, :len(adm.req._pages)] = adm.req._pages
+            adm.cache["block_tables"] = torch.from_numpy(row).to(self.device)
+            adm.cache["pos_offset"] = adm.poff
 
     def _advance_admissions(self):
         """Start or advance the in-flight admission by one tick's worth of
@@ -568,6 +778,8 @@ class ContinuousBatcher:
         logits = None
         while adm.pieces and budget > 0:
             n = adm.pieces.pop(0)
+            if self.window is not None:
+                self._roll_admission(adm, n)
             chunk = torch.tensor([adm.ids[adm.pos:adm.pos + n]], dtype=torch.int64,
                                  device=self.device)
             logits, adm.cache = self.model.prefill_chunk(self.engine.params,
@@ -595,8 +807,10 @@ class ContinuousBatcher:
         self.admissions += 1
         if self.paged and adm.lease is not None:
             # publish is pure ownership transfer: the prompt's full pages
-            # become tree nodes, zero bytes moved
-            self.prefix.publish_paged(adm.lease, adm.ids, adm.pos,
+            # become tree nodes, zero bytes moved (a rolling session's sinks
+            # only: the rest of its mapping rolls and re-rotates in place,
+            # which must never happen to a shared tree page)
+            self.prefix.publish_paged(adm.lease, adm.ids, self._publishable(adm.pos),
                                       req._pages, req._own)
         elif adm.lease is not None and not self.pool.stateful:
             # attention-only models on the splice path: store the prompt's
@@ -621,7 +835,8 @@ class ContinuousBatcher:
             self._bt[slot, :len(req._pages)] = req._pages
             self._bt_dirty = True
             self.cache["pos"][slot] = len(adm.ids)
-            self.cache["pos_offset"][slot] = 0
+            self.cache["pos_offset"][slot] = adm.poff
+            self._poff[slot] = adm.poff
         else:
             # splice: the admission's used pages and whole state into the slot
             used = min(round_up(len(adm.ids), self.page), self.max_seq)
@@ -636,9 +851,11 @@ class ContinuousBatcher:
         self._pos[slot] = len(adm.ids)
         if self.spec:
             self._draft_len[slot] = 0
-            if self._drafter is not None:
+            if self._drafter is not None and len(adm.ids) <= self.max_seq:
                 # the drafter takes the prompt after the first token left
-                # (off the TTFT path); its splice traffic is its own
+                # (off the TTFT path); its splice traffic is its own. A
+                # rolling session's prompt may not fit its contiguous cache:
+                # such a slot never drafts
                 self._drafter.admit(slot, adm.ids)
 
     # ------------------------------------------------------------ tick
@@ -658,7 +875,10 @@ class ContinuousBatcher:
         # slot; no state snapshot exists mid-decode (state_at=-1), so a
         # stateful node becomes resumable only once a later prefill
         # re-crosses it at its boundary
-        if req._lease is not None and req._kv_ids is not None:
+        # A session that rolled publishes nothing here: its non-sink pages
+        # hold position-shifted KV, not the cold-prefill pages the tree's
+        # token keys promise (its sinks went in at admission)
+        if req._lease is not None and req._kv_ids is not None and req._rolls == 0:
             kv_n = len(req._kv_ids) + max(len(req.output_ids) - 1, 0)
             if self.paged:
                 self.prefix.publish_paged(req._lease, req._kv_ids + req.output_ids,
@@ -677,6 +897,7 @@ class ContinuousBatcher:
         self.active[slot] = None
         self._active_m[slot] = False
         self._pos[slot] = 0
+        self._poff[slot] = 0
         if self.spec:
             self._draft_len[slot] = 0     # the slot re-admits with a clean window
         self._freed = True
@@ -716,6 +937,7 @@ class ContinuousBatcher:
                 self._advance_admissions()
         if not any(r is not None for r in self.active):
             return self._in_flight()
+        self._maybe_roll_slots()
         if self.paged and self._bt_dirty:
             # the block tables reach the device only when a mapping changed
             self.cache["block_tables"] = torch.from_numpy(self._bt.copy()).to(

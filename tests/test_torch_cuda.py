@@ -839,3 +839,86 @@ def test_new_call_site_shapes_on_card(dtype):
     kl = torch.tensor([20, 41, 64, 100, 128, 200, 255, 256], dtype=torch.int32, device="cuda")
     torch.testing.assert_close(dec_k.decode_attention(q, k, v, kv_len=kl),
                                dec_k.plain(q, k, v, kv_len=kl), atol=atol, rtol=rtol)
+
+
+@pytest.mark.cuda
+@pytest.mark.parametrize("kv_dtype", ["fp32", "int8"])
+def test_rolling_smoke_streams_on_card_as_on_cpu(kv_dtype):
+    """Rolling windows of the small float32 minitron (int8 pages with
+    W4A16 weights too): a prompt that rolls while it prefills and a
+    seeded one that rolls while it decodes give the CPU's tokens, rolls,
+    pool high-water and summarizer spans; the paged kernel runs with
+    pos_offset > 0."""
+    _card()
+    from repro_torch.configs import get_smoke_config
+    from repro_torch.models.common import tree_map
+    from repro_torch.serving import (ContinuousBatcher, GenerationParams, Request,
+                                     ServingEngine, WindowPolicy)
+    from repro_torch.serving.quantize import quantize_mlp_tree
+
+    cfg = get_smoke_config("minitron-8b").replace(vocab_size=300, vocab_pad_to=64,
+                                                  compute_dtype="float32")
+    pol = WindowPolicy(sink_pages=1, window_pages=2, roll_pages=1)
+    params = ServingEngine(cfg, max_seq=96, device="cuda").params
+    if kv_dtype != "fp32":
+        params = quantize_mlp_tree(params, group_size=64)
+    seeded = GenerationParams(max_tokens=70, temperature=0.9, seed=7)
+    outs = []
+    before = pa_k.launches + pa_k.launches_quant
+    for dev, p in (("cuda", params), ("cpu", tree_map(lambda t: t.cpu(), params))):
+        eng = ServingEngine(cfg, max_seq=96, device=dev, params=p, kv_dtype=kv_dtype,
+                            window_policy=pol)
+        spans = []
+        submit = eng.span_summarizer.submit
+        eng.span_summarizer.submit = lambda rid, ids, f=submit: (
+            spans.append((rid, list(ids))), f(rid, ids))
+        cb = ContinuousBatcher(eng, slots=2, max_seq=96, prefix_pages=24)
+        done = {}
+        for rid, ids, gp in (("greedy", list(range(2, 102)), None),
+                             ("seeded", eng.tokenizer.encode("rolling on the card"), seeded)):
+            cb.submit(Request(rid=rid, prompt_ids=ids, max_new_tokens=70, params=gp,
+                              on_done=lambda r: done.update(
+                                  {r.rid: (list(r.output_ids), r._rolls)})))
+        cb.run_until_drained()
+        outs.append((done, cb.rolls, cb.pool_stats().high_water, sorted(spans)))
+        eng.shutdown()
+    assert outs[0] == outs[1]
+    assert outs[0][0]["greedy"][1] >= 3 and outs[0][0]["seeded"][1] >= 2
+    assert outs[0][2] <= 2 * pol.cap_pages
+    assert pa_k.launches + pa_k.launches_quant > before
+
+
+@pytest.mark.cuda
+@pytest.mark.parametrize("params", [{"max_tokens": 16},
+                                    {"max_tokens": 16, "seed": 1234, "temperature": 0.9}],
+                         ids=["greedy", "seeded"])
+def test_fleet_failover_on_card(params):
+    """Two replicas of the small float32 minitron on one card: a replica
+    killed after the third token hands the session to the other, and the
+    client's stream equals an unkilled run's."""
+    _card()
+    from repro_torch.configs import get_smoke_config
+    from repro_torch.serving import EngineFleet
+
+    cfg = get_smoke_config("minitron-8b").replace(vocab_size=300, vocab_pad_to=64,
+                                                  compute_dtype="float32")
+    fleet = EngineFleet.build(cfg, replicas=2, max_seq=96, scheduler_slots=4, device="cuda")
+    try:
+        fleet.warmup()
+        prompt = "failover on the card"
+        want = fleet.submit(prompt, params=dict(params)).result(timeout=300)
+        assert want.error is None and len(want.tokens) == 16
+        streamed, killed, state = [], [], {}
+
+        def on_tok(tid, s):
+            streamed.append(tid)
+            if not killed and len(streamed) >= 3 and state.get("h") is not None:
+                killed.append(state["h"].replica)
+                fleet.engines[killed[0]].scheduler.kill("test kill")
+
+        state["h"] = h = fleet.submit(prompt, params=dict(params), on_token=on_tok)
+        res = h.result(timeout=300)
+        assert res.error is None and h.attempts >= 2 and killed[0] != h.replica
+        assert streamed == res.tokens == want.tokens
+    finally:
+        fleet.shutdown()

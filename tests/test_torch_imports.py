@@ -47,7 +47,8 @@ def test_importing_the_port_loads_no_jax():
             "repro_torch.kernels.awq_matmul, repro_torch.kernels.ssm_scan, "
             "repro_torch.models.ssm, repro_torch.configs.zamba2_7b, "
             "repro_torch.models.xlstm, repro_torch.configs.xlstm_125m, "
-            "repro_torch.serving.speculative, "
+            "repro_torch.serving.speculative, repro_torch.serving.fleet, "
+            "repro_torch.serving.scheduler, repro_torch.core.desktop, "
             "repro_torch.serving.quantize, "
             "repro_torch.serving.prng, repro_torch.launch.serve, "
             "repro_torch.training, repro_torch.kernels.flash_attention, "
@@ -63,7 +64,8 @@ def test_importing_the_port_loads_no_jax():
 def test_entry_points_need_a_card_unless_asked_for_cpu(monkeypatch):
     from repro_torch.configs import get_smoke_config
     from repro_torch.core import build_system
-    from repro_torch.serving import ServingEngine
+    from repro_torch.core.desktop import build_desktop_system
+    from repro_torch.serving import EngineFleet, ServingEngine
 
     monkeypatch.setattr(torch.cuda, "is_available", lambda: False)
     cfg = get_smoke_config("minitron-8b").replace(vocab_size=300, vocab_pad_to=64)
@@ -75,4 +77,10 @@ def test_entry_points_need_a_card_unless_asked_for_cpu(monkeypatch):
         build_system(kv_dtype="int8", quantize_mlp=True)
     with pytest.raises(RuntimeError, match="no CUDA device"):
         build_system(hpc_arch="zamba2-7b")
+    with pytest.raises(RuntimeError, match="no CUDA device"):
+        build_system(replicas=2)
+    with pytest.raises(RuntimeError, match="no CUDA device"):
+        build_desktop_system()
+    with pytest.raises(RuntimeError, match="no CUDA device"):
+        EngineFleet.build(cfg, replicas=2)
     assert ServingEngine(cfg, device="cpu", max_seq=32).device.type == "cpu"

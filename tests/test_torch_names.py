@@ -99,3 +99,19 @@ def test_resolve_matches_reference(params):
         assert isinstance(got, SamplerConfig)
         assert (got.temperature, got.top_k, got.top_p, got.vocab_size) == (
             want.temperature, want.top_k, want.top_p, want.vocab_size)
+
+
+def test_serving_exports_cover_the_reference():
+    """``repro_torch.serving`` exports every name ``repro.serving`` does
+    (the port's own extras beside them), SlotSplicer, WindowPolicy and
+    the fleet among them."""
+    import repro.serving as ref_serving
+    import repro_torch.serving as port_serving
+    from repro_torch.serving import (EngineFleet, FleetHandle, SlotSplicer,  # noqa: F401
+                                     WindowPolicy)
+
+    assert set(ref_serving.__all__) <= set(port_serving.__all__)
+    assert set(port_serving.__all__) - set(ref_serving.__all__) == {"resolve_device",
+                                                                    "TRASH_PAGE"}
+    assert all(hasattr(port_serving, n) for n in port_serving.__all__)
+    assert WindowPolicy().cap_pages == ref_serving.WindowPolicy().cap_pages == 6

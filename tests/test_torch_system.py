@@ -120,7 +120,7 @@ def test_relay_never_sees_plaintext(systems, monkeypatch):
 
 def test_unported_options_refuse():
     with pytest.raises(NotImplementedError, match="not ported"):
-        build_system(device="cpu", replicas=2)
+        build_system(device="cpu", hpc_arch="whisper-medium")
     with pytest.raises(ValueError, match="kv_dtype must be one of"):
         build_system(device="cpu", kv_dtype="int4")
 
