@@ -58,6 +58,17 @@ Phases, each of which fails the run when it fails:
      weights (95 bf16 layers cannot exist on the card before they are
      quantized); every path's peak stays under the card's 80 GB; these
      paths name their local tier, minitron-8b at smoke size, as before;
+  7a. the MoE family, each once the previous system is freed, the same
+     requests and breakdown: "mla", deepseek-v2-lite-16b at full width
+     and depth (27 layers, bf16, 15.7 B params: MLA's latent pages, a
+     dense first block, 64 routed experts top-6 and 2 shared), whose
+     naive MLA decode launches decode_attention at D = 192 a layer a
+     tick, with the prefill check (MoE: the per-layer attention outputs
+     held, flash at D = 192 end to end) and generate() at B = 1;
+     "mla-quantized", the same cut to 8 layers over int8 latent pages with
+     W4A16 weights; "grok", grok-1-314b cut to 2 of 64 layers (bf16, 23
+     GB: a full layer's 8 experts hold 4.83 B params), paged attention at
+     G = 6;
   7b. speculative paths, each once the previous system is freed:
      build_system(speculative=True, spec_k=4), HPC tier full-width
      minitron-8b over bf16 pages, (a) beside the xLSTM local tier (the
@@ -148,9 +159,14 @@ offset, a cap and Skv < Sq, D = 8, and granite's prefill (G = 48, the
 forward); rmsnorm at rows of 3072 (gemma style), 6144 and 8192;
 awq_matmul at deepseek's three W4A16 shapes. The reference phase also
 serves the smoke gemma, granite and deepseek (D = 8; and over int8 pages
-with W4A16) on card and CPU.
+with W4A16) on card and CPU, and the MoE family's smokes (deepseek-v2-lite
+over float32 and int8 latent pages, grok-1). mla_shapes_phase holds and
+times the MoE family's kernel shapes: decode attention and the flash
+forward at MLA's D = 192 and the smoke's 24 (a flash gradient there must
+raise), rmsnorm at 2048, awq_matmul at deepseek-v2-lite's W4A16 shapes
+(the dense block's w2 at K = 10944, 171 groups of 64).
 In the kernels JSON, ``launches`` is a kernel's count summed over the
-six serving paths, the two speculative paths, the two rolling paths, the
+nine serving paths, the two speculative paths, the two rolling paths, the
 desktop fleet and the two training paths (each zeroed just before its
 path and read just after); ``shapes`` lists
 the other timed shapes.
@@ -189,6 +205,12 @@ ZAMBA_POOL_PAGES = 32      # ~152 MB of state snapshot per page at full width
 # deepseek-67b's 95 bf16 layers (134 GB) cannot exist on one card before
 # build_system(quantize_mlp=True) quantizes them: its path keeps 16
 DEEPSEEK_LAYERS = 16
+# the MoE family: deepseek-v2-lite-16b (15.7 B params, 31.4 GB in bf16) runs
+# at full depth; its quantized path keeps 8 of its 27 layers; grok-1-314b's
+# 64 layers hold 4.83 B params of experts each (316 B in all), so its path
+# keeps 2 (11.5 B params, 23 GB)
+MLA_Q_LAYERS = 8
+GROK_LAYERS = 2
 CARD_BYTES = 80e9          # the H100's device memory: a path's peak stays under it
 B, HQ, HKV, D, PAGE, MAX_SEQ = 8, 32, 8, 128, 16, 256
 SPEC_K = 4                 # the speculative paths' drafts a tick: windows of W = 5
@@ -275,6 +297,11 @@ def log(*a):
     print(*a, flush=True)
 
 
+def since(t0, what):
+    """Log the seconds since the kernel build began, at the end of a phase."""
+    log(f"elapsed {time.perf_counter() - t0:.1f} s: {what} done")
+
+
 class Timer:
     """Per-launch CUDA-event timing with the 50 MB L2 flushed before each
     launch, as the serving path finds KV and activations cold."""
@@ -338,7 +365,8 @@ def check_ssd(name, got, want):
 def device_ms(torch, fn, n=20):
     """Device time a call of ``fn`` takes, by kernel (profiler, n calls
     after one warm-up), as text: host time and the L2 state of the
-    per-call timer do not enter it."""
+    per-call timer do not enter it. Where the tracer drops all three
+    windows, CUDA events around n back-to-back calls, labelled so."""
     from torch.profiler import ProfilerActivity, profile
     fn()
     torch.cuda.synchronize()
@@ -352,6 +380,14 @@ def device_ms(torch, fn, n=20):
                      key=lambda e: -e.self_device_time_total)
         if sum(e.count for e in evs) >= n:      # every call launches a kernel at least
             break
+    if not evs:     # the tracer dropped every window: CUDA events over n calls
+        a, b = torch.cuda.Event(enable_timing=True), torch.cuda.Event(enable_timing=True)
+        a.record()
+        for _ in range(n):
+            fn()
+        b.record()
+        torch.cuda.synchronize()
+        return f"{a.elapsed_time(b) / n:.4f} ms (CUDA events, the profiler saw no kernel)"
     total = sum(e.self_device_time_total for e in evs) / n / 1e3
     names = [re.search(r"[A-Za-z]\w*kernel\w*", e.key) for e in evs[:4]]
     return f"{total:.4f} ms (" + "; ".join(
@@ -799,6 +835,7 @@ def kernel_phase(torch, timer):
     flash_phase(torch, timer, rows, randn)
     new_configs_phase(torch, timer, rows, randn, g)
     spec_shapes_phase(torch, timer, rows, randn, g)
+    mla_shapes_phase(torch, timer, rows, randn, g)
 
     for (name, dname), errs in sorted((k, v) for k, v in rows.items()
                                       if isinstance(k, tuple)):
@@ -1074,6 +1111,117 @@ def spec_shapes_phase(torch, timer, rows, randn, g):
                4 * D * HQ * sum(lens))
 
 
+def mla_shapes_phase(torch, timer, rows, randn, g):
+    """The MoE family's kernel shapes against the plain versions in both
+    types, each timed in bf16 beside the library yardstick with device
+    times and bounds: decode attention at MLA's D = 192 (the naive path's
+    K = [K_nope, K_rope] and zero-padded V over every head: B = 8, 16/16
+    heads, the gathered view of MAX_SEQ positions, ragged) and at the
+    smoke's D = 24 (B = 2, 4/4 heads); the flash forward at D = 192 (the
+    whole-prompt prefill, (1, 16/16, 250)) and D = 24; rmsnorm at
+    deepseek-v2-lite's 2048; awq_matmul at its W4A16 shapes (MLA's wo, the
+    shared experts' w1/w3 and w2, the dense first block's w1/w3 and w2, K =
+    10944 being 171 groups of 64). grok-1's paged attention (G = 6, D =
+    128) is held and timed in paged_heads_phase, its rmsnorm (6144) in
+    new_configs_phase."""
+    import torch.nn.functional as F
+    from repro_torch.kernels import awq_matmul as awq_k
+    from repro_torch.kernels import decode_attention as dec_k
+    from repro_torch.kernels import flash_attention as fa_k
+    from repro_torch.kernels import ref
+    from repro_torch.kernels import rmsnorm as rms_k
+    for what, (bb, h, d, dv, lens) in (
+            ("deepseek-v2-lite MLA B=8 16/16 D=192", (B, 16, 192, 128,
+                                                      [1, 5, 16, 17, 100, 128, 255, 256])),
+            ("deepseek-v2-lite smoke MLA B=2 4/4 D=24", (2, 4, 24, 16, [20, 41]))):
+        kl = torch.tensor(lens, dtype=torch.int32, device="cuda")
+        sc = 1.0 / math.sqrt(d)
+        for dname in ("float32", "bfloat16"):
+            dt = getattr(torch, dname)
+            q = randn(bb, h, 1, d, dtype=dt)
+            k, v = randn(bb, h, MAX_SEQ, d, dtype=dt), randn(bb, h, MAX_SEQ, d, dtype=dt)
+            v[..., dv:] = 0                 # V zero-padded to K's width
+            for cap in (0.0, 30.0):
+                rows[("decode_attention", dname)].append(check_close(
+                    f"decode_attention {what} cap={cap}",
+                    dec_k.decode_attention(q, k, v, kv_len=kl, scale=sc, logit_soft_cap=cap),
+                    dec_k.plain(q, k, v, kv_len=kl, scale=sc, logit_soft_cap=cap), dname))
+        mask = (torch.arange(MAX_SEQ, device="cuda")[None, :] < kl[:, None])[:, None, None, :]
+        n_split, chunk = dec_k.splits(bb, h, MAX_SEQ, dec_k._sm_count(0))
+        time_shape(torch, timer, rows, "decode_attention",
+                   f"{what} S={MAX_SEQ} ragged (1 query head a block, {n_split} splits of "
+                   f"{chunk} keys)",
+                   lambda: dec_k.decode_attention(q, k, v, kv_len=kl, scale=sc),
+                   lambda: dec_k.plain(q, k, v, kv_len=kl, scale=sc),
+                   lambda: F.scaled_dot_product_attention(q, k, v, attn_mask=mask, scale=sc),
+                   2 * q.numel() * 2 + 2 * sum(lens) * h * d * 2 + 4 * bb,
+                   4 * d * h * sum(lens))
+    for what, (b, h, sq, d) in (("deepseek-v2-lite MLA prefill", (1, 16, 250, 192)),
+                                ("deepseek-v2-lite smoke MLA", (2, 4, 63, 24))):
+        sc = 1.0 / math.sqrt(d)
+        for dname in ("float32", "bfloat16"):
+            dt = getattr(torch, dname)
+            q, k, v = (randn(b, h, sq, d, dtype=dt) for _ in "qkv")
+            for causal in (True, False):
+                rows[("flash_attention", dname)].append(check_close(
+                    f"flash_attention {what} {(b, h, h, sq, sq, d)} causal={causal}",
+                    fa_k.flash_attention(q, k, v, causal=causal, scale=sc),
+                    fa_k.plain(q, k, v, causal=causal, scale=sc), dname))
+        qg = q.clone().requires_grad_()
+        try:
+            fa_k.flash_attention(qg, k, v, scale=sc)
+        except NotImplementedError:
+            pass
+        else:
+            raise AssertionError(f"flash_attention D={d}: a gradient must raise")
+        pairs = sum(i + 1 for i in range(sq))
+        time_shape(torch, timer, rows, "flash_attention", f"{what} {(b, h, h, sq, sq, d)} causal",
+                   lambda: fa_k.flash_attention(q, k, v, scale=sc),
+                   lambda: fa_k.plain(q, k, v, scale=sc),
+                   lambda: F.scaled_dot_product_attention(q, k, v, is_causal=True, scale=sc),
+                   4 * q.numel() * 2, 4 * b * h * d * pairs, plain_n=20)
+    width = 2048
+    for dname in ("float32", "bfloat16"):
+        dt = getattr(torch, dname)
+        x, w = randn(B, width, dtype=dt), 1 + 0.1 * randn(width, dtype=dt)
+        rows[("rmsnorm", dname)].append(check_close(
+            f"rmsnorm {B}x{width}", rms_k.rmsnorm(x, w), rms_k.plain(x, w), dname))
+    time_shape(torch, timer, rows, "rmsnorm", f"{B}x{width} (deepseek-v2-lite)",
+               lambda: rms_k.rmsnorm(x, w), lambda: rms_k.plain(x, w),
+               lambda: F.rms_norm(x, (width,), w, eps=1e-5),
+               2 * x.numel() * 2 + width * 2, 4 * x.numel())
+    for wname, (M, K, N) in (("MLA wo", (B, 2048, 2048)), ("shared w1/w3", (B, 2048, 2816)),
+                             ("shared w2", (B, 2816, 2048)), ("dense0 w1/w3", (B, 2048, 10944)),
+                             ("dense0 w2", (B, 10944, 2048))):
+        qw = ref.awq_pack(torch.randint(0, 16, (K, N), generator=g, device="cuda"))
+        sc = 0.002 * torch.rand((K // 64, N), generator=g, device="cuda")
+        zr = torch.randint(0, 16, (K // 64, N), generator=g, device="cuda").float()
+        for dname in ("float32", "bfloat16"):
+            x = randn(M, K, dtype=getattr(torch, dname))
+            got = awq_k.awq_matmul(x, qw, sc, zr, group_size=64)
+            rows[("awq_matmul", dname)].append(check_close(
+                f"awq_matmul deepseek-v2-lite {wname} ({M}, {K}, {N}) group 64", got,
+                awq_k.plain(x, qw, sc, zr, group_size=64), dname))
+            if not torch.equal(got, awq_k.awq_matmul(x, qw, sc, zr, group_size=64)):
+                raise AssertionError(f"awq_matmul deepseek-v2-lite {wname}: two calls differ")
+        if wname in ("shared w2", "dense0 w2"):
+            # tinygemm packs K in tiles of 128: 10944 is not, so that row's
+            # yardstick is torch.matmul against the dequantized bf16 weight
+            if K % 128 == 0:
+                lib, lname = int4pack_mm(torch, x, qw, sc, zr, 64), "tinygemm"
+            else:
+                wd = ((ref.awq_unpack(qw).float() - zr.repeat_interleave(64, 0))
+                      * sc.repeat_interleave(64, 0)).bfloat16()
+                lib, lname = (lambda: x @ wd), "torch.matmul, dequantized bf16 weight"
+            time_shape(torch, timer, rows, "awq_matmul",
+                       f"deepseek-v2-lite {wname} ({M}, {K}, {N}) group 64, {K // 64} groups; "
+                       f"{awq_k.splits(M, K, N, 64, awq_k._sm_count(0))}; library: {lname}",
+                       lambda: awq_k.awq_matmul(x, qw, sc, zr, group_size=64),
+                       lambda: awq_k.plain(x, qw, sc, zr, group_size=64), lib,
+                       qw.numel() * 4 + 2 * sc.numel() * 4 + x.numel() * 2 + M * N * 2,
+                       2 * M * K * N, plain_n=20)
+
+
 def paged_plan(torch, b, hq, hkv, n_pages, quant):
     """The split plan the paged wrapper makes for these heads, as text."""
     from repro_torch.kernels import paged_attention as pa_k
@@ -1325,7 +1473,9 @@ def reference_phase(torch):
     # embeddings), granite (MQA), deepseek (D = 8), the last also over int8
     # pages with W4A16 weights
     for arch, kv_dtype in (("gemma-7b", "fp32"), ("granite-20b", "fp32"),
-                           ("deepseek-67b", "fp32"), ("deepseek-67b", "int8")):
+                           ("deepseek-67b", "fp32"), ("deepseek-67b", "int8"),
+                           ("deepseek-v2-lite-16b", "fp32"), ("deepseek-v2-lite-16b", "int8"),
+                           ("grok-1-314b", "fp32")):
         acfg = get_smoke_config(arch).replace(vocab_size=300, vocab_pad_to=64,
                                               compute_dtype="float32")
         params = ServingEngine(acfg, max_seq=96, device="cuda").params
@@ -1349,8 +1499,13 @@ def reference_phase(torch):
                                      f"CPU: {ta} vs {tc}")
         gpu.shutdown()
         cpu.shutdown()
+        width = (acfg.qk_nope_head_dim + acfg.qk_rope_head_dim if acfg.use_mla
+                 else acfg.head_dim)
         log(f"reference: {len(prompts)} prompts token-identical card vs CPU ({arch} smoke, "
-            f"{acfg.n_heads}/{acfg.n_kv_heads} heads of {acfg.head_dim}, float32, generate "
+            f"{acfg.n_heads}/{acfg.n_kv_heads} heads of {width}"
+            f"{' (MLA)' if acfg.use_mla else ''}"
+            f"{f', {acfg.n_experts} experts top-{acfg.top_k}' if acfg.n_experts else ''}"
+            f", float32, generate "
             f"and paged batcher, {kv_dtype} pages"
             f"{', W4A16 group 64' if kv_dtype != 'fp32' else ''})")
 
@@ -1558,6 +1713,34 @@ def training_reference_phase(torch):
         f"(sqrt(vh) + eps) a step)")
 
 
+@contextlib.contextmanager
+def moe_routing(record, replay=False):
+    """Record every MoE call's top-k experts into ``record`` (a list, in
+    call order), or with ``replay`` route each call to the experts
+    recorded there, its gates taken from its own router probabilities at
+    them (renormalized where the config says)."""
+    from repro_torch.models import moe
+    route = moe._route
+    calls = iter(list(record)) if replay else None
+
+    def pinned(xt, router, cfg, K):
+        if calls is None:
+            gates, idx = route(xt, router, cfg, K)
+            record.append(idx)
+            return gates, idx
+        idx = next(calls)
+        gates = (xt.float() @ router.float()).softmax(-1).gather(-1, idx)
+        if cfg.router_renorm:
+            gates = gates / gates.sum(-1, keepdim=True).clamp_min(1e-9)
+        return gates, idx
+
+    moe._route = pinned
+    try:
+        yield
+    finally:
+        moe._route = route
+
+
 def prefill_check(torch, hpc, label):
     """On a full-width dense system, a 250-token prompt through the
     whole-prompt prefill branch (flash_attention) and the chunked one
@@ -1572,7 +1755,11 @@ def prefill_check(torch, hpc, label):
         valid bf16 computations drift apart through 32 random layers by
         a few bf16 ulps of the largest logit, about the size of the
         element-wise bf16 tolerance, which is why that tolerance is held
-        per layer; a masking fault moves the logits by O(their spread);
+        per layer; a masking fault moves the logits by O(their spread).
+        For the MoE family the per-layer check holds the attention
+        outputs, and the end-to-end one reruns the whole prompt on the
+        chunked pass's experts (``moe_routing``): a bf16 ulp moves some
+        tokens' top-k, which is a different function, not a rounding;
       * generate() at B = 1 (the contiguous cache): one decode_attention
         launch a layer a decode step, at this model's heads (granite-20b:
         G = 48).
@@ -1592,32 +1779,68 @@ def prefill_check(torch, hpc, label):
         x = layers.embed(toks, params["embed"], cfg)
         positions = torch.arange(n, device=hpc.device)
         worst = 0.0
-        for i in range(cfg.n_layers):
-            bp = _layer(params["blocks"], i)
-            yw = model._block(x, bp, positions=positions, cache_index=0,
-                              cache=(whole["k"][i], whole["v"][i]))
+        # (params, cache entry, MoE block?) of every layer: the leading
+        # dense blocks of deepseek-v2-lite first
+        stack = ([(params[f"dense{i}"], lambda c, i=i: model._dense_cache(c, i), False)
+                  for i in range(cfg.first_dense_layers)]
+                 + [(_layer(params["blocks"], i), lambda c, i=i: model._layer_cache(c, i),
+                     True) for i in range(model.n_scan)])
+        for i, (bp, lc, moe_block) in enumerate(stack):
+            if cfg.n_experts:
+                # MoE: the attention outputs are held, and both branches go
+                # on through one MLP (a bf16 ulp may move a token's top-k)
+                h = layers.rmsnorm(x, bp["ln1"], cfg)
+                aw = model._attn(h, bp["attn"], positions=positions, cache_index=0,
+                                 cache=lc(whole))
+                ac = model._attn(h, bp["attn"], positions=positions, cache_index=0,
+                                 chunked=True, cache=lc(chunk))
+                worst = max(worst, check_close(f"prefill layer {i} attention", aw, ac,
+                                               "bfloat16"))
+                x = x + ac
+                x = x + model._mlp(layers.rmsnorm(x, bp["ln2"], cfg), bp["mlp"], moe_block,
+                                   True)
+                continue
+            yw = model._block(x, bp, positions=positions, cache_index=0, cache=lc(whole))
             yc = model._block(x, bp, positions=positions, cache_index=0, chunked=True,
-                              cache=(chunk["k"][i], chunk["v"][i]))
+                              cache=lc(chunk))
             worst = max(worst, check_close(f"prefill layer {i}", yw, yc, "bfloat16"))
             x = yc
-        for key in ("k", "v"):
+        kv_keys = [k for k in whole if k != "pos"]
+        for key in kv_keys:
             if not torch.equal(whole[key], chunk[key]):
                 raise AssertionError(f"prefill branches wrote different {key} caches")
-        del whole, chunk, x, yw, yc
-        out, ms = {}, {}
+        del whole, chunk, x
+        out, ms, routes = {}, {}, {}
         before = fa_k.launches
         for name in ("prefill", "prefill_chunk"):
             cache = model.init_cache(1, MAX_SEQ, hpc.device)
             torch.cuda.synchronize()
             t0 = time.perf_counter()
-            out[name] = getattr(model, name)(params, toks, cache)
+            with moe_routing(routes.setdefault(name, [])):
+                out[name] = getattr(model, name)(params, toks, cache)
             torch.cuda.synchronize()
             ms[name] = (time.perf_counter() - t0) * 1e3
         launched = fa_k.launches - before
+        moe_note = ""
+        if cfg.n_experts:
+            # a bf16 ulp between the branches moves some tokens' top-k, and a
+            # moved token's MoE output changes by O(1): the whole prompt
+            # again on the chunked pass's experts, so the end-to-end bound
+            # measures attention and numerics, not the router's ties
+            moved = sum(int((a != b).any(-1).sum())
+                        for a, b in zip(routes["prefill"], routes["prefill_chunk"]))
+            free = (out["prefill"][0] - out["prefill_chunk"][0]).float().abs().max().item()
+            with moe_routing(routes["prefill_chunk"], replay=True):
+                out["prefill"] = model.prefill(params, toks,
+                                               model.init_cache(1, MAX_SEQ, hpc.device))
+            moe_note = (f"; MoE: {moved} of {n * len(routes['prefill'])} (token, layer) "
+                        f"routings differ between the branches, last logits {free:.4e} "
+                        f"apart with each its own routing, held below with the chunked "
+                        f"pass's")
     (lw, cw), (lc, cc) = out["prefill"], out["prefill_chunk"]
     top = lc.float().abs().max().item()
     err = (lw - lc).float().abs().max().item()
-    kv_err = max((cw[k] - cc[k]).float().abs().max().item() for k in ("k", "v"))
+    kv_err = max((cw[k] - cc[k]).float().abs().max().item() for k in kv_keys)
     same_token = bool((lw.argmax(-1) == lc.argmax(-1)).all())
     if (launched != cfg.n_layers or cw["pos"] != n or not bool(lw.isfinite().all())
             or not err <= PREFILL_E2E_REL * top):
@@ -1631,18 +1854,22 @@ def prefill_check(torch, hpc, label):
     if dec != cfg.n_layers * steps or res.n_generated != steps + 1:
         raise AssertionError(f"{label} generate(): {res.n_generated} tokens, {dec} "
                              f"decode_attention launches for {cfg.n_layers} layers")
+    width, heads = cfg.head_dim, (cfg.n_heads, cfg.n_kv_heads)
+    if cfg.use_mla:     # K = [K_nope, K_rope] over every head, V padded to it
+        width, heads = cfg.qk_nope_head_dim + cfg.qk_rope_head_dim, (cfg.n_heads,) * 2
     log(f"{label} path generate() at B = 1: {res.n_generated} tokens, {dec} "
-        f"decode_attention launches ({cfg.n_layers} a decode step) at {cfg.n_heads}/"
-        f"{cfg.n_kv_heads} heads of {cfg.head_dim} (G = {cfg.n_heads // cfg.n_kv_heads}, "
-        f"{dec_k.heads_per_block(cfg.n_heads // cfg.n_kv_heads)} query heads a block)")
+        f"decode_attention launches ({cfg.n_layers} a decode step) at {heads[0]}/"
+        f"{heads[1]} heads of {width} (G = {heads[0] // heads[1]}, "
+        f"{dec_k.heads_per_block(heads[0] // heads[1])} query heads a block)")
+    held = "attention outputs" if cfg.n_experts else "block outputs"
     log(f"{label} path prefill check: {n} tokens, {cfg.n_layers} layers; layer by layer "
-        f"from one input: block outputs max abs diff {worst:.3e} (bf16 atol {atol} + rtol "
+        f"from one input: {held} max abs diff {worst:.3e} (bf16 atol {atol} + rtol "
         f"{rtol}), K/V caches bit-equal; end to end: prefill ({launched} flash_attention "
         f"launches, {ms['prefill']:.1f} ms) vs prefill_chunk ({ms['prefill_chunk']:.1f} "
         f"ms): same greedy token {same_token}, last logits max abs diff {err:.4e} (bound "
         f"{PREFILL_E2E_REL} x max |logit| {top:.3f} = {PREFILL_E2E_REL * top:.4e}; the "
         f"bf16 tolerance of max |logit| would be {atol + rtol * top:.4e}), K/V max abs "
-        f"diff {kv_err:.4e}")
+        f"diff {kv_err:.4e}{moe_note}")
 
 
 def training_phase(torch, arch):
@@ -2394,13 +2621,20 @@ def breakdown_phase(torch, label, sys_):
     from repro_torch.models.lm import _layer
     lp = _layer(hpc.params["blocks"], 0)
     xs = torch.randn(b.B, 1, hpc.cfg.d_model, device=hpc.device, dtype=hpc.cfg.cdtype())
-    wname, w, ln = (("w1", lp["mlp"]["w1"], lp["ln1"]) if "mlp" in lp
-                    else ("in_proj", lp["in_proj"], lp["ln"]))
+    if "mlp" in lp and "router" in lp["mlp"]:
+        # an MoE block: the shared experts' w1 where there are any, else
+        # the attention's output projection (grok-1: 48 x 128 = d_model)
+        wname, w = (("shared w1", lp["mlp"]["shared"]["w1"]) if "shared" in lp["mlp"]
+                    else ("wo", lp["attn"]["wo"]))
+        ln = lp["ln1"]
+    else:
+        wname, w, ln = (("w1", lp["mlp"]["w1"], lp["ln1"]) if "mlp" in lp
+                        else ("in_proj", lp["in_proj"], lp["ln"]))
     calls = {f"_matmul {wname} ({'awq_matmul' if isinstance(w, dict) else 'torch matmul'})":
              lambda: layers._matmul(xs, w, hpc.cfg),
              "rmsnorm": lambda: layers.rmsnorm(xs, ln, hpc.cfg),
              "torch.add": lambda: xs + xs}
-    if "k_qscale" in cache:
+    if any(k.endswith("_qscale") for k in cache):
         calls["quantize_kv"] = lambda: layers.ops.quantize_kv(xs, torch.int8)
     host_call = {}
     with torch.inference_mode():
@@ -2623,11 +2857,13 @@ def main() -> int:
 
     timer = Timer(torch)
     rows = kernel_phase(torch, timer)
+    since(t0, "kernel phase")
     reference_phase(torch)
     xlstm_reference_phase(torch)
     speculative_reference_phase(torch)
     rolling_reference_phase(torch)
     training_reference_phase(torch)
+    since(t0, "reference phases")
 
     paths, rolling = {}, {}
     dense_must = ("rmsnorm", "paged_attention", "decode_attention")
@@ -2656,9 +2892,29 @@ def main() -> int:
             ("deepseek", ("rmsnorm", "paged_attention_quant", "awq_matmul", "decode_attention"),
              dict(hpc_arch="deepseek-67b", kv_dtype="int8", quantize_mlp=True,
                   hpc_overrides=full_width("deepseek-67b", n_layers=DEEPSEEK_LAYERS),
+                  local_arch="minitron-8b")),
+            ("mla", ("rmsnorm", "decode_attention"),
+             dict(hpc_arch="deepseek-v2-lite-16b",
+                  hpc_overrides=full_width("deepseek-v2-lite-16b"), local_arch="minitron-8b")),
+            ("mla-quantized", ("rmsnorm", "decode_attention", "awq_matmul"),
+             dict(hpc_arch="deepseek-v2-lite-16b", kv_dtype="int8", quantize_mlp=True,
+                  hpc_overrides=full_width("deepseek-v2-lite-16b", n_layers=MLA_Q_LAYERS),
+                  local_arch="minitron-8b")),
+            ("grok", ("rmsnorm", "paged_attention"),
+             dict(hpc_arch="grok-1-314b",
+                  hpc_overrides=full_width("grok-1-314b", n_layers=GROK_LAYERS),
                   local_arch="minitron-8b"))):
         launches, stats, sys_ = main_path_phase(torch, f"{label} path", must, **kw)
-        if label in ("dense", "gemma", "granite"):
+        if label.startswith("mla"):
+            # the naive MLA decode: one decode_attention launch a layer a
+            # tick, at D = 192 over the gathered latent view
+            hcfg = sys_.engines["hpc"].cfg
+            log(f"{label} path: decode_attention launches while serving "
+                f"{stats['during']['decode_attention']} over {hcfg.n_layers} layers "
+                f"({stats['during']['decode_attention'] / hcfg.n_layers:.1f} decode ticks), "
+                f"D = {hcfg.qk_nope_head_dim + hcfg.qk_rope_head_dim}, "
+                f"{hcfg.n_heads}/{hcfg.n_heads} heads; kv_lora_rank {hcfg.kv_lora_rank}")
+        if label in ("dense", "gemma", "granite", "mla"):
             prefill_check(torch, sys_.engines["hpc"], label)
         if label == "dense":
             stats.update(xlstm_breakdown(torch, f"{label} path", sys_))
@@ -2676,6 +2932,7 @@ def main() -> int:
                                  f"{CARD_BYTES / 1e9:.0f} GB")
         stats.update(breakdown_phase(torch, f"{label} path", sys_))
         paths[label] = (launches, stats)
+        since(t0, f"{label} path")
         # the next path builds only once this one's memory went back
         del sys_
         gc.collect()
@@ -2713,7 +2970,9 @@ def main() -> int:
         log(f"compare {what:38s} " + "  ".join(
             f"{label} {stats[key]:14.4f}" for label, (_, stats) in specs.items()))
 
+    since(t0, "speculative paths")
     fleet = desktop_fleet_phase(torch, xlstm)
+    since(t0, "desktop fleet")
     log(f"{card}: rolling paths (HPC tier full-width minitron-8b; WindowPolicy({WINDOW}), "
         f"{ROLL_SESSIONS} sessions of {ROLL_PROMPT}-token prompts): bf16 pages x {ROLL_NEW} "
         f"new tokens | int8 pages + W4A16 x {ROLL_NEW // 2}")
@@ -2736,11 +2995,16 @@ def main() -> int:
             f"{label} {stats[key]:14.4f}" for label, (_, stats) in rolling.items()))
 
     trains = {arch: training_phase(torch, arch) for arch in ("minitron-8b", "gemma-7b")}
+    since(t0, "training paths")
     driver_phase(torch)
+    since(t0, "training driver")
 
     log(f"{card}: dense bf16 minitron-8b | int8 pages + W4A16 (group 64) minitron-8b | "
         f"bf16 zamba2-7b (splice path) | bf16 gemma-7b | bf16 granite-20b | int8 pages + "
-        f"W4A16 deepseek-67b ({DEEPSEEK_LAYERS} layers), the same 4 + 1 requests")
+        f"W4A16 deepseek-67b ({DEEPSEEK_LAYERS} layers) | mla: bf16 deepseek-v2-lite-16b "
+        f"(27 layers) | mla-quantized: int8 latent pages + W4A16 deepseek-v2-lite-16b "
+        f"({MLA_Q_LAYERS} layers) | grok: bf16 grok-1-314b ({GROK_LAYERS} layers), the same "
+        f"4 + 1 requests")
     for key, what in (("ttft_median_ms", "TTFT median ms"), ("ttft_max_ms", "TTFT max ms"),
                       ("tok_s_session", "decode tok/s per session"),
                       ("tok_s_all", "tok/s over all 4 sessions"),

@@ -24,7 +24,8 @@ ARCHS = [
 
 PORTED = {"minitron-8b": "minitron_8b", "zamba2-7b": "zamba2_7b",
           "gemma-7b": "gemma_7b", "granite-20b": "granite_20b",
-          "deepseek-67b": "deepseek_67b", "xlstm-125m": "xlstm_125m"}
+          "deepseek-67b": "deepseek_67b", "xlstm-125m": "xlstm_125m",
+          "deepseek-v2-lite-16b": "deepseek_v2_lite_16b", "grok-1-314b": "grok_1_314b"}
 
 
 def _load(arch: str):

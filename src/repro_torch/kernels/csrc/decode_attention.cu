@@ -30,9 +30,13 @@
 //  * inside a block, threads map to (key, D-slice): L <= 32 lanes (a power
 //    of two) share a key row, each reading VEC values of K and of V -- one
 //    16-byte vector (8 bf16 or 4 float32), two where a row has more than
-//    32 (float32 at D = 256) -- neighbouring lanes on neighbouring
+//    32 (float32 at D = 192 and 256) -- neighbouring lanes on neighbouring
 //    addresses; one K row serves all GB query heads of the block, so G = 1
-//    keeps every lane busy. A lane group takes KB = 4 keys at a time (8
+//    keeps every lane busy. A row need not fill its L lanes: MLA's D = 192
+//    is 24 vectors in bf16 (and 24 pairs in float32) over 32 lanes, of
+//    which 8 load nothing and add zeros to the shuffled dots (the row is
+//    whole vectors, so no lane reads past it); the smoke configs' D = 24 is
+//    3 bf16 vectors (6 float32) over 4 (8) lanes, with no padding. A lane group takes KB = 4 keys at a time (8
 //    vector loads in flight a thread), reduces the GB x KB partial dots
 //    over its L lanes with shuffles, and updates its running (m, l, acc)
 //    once per batch. No shared memory on the key loop: each K/V byte is
@@ -60,7 +64,7 @@
 // Float32 inputs keep exact float32 math (fmaf, expf, tanhf): the card's
 // greedy streams must equal the CPU's token for token; bf16 inputs take
 // the fast exponential (__expf, two ulp), far inside their tolerance.
-// D (8, 16, 112, 128, 256) and GB (1, 2, 4, 8) are template parameters;
+// D (8, 16, 24, 112, 128, 192, 256) and GB (1, 2, 4, 8) are template parameters;
 // another fails the launch with cudaErrorInvalidValue.
 
 #include <cooperative_groups.h>
@@ -109,11 +113,14 @@ template <> __device__ __forceinline__ float exp_<__nv_bfloat16>(float x) { retu
 
 template <typename T, int D> struct Geo {
   static constexpr int E = 16 / (int)sizeof(T);    // elements per 16-byte vector
-  static constexpr int VEC = D / 32 > E ? D / 32 : E;  // elements a lane takes
+  // elements a lane takes: one vector, or the fewest whole vectors that
+  // keep a row within 32 lanes (float32 at D = 192: two vectors of 4)
+  static constexpr int VEC = D / 32 > E ? (D / 32 + E - 1) / E * E : E;
   static constexpr int NCH = D / VEC;              // lane slices per row, <= 32
   static constexpr int L = NCH <= 1 ? 1 : NCH <= 2 ? 2 : NCH <= 4 ? 4 : NCH <= 8 ? 8
                            : NCH <= 16 ? 16 : 32;  // lanes per key row
   static constexpr int LG = 32 / L;                // lane groups per warp
+  static_assert(D % VEC == 0 && NCH <= 32, "a row must be whole vectors over <= 32 lanes");
 };
 
 // Merge state (m2, l2, a2) into (m, l, a); a state with l = 0 weighs zero.
@@ -342,8 +349,10 @@ static int launch_d(int D, int GB, int NG, const void* q, const void* k, const v
   switch (D) {
     case 8: return launch_g<T, 8>(ARGS);
     case 16: return launch_g<T, 16>(ARGS);
+    case 24: return launch_g<T, 24>(ARGS);
     case 112: return launch_g<T, 112>(ARGS);
     case 128: return launch_g<T, 128>(ARGS);
+    case 192: return launch_g<T, 192>(ARGS);
     case 256: return launch_g<T, 256>(ARGS);
     default: return (int)cudaErrorInvalidValue;
   }

@@ -37,7 +37,8 @@
 //  * Q and K rows are padded to D + 4 floats and read as float4, the P
 //    tile to 48 floats, so every shared-memory access is free of bank
 //    conflicts; ~79 KB of dynamic shared memory at D = 128 (two blocks per
-//    SM), 141.5 KB at D = 256 (one), above the 48 KB static limit, so each
+//    SM), 109.5 KB at D = 192 (two), 141.5 KB at D = 256 (one), above the
+//    48 KB static limit, so each
 //    instantiation lifts its cap once
 //    (cudaFuncAttributeMaxDynamicSharedMemorySize); at D = 8 a thread's
 //    output column tc + 16 c exists for tc < 8 only.
@@ -51,22 +52,28 @@
 //  * Q (64 rows) and a ring of two stages of K and V tiles of 64 keys
 //    live in shared memory as bf16 in the 128-byte swizzle (16-byte chunk
 //    c of row r at chunk c ^ (r % 8) of its 128-byte row), as D / 64
-//    column blocks of 64 values. D = 112 is padded to 128, D = 16 and 8 to
-//    64, with zero columns that are never stored (D = 8 takes one k16 step
-//    of Q K^T over 8 zero columns: wgmma's reduction is 16 deep).
-//    cp.async copies 16 bytes a thread, its zero-fill form covering rows
-//    past Sq or Skv and the pad; tile j + 1 is in flight while tile j is
-//    computed. 81 KB at D = 128; 161 KB at D = 256, so one block an SM;
+//    column blocks of 64 values. D = 112 is padded to 128, D = 24, 16 and 8
+//    to 64, with zero columns that are never stored (D = 8 takes one k16
+//    step of Q K^T over 8 zero columns, D = 24 two steps, the second over
+//    8 values and 8 zeros: wgmma's reduction is 16 deep). MLA's D = 192 is
+//    three column blocks, no pad (a row is 24 chunks, which do not divide
+//    the 128 threads: wgmma.cuh's load_tile then deals the tile's chunks
+//    out in row-major order). cp.async copies 16 bytes a thread, its
+//    zero-fill form covering rows past Sq or Skv and the pad; tile j + 1
+//    is in flight while tile j is computed. 81 KB at D = 128; 121 KB at
+//    D = 192 and 161 KB at D = 256, so one block an SM at both (two would
+//    need 242 KB of the SM's 228);
 //  * S = Q K^T is wgmma m64n64k16 with Q and K read from shared memory,
 //    both K-major (D contiguous): descriptor SBO 1024 B between 8-row
-//    groups, the k-step advancing 32 B within the swizzled row;
+//    groups, the k-step advancing 32 B within the swizzled row (12 k16
+//    steps at D = 192);
 //  * the online softmax runs on S's accumulator fragment in registers, in
 //    float32 and base 2: a thread holds rows r and r + 8 of its warp's 16,
 //    and the four lanes that share a row reduce its max with two shuffles
 //    (the row sum is reduced once, at the end);
-//  * O += P V is wgmma m64nDPk16 with P from registers (at D = 256 two
-//    m64n128 products over V's column halves, 128 accumulator floats a
-//    thread beside S's 32): the m64n64 f32
+//  * O += P V is wgmma m64nDPk16 with P from registers (m64n192 at D =
+//    192, 96 accumulator floats a thread; at D = 256 two m64n128 products
+//    over V's column halves, 128 floats, beside S's 32): the m64n64 f32
 //    accumulator fragment of S maps onto four k16 A fragments (keys
 //    16 kk .. 16 kk + 15 are S's n8 blocks 2 kk and 2 kk + 1), so P is
 //    rounded to bf16 and packed in place. V is the B operand with the
@@ -92,9 +99,12 @@
 //    row that sees no key, which reads all Skv keys).
 // D is a template parameter (compile-time trip counts, no guarded
 // register loops), built for 8 (deepseek-67b's smoke), 16 (the other
-// smoke configs), 112 (zamba2's shared block), 128 (minitron-8b,
-// granite-20b, deepseek-67b) and 256 (gemma-7b); another D fails at launch
-// with cudaErrorInvalidValue.
+// smoke configs), 24 (deepseek-v2-lite's smoke MLA), 112 (zamba2's shared
+// block), 128 (minitron-8b, granite-20b, deepseek-67b, grok-1), 192
+// (deepseek-v2-lite's MLA: qk_nope 128 + qk_rope 64, V zero-padded to it)
+// and 256 (gemma-7b); another D fails at launch with
+// cudaErrorInvalidValue. The backward (flash_attention_bwd.cu) is not
+// built for 24 or 192: the wrapper refuses a gradient there.
 
 #include <cuda_bf16.h>
 #include <cuda_runtime.h>
@@ -509,8 +519,10 @@ extern "C" int flash_attention_launch(const void* q, const void* k, const void* 
   switch (D) {
     case 8: return dtype == 0 ? launch<float, 8>(ARGS) : launch_bf16<8>(ARGS_BF16);
     case 16: return dtype == 0 ? launch<float, 16>(ARGS) : launch_bf16<16>(ARGS_BF16);
+    case 24: return dtype == 0 ? launch<float, 24>(ARGS) : launch_bf16<24>(ARGS_BF16);
     case 112: return dtype == 0 ? launch<float, 112>(ARGS) : launch_bf16<112>(ARGS_BF16);
     case 128: return dtype == 0 ? launch<float, 128>(ARGS) : launch_bf16<128>(ARGS_BF16);
+    case 192: return dtype == 0 ? launch<float, 192>(ARGS) : launch_bf16<192>(ARGS_BF16);
     case 256: return dtype == 0 ? launch<float, 256>(ARGS) : launch_bf16<256>(ARGS_BF16);
     default: return (int)cudaErrorInvalidValue;
   }

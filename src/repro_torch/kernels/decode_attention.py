@@ -30,7 +30,7 @@ launches = 0
 MIN_KEYS = 16                # keys a split holds at least, where S has them
 MAX_SPLITS = 8               # splits of one (slot, kv head): one cluster, 8 blocks at most
 BLOCKS_PER_SM = 2            # the plan aims at least at this many blocks per SM
-HEAD_DIMS = (8, 16, 112, 128, 256)
+HEAD_DIMS = (8, 16, 24, 112, 128, 192, 256)
 
 # csrc/decode_attention.cu's DecodeArgs, passed as one block (a ctypes
 # call costs per argument): 5 pointers, 8 ints, 2 floats, an int, padding,

@@ -42,7 +42,8 @@ from repro_torch.kernels.ref import mha, mha_chunked
 launches = 0
 launches_bwd = 0
 CHUNK_Q = 512              # the plain version's query chunk past 1024 queries
-HEAD_DIMS = (8, 16, 112, 128, 256)
+HEAD_DIMS = (8, 16, 24, 112, 128, 192, 256)   # the forward kernel's
+BWD_HEAD_DIMS = (8, 16, 112, 128, 256)         # the backward kernel's
 
 _ARGS = (ctypes.c_void_p,) * 6 + (ctypes.c_int,) * 6 + (
     ctypes.c_float, ctypes.c_float, ctypes.c_int, ctypes.c_int, ctypes.c_void_p)
@@ -178,7 +179,7 @@ def _launch_bwd(q, k, v, o, o_lo, lse, do, causal, scale, cap, need_q, need_kv):
     err = _build.bind("flash_attention_bwd", "flash_attention_bwd_launch",
                       (ctypes.c_char_p,))(args)
     _build.check(err, f"flash_attention backward (q {tuple(q.shape)}, k {tuple(k.shape)}, "
-                      f"{q.dtype}; the kernel is built for D in {HEAD_DIMS} and "
+                      f"{q.dtype}; the kernel is built for D in {BWD_HEAD_DIMS} and "
                       "B*Hq <= 65535)")
     launches_bwd += 1
     return dq, dk, dv
@@ -227,5 +228,9 @@ def flash_attention(q, k, v, *, causal=True, scale=None, logit_soft_cap=0.0):
                              "q, k, v on one device")
     scale = scale if scale is not None else 1.0 / math.sqrt(D)
     if torch.is_grad_enabled() and (q.requires_grad or k.requires_grad or v.requires_grad):
+        if D not in BWD_HEAD_DIMS:
+            raise NotImplementedError(
+                f"flash_attention's backward kernel is built for D in {BWD_HEAD_DIMS}, "
+                f"got D={D}: training at this head width is not ported yet")
         return _FlashAttention.apply(q, k, v, causal, scale, logit_soft_cap)
     return _launch(q, k, v, causal, scale, logit_soft_cap, False)[0]

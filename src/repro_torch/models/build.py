@@ -4,10 +4,11 @@ Protocol (see lm.TransformerLM, ssm.HybridLM, xlstm.XLSTMLM): param_defs() /
 init(seed, device),
 init_cache(batch, max_seq, device) / cache_specs(),
 prefill_chunk(params, tokens, cache) -> (last_logits, cache),
-decode_step(params, token, cache) -> (logits, cache); the dense model also
+decode_step(params, token, cache) -> (logits, cache); TransformerLM (the
+dense and moe families) also
 has forward(params, tokens) -> logits, loss(params, batch) -> (loss,
 metrics) and prefill(params, tokens, cache) -> (last_logits, cache), as
-does the xLSTM model. The dense model alone has the speculative contract,
+does the xLSTM model. TransformerLM alone has the speculative contract,
 verify_chunk(params, window, cache) -> (logits (B, W, V), cache) and
 propose_k(params, token, cache, k) -> (drafts (B, k), cache).
 """
@@ -24,9 +25,9 @@ def build_model(cfg: ModelConfig):
     if cfg.family == "ssm":
         from repro_torch.models.xlstm import XLSTMLM
         return XLSTMLM(cfg)
-    if cfg.is_encoder_decoder or cfg.family != "dense":
+    if cfg.is_encoder_decoder or cfg.family not in ("dense", "moe"):
         raise NotImplementedError(
-            f"{cfg.name}: family {cfg.family!r} is not ported yet (dense, "
+            f"{cfg.name}: family {cfg.family!r} is not ported yet (dense, moe, "
             "hybrid and ssm only)")
     from repro_torch.models.lm import TransformerLM
     return TransformerLM(cfg)

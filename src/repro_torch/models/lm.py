@@ -1,6 +1,9 @@
-"""TransformerLM, dense path: the serving and training entry points of
-the JAX package's ``models/lm.py`` for the dense GQA family (minitron-8b
-and its smoke config).
+"""TransformerLM: the serving and training entry points of the JAX
+package's ``models/lm.py`` for the dense GQA family (minitron-8b,
+gemma-7b, granite-20b, deepseek-67b) and the MoE family, with MLA
+(deepseek-v2-lite-16b: unstacked leading dense blocks ``dense{i}``,
+then MoE blocks) or GQA (grok-1-314b). Cross-attention (the vision
+family) is not ported yet.
 
 The JAX package runs the layers under ``lax.scan`` over stacked params;
 here a Python loop walks the same ``(L, ...)`` leaves. Each layer's
@@ -8,6 +11,10 @@ cache is a view into the ``(L, ...)`` cache or pool buffers and is
 written in place, so a decode tick never copies the pool. The training
 forward recomputes each layer in the backward pass when ``cfg.remat``
 (``torch.utils.checkpoint``, the JAX package's ``jax.checkpoint``).
+
+MoE blocks route with ``cfg.capacity_factor`` in the training forward
+and with ``cfg.eval_capacity_factor`` whenever a cache is passed
+(prefill, chunks, decode, verify), as the reference does.
 """
 
 from __future__ import annotations
@@ -15,7 +22,7 @@ from __future__ import annotations
 import torch
 import torch.utils.checkpoint
 
-from repro_torch.models import layers
+from repro_torch.models import layers, mla as mla_mod, moe as moe_mod
 from repro_torch.models.common import ModelConfig, ParamDef, init_params, tree_map
 
 
@@ -31,89 +38,141 @@ def _layer(tree, i: int):
 
 class TransformerLM:
     def __init__(self, cfg: ModelConfig):
-        unported = [name for name, on in (
-            ("MoE", cfg.n_experts), ("MLA", cfg.use_mla),
-            ("first_dense_layers", cfg.first_dense_layers),
-            ("cross-attention", cfg.cross_attn_every)) if on]
-        if unported:
+        if cfg.cross_attn_every:
             raise NotImplementedError(
-                f"{cfg.name}: {', '.join(unported)} not ported yet (dense GQA only)")
+                f"{cfg.name}: cross-attention not ported yet (dense, MoE and MLA only)")
         self.cfg = cfg
+        self.n_scan = cfg.n_layers - cfg.first_dense_layers
+        self.mla_absorbed = cfg.mla_absorbed_decode
 
     # ------------------------------------------------------------------ params
-    def _block_def(self):
+    def _block_def(self, moe_block: bool = True):
         cfg = self.cfg
         return {
             "ln1": layers.rmsnorm_def(cfg.d_model, cfg.gemma_style),
             "ln2": layers.rmsnorm_def(cfg.d_model, cfg.gemma_style),
-            "attn": layers.attention_def(cfg),
-            "mlp": layers.mlp_def(cfg),
+            "attn": mla_mod.mla_def(cfg) if cfg.use_mla else layers.attention_def(cfg),
+            "mlp": (moe_mod.moe_def(cfg) if moe_block and cfg.n_experts
+                    else layers.mlp_def(cfg)),
         }
 
     def param_defs(self):
         cfg = self.cfg
         defs = {
             "embed": layers.embedding_def(cfg),
-            "blocks": _stack(self._block_def(), cfg.n_layers),
+            "blocks": _stack(self._block_def(moe_block=True), self.n_scan),
             "ln_f": layers.rmsnorm_def(cfg.d_model, cfg.gemma_style),
         }
         if not cfg.tie_embeddings:
             defs["lm_head"] = {"w": ParamDef((cfg.padded_vocab, cfg.d_model),
                                              ("vocab", "embed"), init="embed")}
+        for i in range(cfg.first_dense_layers):
+            defs[f"dense{i}"] = self._block_def(moe_block=False)
         return defs
 
     def init(self, seed: int = 0, device="cpu"):
         return init_params(self.param_defs(), seed, self.cfg.pdtype(), device)
 
     # ------------------------------------------------------------------ cache
+    def _kv_names(self):
+        return ("c_kv", "k_rope") if self.cfg.use_mla else ("k", "v")
+
+    def _dense_names(self, i):
+        if self.cfg.use_mla:
+            return (f"dense{i}_ckv", f"dense{i}_krope")
+        return (f"dense{i}_k", f"dense{i}_v")
+
     def init_cache(self, batch, max_seq, device="cpu"):
         cfg = self.cfg
-        shape = (cfg.n_layers, batch, cfg.n_kv_heads, max_seq, cfg.head_dim)
-        return {"pos": 0,
-                "k": torch.zeros(shape, dtype=cfg.cdtype(), device=device),
-                "v": torch.zeros(shape, dtype=cfg.cdtype(), device=device)}
+        if cfg.use_mla:
+            one = ((batch, max_seq, cfg.kv_lora_rank),
+                   (batch, max_seq, cfg.qk_rope_head_dim))
+        else:
+            one = ((batch, cfg.n_kv_heads, max_seq, cfg.head_dim),) * 2
+        shapes = {n: (self.n_scan,) + s for n, s in zip(self._kv_names(), one)}
+        for i in range(cfg.first_dense_layers):
+            shapes.update(zip(self._dense_names(i), one))
+        return {"pos": 0, **{n: torch.zeros(s, dtype=cfg.cdtype(), device=device)
+                             for n, s in shapes.items()}}
 
     def cache_specs(self):
-        return {"pos": (),
-                "k": ("layers", "batch", "kv_heads", "kv_seq", None),
-                "v": ("layers", "batch", "kv_heads", "kv_seq", None)}
+        cfg = self.cfg
+        if cfg.use_mla:
+            one = ("batch", "kv_seq", None)
+        else:
+            one = ("batch", "kv_heads", "kv_seq", None)
+        specs = {"pos": ()}
+        for n in self._kv_names():
+            specs[n] = ("layers",) + one
+        for i in range(cfg.first_dense_layers):
+            for n in self._dense_names(i):
+                specs[n] = one
+        return specs
+
+    def _entry(self, cache, names, i=None):
+        """A layer's cache entry: its two leaves (layer i of the stacked
+        ones), plus their scale sidecars in a quantized pool."""
+        if f"{names[0]}_qscale" in cache:
+            names += tuple(f"{n}_qscale" for n in names)
+        return tuple(cache[n] if i is None else cache[n][i] for n in names)
+
+    def _dense_cache(self, cache, i):
+        return self._entry(cache, self._dense_names(i))
+
+    def _layer_cache(self, cache, i):
+        return self._entry(cache, self._kv_names(), i)
 
     # ------------------------------------------------------------------ blocks
+    def _attn(self, x, bp, **kw):
+        if self.cfg.use_mla:
+            return mla_mod.mla_attention(x, bp, self.cfg, absorbed=self.mla_absorbed, **kw)
+        return layers.attention(x, bp, self.cfg, **kw)
+
+    def _mlp(self, x, bp, moe_block: bool, is_eval: bool):
+        cfg = self.cfg
+        if moe_block and cfg.n_experts:
+            cf = cfg.eval_capacity_factor if is_eval else cfg.capacity_factor
+            return moe_mod.moe_mlp(x, bp, cfg, capacity_factor=cf)
+        return layers.mlp(x, bp, cfg)
+
     def _block(self, x, bp, *, positions, cache=None, cache_index=None, chunked=False,
-               block_tables=None, pos_offset=None, paged_step=None, kv_len=None):
+               block_tables=None, pos_offset=None, paged_step=None, kv_len=None,
+               moe_block=True):
         cfg = self.cfg
         h = layers.rmsnorm(x, bp["ln1"], cfg)
-        a = layers.attention(h, bp["attn"], cfg, positions=positions,
-                             cache=cache, cache_index=cache_index,
-                             chunked=chunked, block_tables=block_tables,
-                             pos_offset=pos_offset, paged_step=paged_step,
-                             kv_len=kv_len)
+        a = self._attn(h, bp["attn"], positions=positions,
+                       cache=cache, cache_index=cache_index,
+                       chunked=chunked, block_tables=block_tables,
+                       pos_offset=pos_offset, paged_step=paged_step,
+                       kv_len=kv_len)
         x = x + a
-        return x + layers.mlp(layers.rmsnorm(x, bp["ln2"], cfg), bp["mlp"], cfg)
+        return x + self._mlp(layers.rmsnorm(x, bp["ln2"], cfg), bp["mlp"], moe_block,
+                             cache is not None)
 
     def _run_cached(self, params, x, positions, cache, cache_index, chunked=False):
         """Shared prefill/decode layer loop. x (B, S, D). In paged mode
         ``cache`` also carries ``block_tables`` and ``pos_offset`` (the
-        per-slot count of tokens rolled out of a window; always 0 until
-        rolling windows are ported)."""
+        per-slot count of tokens rolled out of a window)."""
         bt = cache.get("block_tables")
         poff = cache.get("pos_offset")
         paged_step = kv_len = None
         if x.shape[1] == 1:
-            if bt is not None:
+            if bt is not None and self.cfg.use_mla:
+                paged_step = mla_mod._paged_step(bt, cache_index, poff,
+                                                 cache["c_kv"].shape[2])
+            elif bt is not None:
                 paged_step = layers.paged_decode_step(bt, cache_index, poff,
                                                       cache["k"].shape[3])
             else:
                 kv_len = layers.decode_kv_len(cache_index, x.shape[0], x.device)
-        # quantized pools: the (L, P, Hkv, page) scale sidecars ride with
-        # their pages as two more entries of each layer's cache
-        names = ("k", "v") + (("k_qscale", "v_qscale") if "k_qscale" in cache else ())
-        for i in range(self.cfg.n_layers):
-            x = self._block(x, _layer(params["blocks"], i), positions=positions,
-                            cache=tuple(cache[n][i] for n in names),
-                            cache_index=cache_index, chunked=chunked,
-                            block_tables=bt, pos_offset=poff,
-                            paged_step=paged_step, kv_len=kv_len)
+        kw = dict(positions=positions, cache_index=cache_index, chunked=chunked,
+                  block_tables=bt, pos_offset=poff, paged_step=paged_step, kv_len=kv_len)
+        for i in range(self.cfg.first_dense_layers):
+            x = self._block(x, params[f"dense{i}"], cache=self._dense_cache(cache, i),
+                            moe_block=False, **kw)
+        for i in range(self.n_scan):
+            x = self._block(x, _layer(params["blocks"], i),
+                            cache=self._layer_cache(cache, i), **kw)
         return x
 
     def _head(self, params, x):
@@ -131,14 +190,21 @@ class TransformerLM:
         x = layers.embed(tokens, params["embed"], cfg)
         positions = torch.arange(tokens.shape[1], device=tokens.device)
 
-        def block(x, bp):
-            return self._block(x, bp, positions=positions)
+        def block(x, bp, moe_block=True):
+            return self._block(x, bp, positions=positions, moe_block=moe_block)
 
         remat = cfg.remat and torch.is_grad_enabled()
-        for i in range(cfg.n_layers):
-            bp = _layer(params["blocks"], i)
-            x = (torch.utils.checkpoint.checkpoint(block, x, bp, use_reentrant=False)
-                 if remat else block(x, bp))
+
+        def run(x, bp, moe_block=True):
+            if remat:
+                return torch.utils.checkpoint.checkpoint(block, x, bp, moe_block,
+                                                         use_reentrant=False)
+            return block(x, bp, moe_block)
+
+        for i in range(cfg.first_dense_layers):
+            x = run(x, params[f"dense{i}"], moe_block=False)
+        for i in range(self.n_scan):
+            x = run(x, _layer(params["blocks"], i))
         return self._head(params, x)
 
     def loss(self, params, batch):

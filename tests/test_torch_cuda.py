@@ -484,6 +484,9 @@ DECODE_CASES = [
     (2, 16, 2, 64, 256, [1, 64], 0.0),                             # D 256 at G 8
     (2, 8, 2, 48, 8, [20, 41], 0.0),                               # deepseek-67b's smoke: D 8
     (3, 12, 4, 48, 16, [5, 30, 48], 0.0),                          # G 3: three blocks of 1
+    (8, 16, 16, 256, 192, [1, 5, 16, 17, 100, 128, 255, 256], 0.0),  # MLA's D 192
+    (8, 16, 16, 256, 192, [3, 9, 60, 61, 129, 200, 254, 256], 30.0),
+    (2, 4, 4, 48, 24, [20, 41], 0.0),                              # the smoke MLA's D 24
 ]
 
 
@@ -510,7 +513,7 @@ def test_decode_attention_split_matches_plain_on_card(dtype, B, Hq, Hkv, S, D, l
 
 
 @pytest.mark.cuda
-@pytest.mark.parametrize("D", [8, 16, 112, 128, 256])
+@pytest.mark.parametrize("D", [8, 16, 24, 112, 128, 192, 256])
 @pytest.mark.parametrize("Sq,Skv,causal,cap", [
     (200, 200, True, 0.0), (65, 300, True, 0.0), (130, 70, True, 0.0),
     (100, 190, False, 0.0), (129, 129, True, 25.0), (1, 64, True, 0.0)])
@@ -519,7 +522,8 @@ def test_flash_attention_bf16_wgmma_body_matches_plain_on_card(D, Sq, Skv, causa
     tiles of both axes, the offset diagonal both ways, non-causal, cap."""
     _card()
     g = torch.Generator(device="cuda").manual_seed(10)
-    Hq, Hkv = {112: (32, 32), 256: (16, 16), 8: (8, 2)}.get(D, (32, 8))
+    Hq, Hkv = {112: (32, 32), 256: (16, 16), 8: (8, 2), 192: (16, 16),
+               24: (4, 4)}.get(D, (32, 8))
     q = torch.randn((2, Hq, Sq, D), generator=g, device="cuda").bfloat16()
     k, v = (torch.randn((2, Hkv, Skv, D), generator=g, device="cuda").bfloat16()
             for _ in "kv")
@@ -922,3 +926,88 @@ def test_fleet_failover_on_card(params):
         assert streamed == res.tokens == want.tokens
     finally:
         fleet.shutdown()
+
+
+@pytest.mark.cuda
+@pytest.mark.parametrize("dtype", ["float32", "bfloat16"])
+@pytest.mark.parametrize("D", [24, 192])
+def test_mla_head_widths_on_card(dtype, D):
+    """MLA's K = [K_nope, K_rope] width (192 at full width, 24 at smoke)
+    with V zero-padded to it: decode attention (B = 8, 16/16 heads,
+    ragged) and the flash forward (whole-prompt prefill, causal and not)
+    against the plain versions at an explicit scale, one launch a call;
+    a gradient through flash at this D raises rather than falling back."""
+    _card()
+    dt = getattr(torch, dtype)
+    atol, rtol = _tol(dtype)
+    g = torch.Generator(device="cuda").manual_seed(11)
+    dv, H = (128, 16) if D == 192 else (16, 4)
+    sc = D ** -0.5
+
+    def rn(*s):
+        return torch.randn(s, generator=g, device="cuda").to(dt)
+
+    q, k, v = rn(8, H, 1, D), rn(8, H, 256, D), rn(8, H, 256, D)
+    v[..., dv:] = 0
+    kl = torch.tensor([1, 5, 16, 17, 100, 128, 255, 256], dtype=torch.int32, device="cuda")
+    before = dec_k.launches
+    got = dec_k.decode_attention(q, k, v, kv_len=kl, scale=sc)
+    assert dec_k.launches == before + 1
+    torch.testing.assert_close(got, dec_k.plain(q, k, v, kv_len=kl, scale=sc),
+                               atol=atol, rtol=rtol)
+    assert bool((got[..., dv:] == 0).all())
+    for sq, skv, causal in ((250, 250, True), (70, 130, True), (100, 90, False)):
+        q, k, v = rn(1, H, sq, D), rn(1, H, skv, D), rn(1, H, skv, D)
+        before = fa_k.launches
+        got = fa_k.flash_attention(q, k, v, causal=causal, scale=sc)
+        assert fa_k.launches == before + 1
+        torch.testing.assert_close(got, fa_k.plain(q, k, v, causal=causal, scale=sc),
+                                   atol=atol, rtol=rtol)
+    qg = q.clone().requires_grad_()
+    before = (fa_k.launches, fa_k.launches_bwd)
+    with pytest.raises(NotImplementedError, match="backward kernel is built for"):
+        fa_k.flash_attention(qg, k, v, scale=sc)
+    assert (fa_k.launches, fa_k.launches_bwd) == before
+
+
+@pytest.mark.cuda
+@pytest.mark.parametrize("arch,kv_dtype", [("deepseek-v2-lite-16b", "fp32"),
+                                           ("deepseek-v2-lite-16b", "int8"),
+                                           ("grok-1-314b", "fp32")])
+def test_moe_smoke_configs_serve_on_card_as_on_cpu(arch, kv_dtype):
+    """The MoE family's smoke models in float32 (deepseek-v2-lite: MLA at D
+    24 over latent pages, a dense first block, shared experts, also over
+    int8 latent pages with W4A16 weights; grok-1: GQA 4/2 with raw gates),
+    served on the card through the kernels and on the CPU through the plain
+    versions with the same weights: greedy streams identical through
+    generate() and the paged batcher."""
+    _card()
+    from repro_torch.configs import get_smoke_config
+    from repro_torch.models.common import tree_map
+    from repro_torch.serving import ServingEngine
+    from repro_torch.serving.quantize import quantize_mlp_tree
+
+    cfg = get_smoke_config(arch).replace(vocab_size=300, vocab_pad_to=64,
+                                         compute_dtype="float32")
+    params = ServingEngine(cfg, max_seq=96, device="cuda").params
+    if kv_dtype != "fp32":
+        params = quantize_mlp_tree(params, group_size=64)
+    gpu = ServingEngine(cfg, max_seq=96, device="cuda", params=params, kv_dtype=kv_dtype)
+    cpu = ServingEngine(cfg, max_seq=96, device="cpu", kv_dtype=kv_dtype,
+                        params=tree_map(lambda t: t.cpu(), params))
+    prompts = ["hello world", "a prompt longer than one sixteen-token page, twice over", "x"]
+    before = (dec_k.launches, pa_k.launches + pa_k.launches_quant)
+    try:
+        for p in prompts:
+            assert gpu.generate(p, max_new_tokens=12).tokens == \
+                cpu.generate(p, max_new_tokens=12).tokens
+        hg = [gpu.submit(p, max_new_tokens=12) for p in prompts]
+        hc = [cpu.submit(p, max_new_tokens=12) for p in prompts]
+        for a, c in zip(hg, hc):
+            assert a.result(timeout=300).tokens == c.result(timeout=300).tokens
+    finally:
+        gpu.shutdown()
+        cpu.shutdown()
+    assert dec_k.launches > before[0]
+    if not cfg.use_mla:     # MLA decodes through decode_attention over its latent view
+        assert pa_k.launches + pa_k.launches_quant > before[1]

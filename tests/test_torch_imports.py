@@ -49,7 +49,8 @@ def test_importing_the_port_loads_no_jax():
             "repro_torch.models.xlstm, repro_torch.configs.xlstm_125m, "
             "repro_torch.serving.speculative, repro_torch.serving.fleet, "
             "repro_torch.serving.scheduler, repro_torch.core.desktop, "
-            "repro_torch.serving.quantize, "
+            "repro_torch.serving.quantize, repro_torch.models.moe, repro_torch.models.mla, "
+            "repro_torch.configs.deepseek_v2_lite_16b, repro_torch.configs.grok_1_314b, "
             "repro_torch.serving.prng, repro_torch.launch.serve, "
             "repro_torch.training, repro_torch.kernels.flash_attention, "
             "repro_torch.launch.train; "
@@ -77,6 +78,10 @@ def test_entry_points_need_a_card_unless_asked_for_cpu(monkeypatch):
         build_system(kv_dtype="int8", quantize_mlp=True)
     with pytest.raises(RuntimeError, match="no CUDA device"):
         build_system(hpc_arch="zamba2-7b")
+    with pytest.raises(RuntimeError, match="no CUDA device"):
+        build_system(hpc_arch="deepseek-v2-lite-16b")
+    with pytest.raises(RuntimeError, match="no CUDA device"):
+        build_system(hpc_arch="grok-1-314b")
     with pytest.raises(RuntimeError, match="no CUDA device"):
         build_system(replicas=2)
     with pytest.raises(RuntimeError, match="no CUDA device"):

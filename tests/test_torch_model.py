@@ -48,7 +48,7 @@ def test_configs_match_reference_field_for_field(arch):
         for f in ref.__dataclass_fields__:
             assert getattr(port, f) == getattr(ref, f), f
     with pytest.raises(NotImplementedError, match="not ported"):
-        get_config("grok-1-314b")
+        get_config("llama-3.2-vision-11b")
 
 
 def test_param_tree_layout_matches_reference(models):

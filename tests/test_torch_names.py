@@ -1,6 +1,7 @@
 """Public names the port carries for the JAX package's callers, held
 against the reference: ``PagePool.n_free``, ``sampler.sample``,
-``GenerationParams.resolve`` and ``configs.list_archs``.
+``GenerationParams.resolve`` and ``configs.list_archs``, and the public
+functions of the MoE and MLA modules and the two MoE configs.
 
 ``sample`` draws with one key over the whole (B, V) batch, as
 ``jax.random.categorical`` does; the draws are compared token for token
@@ -115,3 +116,39 @@ def test_serving_exports_cover_the_reference():
                                                                     "TRASH_PAGE"}
     assert all(hasattr(port_serving, n) for n in port_serving.__all__)
     assert WindowPolicy().cap_pages == ref_serving.WindowPolicy().cap_pages == 6
+
+
+@pytest.mark.parametrize("mod", ["moe", "mla"])
+def test_moe_and_mla_modules_carry_the_reference_names(mod):
+    """``models.moe`` and ``models.mla`` define the reference's public
+    functions (and ``_route``, ``_slots``, ``_norm``, ``_pad_v``), with the
+    same positional parameters; ``moe_mlp_shard_map`` alone waits for the
+    distributed port."""
+    import importlib
+    import inspect
+    ref = importlib.import_module(f"repro.models.{mod}")
+    port = importlib.import_module(f"repro_torch.models.{mod}")
+
+    def public(m):
+        return {n for n, f in vars(m).items() if inspect.isfunction(f)
+                and f.__module__ == m.__name__ and not n.startswith("_")}
+
+    assert public(port) == public(ref) - {"moe_mlp_shard_map"}
+    helpers = {"moe": ("_route", "_slots", "_experts_ffn"), "mla": ("_norm", "_pad_v")}[mod]
+    for name in sorted(public(port)) + list(helpers):
+        want = [p for p in inspect.signature(getattr(ref, name)).parameters]
+        got = [p for p in inspect.signature(getattr(port, name)).parameters]
+        assert got[:len(want)] == want, name
+
+
+@pytest.mark.parametrize("arch", ["deepseek-v2-lite-16b", "grok-1-314b"])
+def test_moe_configs_carry_the_reference_names(arch):
+    import importlib
+    mod = arch.replace("-", "_").replace(".", "_")
+    ref = importlib.import_module(f"repro.configs.{mod}")
+    port = importlib.import_module(f"repro_torch.configs.{mod}")
+    assert port.CONFIG == get_config(arch) and port.SMOKE == get_smoke_config(arch)
+    for name in ("CONFIG", "SMOKE"):
+        r, p = getattr(ref, name), getattr(port, name)
+        assert {f: getattr(p, f) for f in r.__dataclass_fields__} == {
+            f: getattr(r, f) for f in r.__dataclass_fields__}

@@ -9,7 +9,8 @@ with W4A16 weights, for every drafter, with acceptance forced to 100%,
 0% and a mid-window rejection through the batcher's ``draft_hook``. The
 cases of the JAX package's ``tests/test_speculative.py`` and
 ``tests/test_speculative_props.py`` run here for the families the port
-has (dense minitron-8b and gemma-7b; MLA comes with deepseek-v2).
+has (dense minitron-8b and gemma-7b; the MLA member, deepseek-v2-lite,
+is in ``tests/test_torch_moe_speculative.py``).
 
 Against the JAX package, at the same weights and inputs, ``verify_chunk``
 logits agree within 1e-4 (float32; the paged window through
