@@ -69,6 +69,20 @@ Phases, each of which fails the run when it fails:
      W4A16 weights; "grok", grok-1-314b cut to 2 of 64 layers (bf16, 23
      GB: a full layer's 8 experts hold 4.83 B params), paged attention at
      G = 6;
+  7e. the cross-attention families, each once the previous system is
+     freed, at their published widths and depths (bf16), the same
+     requests and breakdown, served through the contiguous splice path
+     with a 32-page stateful pool (their cross K/V are state leaves):
+     "whisper", whisper-medium (24 + 24 layers, 16/16 heads of 64,
+     0.76 B params), and "vision", llama-3.2-vision-11b (40 layers and 8
+     gated cross blocks, 32/8 heads of 128, 10.1 B params); the counters
+     of decode_attention and flash_attention (and rmsnorm on the vision
+     path), zeroed just before, must grow while serving; then the extras
+     check (extras_check): the stub frames / patches (seeded, x 0.1; the
+     vision gates set non-zero for it) through prefill and through
+     prefill_chunk pieces, each with two decode steps, against forward's
+     logits within PREFILL_E2E_REL of max |logit|, with prefill's flash
+     launches counted;
   7b. speculative paths, each once the previous system is freed:
      build_system(speculative=True, spec_k=4), HPC tier full-width
      minitron-8b over bf16 pages, (a) beside the xLSTM local tier (the
@@ -165,8 +179,19 @@ times the MoE family's kernel shapes: decode attention and the flash
 forward at MLA's D = 192 and the smoke's 24 (a flash gradient there must
 raise), rmsnorm at 2048, awq_matmul at deepseek-v2-lite's W4A16 shapes
 (the dense block's w2 at K = 10944, 171 groups of 64).
+crossattn_shapes_phase holds and times the cross-attention families'
+shapes: the flash forward at whisper's D = 64 (the encoder (1, 16/16,
+1500) non-causal, the cross attention of a B = 8 decode step and of a
+16-token piece over 1500 encoder positions, a causal 250-token prefill;
+a gradient at D = 64 must raise) and at the vision cross shape (B = 8,
+32/8, one query over 1601 image tokens, D = 128), decode attention at
+whisper's (B = 8, 16/16 of 64, S = 256 ragged). The reference phase also
+serves the whisper and vision smokes (float32, D = 16) on card and CPU
+(crossattn_reference_phase: generate, generate_batch, the splice batcher
+with a seeded stream and a prefix hit, then the model alone with its
+stub input on the first prefill piece and four decode steps).
 In the kernels JSON, ``launches`` is a kernel's count summed over the
-nine serving paths, the two speculative paths, the two rolling paths, the
+eleven serving paths, the two speculative paths, the two rolling paths, the
 desktop fleet and the two training paths (each zeroed just before its
 path and read just after); ``shapes`` lists
 the other timed shapes.
@@ -211,6 +236,13 @@ DEEPSEEK_LAYERS = 16
 # keeps 2 (11.5 B params, 23 GB)
 MLA_Q_LAYERS = 8
 GROK_LAYERS = 2
+# the cross-attention families at full width and depth take the splice path
+# with a stateful pool: a whisper-medium page snapshots both cross leaves
+# (24 x 16 x 1500 x 64 x 2 B x 2, ~147 MB), a llama-3.2-vision-11b page
+# 8 x 8 x 1601 x 128 x 2 B x 2 (~52 MB)
+CROSS_POOL_PAGES = 32
+STUB_SCALE = 0.1     # stub frames / patches: randn x 0.1, as the reference's smoke tests
+VISION_GATE = 0.5    # the cross gates in the extras checks (tanh(0) = 0 hides the cross path)
 CARD_BYTES = 80e9          # the H100's device memory: a path's peak stays under it
 B, HQ, HKV, D, PAGE, MAX_SEQ = 8, 32, 8, 128, 16, 256
 SPEC_K = 4                 # the speculative paths' drafts a tick: windows of W = 5
@@ -836,6 +868,7 @@ def kernel_phase(torch, timer):
     new_configs_phase(torch, timer, rows, randn, g)
     spec_shapes_phase(torch, timer, rows, randn, g)
     mla_shapes_phase(torch, timer, rows, randn, g)
+    crossattn_shapes_phase(torch, timer, rows, randn, g)
 
     for (name, dname), errs in sorted((k, v) for k, v in rows.items()
                                       if isinstance(k, tuple)):
@@ -1222,6 +1255,72 @@ def mla_shapes_phase(torch, timer, rows, randn, g):
                        2 * M * K * N, plain_n=20)
 
 
+def crossattn_shapes_phase(torch, timer, rows, randn, g):
+    """The encoder-decoder and vision families' kernel shapes against the
+    plain versions in both types, each timed in bf16 beside SDPA with
+    device times and bounds: the flash forward at whisper-medium's D = 64
+    (the encoder (1, 16/16, 1500) non-causal; the decoder's cross
+    attention over 1500 encoder positions at a B = 8 decode step and at a
+    16-token prefill piece; a causal 250-token prefill) and at
+    llama-3.2-vision's cross shape (B = 8, 32/8, one query over 1601 image
+    tokens, D = 128, non-causal); decode attention at whisper's decoder
+    (B = 8, 16/16 heads of 64, S = 256, ragged). A gradient through flash
+    at D = 64 must raise."""
+    import torch.nn.functional as F
+    from repro_torch.kernels import decode_attention as dec_k
+    from repro_torch.kernels import flash_attention as fa_k
+    for what, (b, hq, hkv, sq, skv, d, causal) in (
+            ("whisper encoder", (1, 16, 16, 1500, 1500, 64, False)),
+            ("whisper cross, B=8 decode step", (B, 16, 16, 1, 1500, 64, False)),
+            ("whisper cross, 16-token piece", (1, 16, 16, PAGE, 1500, 64, False)),
+            ("whisper prefill", (1, 16, 16, 250, 250, 64, True)),
+            ("vision cross, B=8 decode step", (B, 32, 8, 1, 1601, 128, False))):
+        shape = (b, hq, hkv, sq, skv, d)
+        for dname in ("float32", "bfloat16"):
+            dt = getattr(torch, dname)
+            q = randn(b, hq, sq, d, dtype=dt)
+            k, v = randn(b, hkv, skv, d, dtype=dt), randn(b, hkv, skv, d, dtype=dt)
+            rows[("flash_attention", dname)].append(check_close(
+                f"flash_attention {what} {shape} causal={causal}",
+                fa_k.flash_attention(q, k, v, causal=causal),
+                fa_k.plain(q, k, v, causal=causal), dname))
+        pairs = sum(min(skv, skv - sq + i + 1) for i in range(sq)) if causal else sq * skv
+        time_shape(torch, timer, rows, "flash_attention",
+                   f"{what} {shape} {'causal' if causal else 'non-causal'}",
+                   lambda: fa_k.flash_attention(q, k, v, causal=causal),
+                   lambda: fa_k.plain(q, k, v, causal=causal),
+                   lambda: F.scaled_dot_product_attention(q, k, v, is_causal=causal,
+                                                          enable_gqa=True),
+                   (2 * q.numel() + k.numel() + v.numel()) * 2, 4 * b * hq * d * pairs,
+                   plain_n=20)
+        if d == 64 and causal:
+            try:
+                fa_k.flash_attention(q.clone().requires_grad_(), k, v)
+            except NotImplementedError:
+                pass
+            else:
+                raise AssertionError("flash_attention D=64: a gradient must raise")
+    h, d, lens = 16, 64, [1, 5, 16, 17, 100, 128, 255, 256]
+    kl = torch.tensor(lens, dtype=torch.int32, device="cuda")
+    for dname in ("float32", "bfloat16"):
+        dt = getattr(torch, dname)
+        q = randn(B, h, 1, d, dtype=dt)
+        k, v = randn(B, h, MAX_SEQ, d, dtype=dt), randn(B, h, MAX_SEQ, d, dtype=dt)
+        rows[("decode_attention", dname)].append(check_close(
+            f"decode_attention whisper decoder B={B} {h}/{h} D={d}",
+            dec_k.decode_attention(q, k, v, kv_len=kl), dec_k.plain(q, k, v, kv_len=kl),
+            dname))
+    mask = (torch.arange(MAX_SEQ, device="cuda")[None, :] < kl[:, None])[:, None, None, :]
+    n_split, chunk = dec_k.splits(B, h, MAX_SEQ, dec_k._sm_count(0))
+    time_shape(torch, timer, rows, "decode_attention",
+               f"whisper decoder B={B} {h}/{h} D={d} S={MAX_SEQ} ragged (1 query head a "
+               f"block, {n_split} splits of {chunk} keys)",
+               lambda: dec_k.decode_attention(q, k, v, kv_len=kl),
+               lambda: dec_k.plain(q, k, v, kv_len=kl),
+               lambda: F.scaled_dot_product_attention(q, k, v, attn_mask=mask),
+               2 * q.numel() * 2 + 2 * sum(lens) * h * d * 2 + 4 * B, 4 * d * h * sum(lens))
+
+
 def paged_plan(torch, b, hq, hkv, n_pages, quant):
     """The split plan the paged wrapper makes for these heads, as text."""
     from repro_torch.kernels import paged_attention as pa_k
@@ -1538,6 +1637,99 @@ def reference_phase(torch):
     log(f"reference: {len(prompts)} prompts + a prefix hit token-identical card vs CPU "
         f"(zamba2 smoke, float32, generate and the contiguous splice batcher; "
         f"{b.bytes_copied_per_admission():.0f} B copied per admission)")
+
+
+def crossattn_reference_phase(torch):
+    """The encoder-decoder and vision smokes (float32, D = 16: whisper's
+    2 + 2 layers over 24 frames, the vision model's 4 layers with 2 gated
+    cross blocks over 12 patches, its gates set to VISION_GATE) on the
+    card and on the CPU with the same weights: greedy and seeded streams
+    token-identical through generate(), generate_batch and
+    ServingEngine.submit (the contiguous splice batcher with a stateful
+    prefix pool; a repeated prompt is a prefix hit); then the model alone
+    with its stub input (seeded, STUB_SCALE): prefill_chunk pieces with
+    the frames / patches on the first, then four greedy decode steps,
+    logits within the float32 tolerance and the same tokens."""
+    from repro_torch.configs import get_smoke_config
+    from repro_torch.kernels import flash_attention as fa_k
+    from repro_torch.models.common import tree_map
+    from repro_torch.serving import GenerationParams, ServingEngine
+    from repro_torch.serving.pagepool import chunk_plan
+
+    prompts = ["hello world", "a prompt longer than one sixteen-token page, twice over",
+               "x"]
+    seeded = GenerationParams(max_tokens=12, temperature=0.9, seed=77)
+    for arch in ("whisper-medium", "llama-3.2-vision-11b"):
+        cfg = get_smoke_config(arch).replace(vocab_size=300, vocab_pad_to=64,
+                                             compute_dtype="float32")
+        gpu = ServingEngine(cfg, max_seq=96, device="cuda")
+        if "cross" in gpu.params:
+            gpu.params["cross"]["attn"]["gate"].fill_(VISION_GATE)
+        cpu = ServingEngine(cfg, max_seq=96, device="cpu",
+                            params=tree_map(lambda t: t.cpu(), gpu.params))
+        for p in prompts:
+            a, c = (gpu.generate(p, max_new_tokens=12).tokens,
+                    cpu.generate(p, max_new_tokens=12).tokens)
+            if a != c:
+                raise AssertionError(f"{arch}: generate() differs card vs CPU: {a} vs {c}")
+        a, c = gpu.generate_batch(prompts)[1], cpu.generate_batch(prompts)[1]
+        if a != c:
+            raise AssertionError(f"{arch}: generate_batch differs card vs CPU: {a} vs {c}")
+        streams = []
+        for eng in (gpu, cpu):
+            res = [h.result(timeout=300) for h in
+                   [eng.submit(p, max_new_tokens=12) for p in prompts]
+                   + [eng.submit(prompts[0], params=seeded)]]
+            res.append(eng.submit(prompts[1], max_new_tokens=12).result(timeout=300))
+            streams.append(res)
+        for a, c in zip(*streams):
+            if a.tokens != c.tokens or a.prefix_hit_tokens != c.prefix_hit_tokens:
+                raise AssertionError(f"{arch}: batcher stream differs card vs CPU: "
+                                     f"{a.tokens} vs {c.tokens}")
+        b = gpu.scheduler.batcher
+        if b.paged or not streams[0][-1].prefix_hit_tokens:
+            raise AssertionError(f"{arch}: not served by the splice path with a prefix hit")
+        gpu.shutdown()
+        cpu.shutdown()
+
+        # the model alone with its stub input on the first piece
+        gen = torch.Generator().manual_seed(0)
+        if cfg.is_encoder_decoder:
+            key, shape = "frames", (1, cfg.encoder_seq_len, cfg.d_model)
+        else:
+            key, shape = "vision", (1, cfg.n_image_tokens, cfg.vision_dim)
+        stub = STUB_SCALE * torch.randn(shape, generator=gen)
+        ids = torch.randint(3, 259, (1, 37), generator=gen)
+        out = {}
+        before = fa_k.launches
+        for eng in (gpu, cpu):
+            m, dev = eng.model, eng.device
+            cache, off, steps = m.init_cache(1, 96, dev), 0, []
+            with torch.inference_mode():
+                for i, n in enumerate(chunk_plan(0, ids.shape[1], 16)):
+                    logits, cache = m.prefill_chunk(
+                        eng.params, ids[:, off:off + n].to(dev), cache,
+                        {key: stub.to(dev)} if i == 0 else None)
+                    off += n
+                steps.append(logits)
+                for _ in range(4):
+                    tok = torch.argmax(logits, -1)[:, None]
+                    logits, cache = m.decode_step(eng.params, tok, cache)
+                    steps.append(logits)
+            out[dev.type] = steps
+        worst = max(check_close(f"{arch} smoke with {key}: step {i}", a.cpu(), c, "float32")
+                    for i, (a, c) in enumerate(zip(out["cuda"], out["cpu"])))
+        if [int(t.argmax()) for t in out["cuda"]] != [int(t.argmax()) for t in out["cpu"]]:
+            raise AssertionError(f"{arch} smoke with {key}: greedy tokens differ card vs CPU")
+        if fa_k.launches == before:
+            raise AssertionError(f"{arch} smoke with {key}: flash_attention not launched")
+        log(f"reference: {len(prompts)} prompts, a seeded stream and a prefix hit "
+            f"token-identical card vs CPU ({cfg.name}, {cfg.n_heads}/{cfg.n_kv_heads} heads "
+            f"of {cfg.head_dim}, float32, generate, generate_batch and the contiguous splice "
+            f"batcher; {b.bytes_copied_per_admission():.0f} B copied per admission); "
+            f"prefill_chunk with {key} {tuple(shape)} on the first piece and 4 decode "
+            f"steps: logits max abs diff {worst:.3e}, same greedy tokens, "
+            f"{fa_k.launches - before} flash_attention launches")
 
 
 def xlstm_reference_phase(torch):
@@ -1870,6 +2062,117 @@ def prefill_check(torch, hpc, label):
         f"{PREFILL_E2E_REL} x max |logit| {top:.3f} = {PREFILL_E2E_REL * top:.4e}; the "
         f"bf16 tolerance of max |logit| would be {atol + rtol * top:.4e}), K/V max abs "
         f"diff {kv_err:.4e}{moe_note}")
+
+
+def crossattn_served_check(stats, hpc, label, must):
+    """The HPC tier of a cross-attention path served its requests through
+    ``must``'s kernels, on the contiguous splice path (a function of its
+    own, so that no reference to the batcher outlives the path)."""
+    idle = [k for k in must if stats["during"][k] <= 0]
+    if idle:
+        raise AssertionError(f"{label} path: {idle} not launched while serving")
+    hb = hpc.scheduler.batcher
+    if hb.paged:
+        raise AssertionError(f"{label} path: served by the paged path, not the splice path")
+    log(f"{label} path: served through the contiguous splice path, stateful pool of "
+        f"{hb.pool.capacity} pages, {hb.pool._state_bytes / 1e6:.1f} MB of cross K/V a page "
+        f"snapshot; launches while serving {json.dumps(stats['during'])}")
+
+
+def extras_check(torch, hpc, label):
+    """On a full-width cross-attention system (whisper-medium, or
+    llama-3.2-vision-11b with its cross gates set to VISION_GATE for the
+    check): the stub frontend's input drawn from a seeded generator at
+    STUB_SCALE (whisper's encoder_seq_len frames of d_model, the vision
+    model's n_image_tokens patches of vision_dim) and 252 tokens.
+    forward(tokens, extra) is the reference; the first 250 tokens go
+    through prefill(extra) and, on a fresh cache, through page-aligned
+    prefill_chunk pieces (the extra on the first), each then two
+    decode_steps teacher-forced on tokens 250 and 251. Every one of the
+    three logit rows is held to the forward's within PREFILL_E2E_REL of
+    max |logit| (bf16 through every layer, bounded as prefill_check bounds
+    its own) and to its greedy token wherever the forward's top two
+    logits are further apart than that bound. prefill's flash_attention
+    launches are counted: whisper's encoder and cross attention a layer
+    each beside the causal prefill a layer, the vision model's causal
+    prefill a layer and one cross block every cross_attn_every layers."""
+    from repro_torch.kernels import decode_attention as dec_k
+    from repro_torch.kernels import flash_attention as fa_k
+    from repro_torch.serving.pagepool import chunk_plan
+    model, params, cfg = hpc.model, hpc.params, hpc.cfg
+    n = 250
+    g = torch.Generator(device=hpc.device).manual_seed(0)
+    toks = torch.randint(0, cfg.vocab_size, (1, n + 2), generator=g, device=hpc.device)
+    if cfg.is_encoder_decoder:
+        key, shape = "frames", (1, cfg.encoder_seq_len, cfg.d_model)
+        want_flash = cfg.n_encoder_layers + 2 * cfg.n_layers
+    else:
+        key, shape = "vision", (1, cfg.n_image_tokens, cfg.vision_dim)
+        want_flash = cfg.n_layers + model.n_cross
+    extra = {key: (STUB_SCALE * torch.randn(shape, generator=g, device=hpc.device))
+             .to(cfg.cdtype())}
+    gate = params["cross"]["attn"]["gate"] if "cross" in params else None
+    if gate is not None:
+        saved = gate.clone()
+        gate.fill_(VISION_GATE)
+    rows, ms = {}, {}
+    with torch.inference_mode():
+        torch.cuda.synchronize()
+        t0 = time.perf_counter()
+        full = model.forward(params, toks, extra)[0, n - 1:]
+        torch.cuda.synchronize()
+        ms["forward"] = (time.perf_counter() - t0) * 1e3
+        for name in ("prefill", "prefill_chunk"):
+            cache = model.init_cache(1, MAX_SEQ, hpc.device)
+            before = (fa_k.launches, dec_k.launches)
+            torch.cuda.synchronize()
+            t0 = time.perf_counter()
+            if name == "prefill":
+                last, cache = model.prefill(params, toks[:, :n], cache, extra)
+            else:
+                off = 0
+                for i, m in enumerate(chunk_plan(0, n, PAGE)):
+                    last, cache = model.prefill_chunk(params, toks[:, off:off + m], cache,
+                                                      extra if i == 0 else None)
+                    off += m
+            torch.cuda.synchronize()
+            ms[name] = (time.perf_counter() - t0) * 1e3
+            launched = fa_k.launches - before[0]
+            got = [last]
+            for t in (n, n + 1):
+                logits, cache = model.decode_step(params, toks[:, t:t + 1], cache)
+                got.append(logits)
+            rows[name] = (torch.cat(got).float(), launched, dec_k.launches - before[1])
+    if gate is not None:
+        gate.copy_(saved)
+    full = full.float()
+    top = full.abs().max().item()
+    bound = PREFILL_E2E_REL * top
+    top2 = full.topk(2, dim=-1).values
+    clear = (top2[:, 0] - top2[:, 1]) > bound     # a greedy token the bound cannot move
+    notes = []
+    for name, (got, launched, dec) in rows.items():
+        err = (got - full).abs().max().item()
+        same = got.argmax(-1) == full.argmax(-1)
+        if (not bool(got.isfinite().all()) or not err <= bound
+                or not bool((same | ~clear).all())):
+            raise AssertionError(f"{label} extras check, {name}: logits max abs diff "
+                                 f"{err:.4e} (bound {bound:.4e}), same greedy tokens "
+                                 f"{same.tolist()} (clear of the bound {clear.tolist()})")
+        if name == "prefill" and launched != want_flash:
+            raise AssertionError(f"{label} extras check: prefill launched flash_attention "
+                                 f"{launched} times, not {want_flash}")
+        if dec != 2 * cfg.n_layers:
+            raise AssertionError(f"{label} extras check, {name}: {dec} decode_attention "
+                                 f"launches in 2 decode steps of {cfg.n_layers} layers")
+        notes.append(f"{name} ({ms[name]:.1f} ms, {launched} flash_attention launches) + 2 "
+                     f"decode_steps: logits max abs diff {err:.4e}, same greedy tokens "
+                     f"{same.tolist()}")
+    log(f"{label} path extras check: {key} {tuple(shape)} at x{STUB_SCALE}"
+        f"{f', cross gates {VISION_GATE}' if gate is not None else ''}, {n} + 2 tokens "
+        f"against forward ({ms['forward']:.1f} ms); bound {PREFILL_E2E_REL} x max |logit| "
+        f"{top:.3f} = {bound:.4e}; greedy tokens clear of it {clear.tolist()}; "
+        + "; ".join(notes))
 
 
 def training_phase(torch, arch):
@@ -2619,7 +2922,7 @@ def breakdown_phase(torch, label, sys_):
     # device's launch queue, so the host clock sees the host's own work
     from repro_torch.models import layers
     from repro_torch.models.lm import _layer
-    lp = _layer(hpc.params["blocks"], 0)
+    lp = _layer(hpc.params["blocks" if "blocks" in hpc.params else "dec_blocks"], 0)
     xs = torch.randn(b.B, 1, hpc.cfg.d_model, device=hpc.device, dtype=hpc.cfg.cdtype())
     if "mlp" in lp and "router" in lp["mlp"]:
         # an MoE block: the shared experts' w1 where there are any, else
@@ -2859,6 +3162,7 @@ def main() -> int:
     rows = kernel_phase(torch, timer)
     since(t0, "kernel phase")
     reference_phase(torch)
+    crossattn_reference_phase(torch)
     xlstm_reference_phase(torch)
     speculative_reference_phase(torch)
     rolling_reference_phase(torch)
@@ -2903,7 +3207,14 @@ def main() -> int:
             ("grok", ("rmsnorm", "paged_attention"),
              dict(hpc_arch="grok-1-314b",
                   hpc_overrides=full_width("grok-1-314b", n_layers=GROK_LAYERS),
-                  local_arch="minitron-8b"))):
+                  local_arch="minitron-8b")),
+            ("whisper", ("decode_attention", "flash_attention"),
+             dict(hpc_arch="whisper-medium", hpc_overrides=full_width("whisper-medium"),
+                  prefix_cache_pages=CROSS_POOL_PAGES, local_arch="minitron-8b")),
+            ("vision", ("rmsnorm", "decode_attention", "flash_attention"),
+             dict(hpc_arch="llama-3.2-vision-11b",
+                  hpc_overrides=full_width("llama-3.2-vision-11b"),
+                  prefix_cache_pages=CROSS_POOL_PAGES, local_arch="minitron-8b"))):
         launches, stats, sys_ = main_path_phase(torch, f"{label} path", must, **kw)
         if label.startswith("mla"):
             # the naive MLA decode: one decode_attention launch a layer a
@@ -2916,6 +3227,9 @@ def main() -> int:
                 f"{hcfg.n_heads}/{hcfg.n_heads} heads; kv_lora_rank {hcfg.kv_lora_rank}")
         if label in ("dense", "gemma", "granite", "mla"):
             prefill_check(torch, sys_.engines["hpc"], label)
+        if label in ("whisper", "vision"):
+            crossattn_served_check(stats, sys_.engines["hpc"], label, must)
+            extras_check(torch, sys_.engines["hpc"], label)
         if label == "dense":
             stats.update(xlstm_breakdown(torch, f"{label} path", sys_))
         if label in ("dense", "quantized"):
@@ -3003,8 +3317,9 @@ def main() -> int:
         f"bf16 zamba2-7b (splice path) | bf16 gemma-7b | bf16 granite-20b | int8 pages + "
         f"W4A16 deepseek-67b ({DEEPSEEK_LAYERS} layers) | mla: bf16 deepseek-v2-lite-16b "
         f"(27 layers) | mla-quantized: int8 latent pages + W4A16 deepseek-v2-lite-16b "
-        f"({MLA_Q_LAYERS} layers) | grok: bf16 grok-1-314b ({GROK_LAYERS} layers), the same "
-        f"4 + 1 requests")
+        f"({MLA_Q_LAYERS} layers) | grok: bf16 grok-1-314b ({GROK_LAYERS} layers) | whisper: "
+        f"bf16 whisper-medium (24 + 24 layers, splice path) | vision: bf16 "
+        f"llama-3.2-vision-11b (40 + 8 cross layers, splice path), the same 4 + 1 requests")
     for key, what in (("ttft_median_ms", "TTFT median ms"), ("ttft_max_ms", "TTFT max ms"),
                       ("tok_s_session", "decode tok/s per session"),
                       ("tok_s_all", "tok/s over all 4 sessions"),

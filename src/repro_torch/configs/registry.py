@@ -1,8 +1,8 @@
 """Architecture registry: full configs and smoke configs.
 
-``ARCHS`` lists every architecture the JAX package supports; the port
-builds only those in ``PORTED`` so far, and asking for another raises
-``NotImplementedError`` naming what is missing.
+``ARCHS`` lists every architecture the JAX package supports and
+``PORTED`` maps each to its config module here; an arch outside
+``PORTED`` raises ``NotImplementedError``.
 """
 
 from __future__ import annotations
@@ -25,7 +25,9 @@ ARCHS = [
 PORTED = {"minitron-8b": "minitron_8b", "zamba2-7b": "zamba2_7b",
           "gemma-7b": "gemma_7b", "granite-20b": "granite_20b",
           "deepseek-67b": "deepseek_67b", "xlstm-125m": "xlstm_125m",
-          "deepseek-v2-lite-16b": "deepseek_v2_lite_16b", "grok-1-314b": "grok_1_314b"}
+          "deepseek-v2-lite-16b": "deepseek_v2_lite_16b", "grok-1-314b": "grok_1_314b",
+          "whisper-medium": "whisper_medium",
+          "llama-3.2-vision-11b": "llama_3_2_vision_11b"}
 
 
 def _load(arch: str):
@@ -49,6 +51,5 @@ def get_smoke_config(arch: str, **overrides):
 
 
 def list_archs():
-    """Every architecture the JAX package supports (``get_config`` raises
-    for those not ported yet)."""
+    """Every architecture the JAX package supports."""
     return list(ARCHS)

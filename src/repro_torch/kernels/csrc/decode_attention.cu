@@ -64,7 +64,9 @@
 // Float32 inputs keep exact float32 math (fmaf, expf, tanhf): the card's
 // greedy streams must equal the CPU's token for token; bf16 inputs take
 // the fast exponential (__expf, two ulp), far inside their tolerance.
-// D (8, 16, 24, 112, 128, 192, 256) and GB (1, 2, 4, 8) are template parameters;
+// D (8, 16, 24, 64, 112, 128, 192, 256) and GB (1, 2, 4, 8) are template
+// parameters (whisper-medium's D = 64: a row is 8 bf16 vectors over 8
+// lanes, or 16 float32 vectors over 16);
 // another fails the launch with cudaErrorInvalidValue.
 
 #include <cooperative_groups.h>
@@ -350,6 +352,7 @@ static int launch_d(int D, int GB, int NG, const void* q, const void* k, const v
     case 8: return launch_g<T, 8>(ARGS);
     case 16: return launch_g<T, 16>(ARGS);
     case 24: return launch_g<T, 24>(ARGS);
+    case 64: return launch_g<T, 64>(ARGS);
     case 112: return launch_g<T, 112>(ARGS);
     case 128: return launch_g<T, 128>(ARGS);
     case 192: return launch_g<T, 192>(ARGS);

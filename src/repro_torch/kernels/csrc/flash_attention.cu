@@ -55,7 +55,9 @@
 //    column blocks of 64 values. D = 112 is padded to 128, D = 24, 16 and 8
 //    to 64, with zero columns that are never stored (D = 8 takes one k16
 //    step of Q K^T over 8 zero columns, D = 24 two steps, the second over
-//    8 values and 8 zeros: wgmma's reduction is 16 deep). MLA's D = 192 is
+//    8 values and 8 zeros: wgmma's reduction is 16 deep); whisper's D = 64
+//    is one column block, no pad: four k16 steps of Q K^T and one m64n64
+//    P V (48 KB of shared memory, four blocks an SM). MLA's D = 192 is
 //    three column blocks, no pad (a row is 24 chunks, which do not divide
 //    the 128 threads: wgmma.cuh's load_tile then deals the tile's chunks
 //    out in row-major order). cp.async copies 16 bytes a thread, its
@@ -99,12 +101,17 @@
 //    row that sees no key, which reads all Skv keys).
 // D is a template parameter (compile-time trip counts, no guarded
 // register loops), built for 8 (deepseek-67b's smoke), 16 (the other
-// smoke configs), 24 (deepseek-v2-lite's smoke MLA), 112 (zamba2's shared
+// smoke configs), 24 (deepseek-v2-lite's smoke MLA), 64 (whisper-medium:
+// its encoder, cross-attention and prefill), 112 (zamba2's shared
 // block), 128 (minitron-8b, granite-20b, deepseek-67b, grok-1), 192
 // (deepseek-v2-lite's MLA: qk_nope 128 + qk_rope 64, V zero-padded to it)
 // and 256 (gemma-7b); another D fails at launch with
 // cudaErrorInvalidValue. The backward (flash_attention_bwd.cu) is not
-// built for 24 or 192: the wrapper refuses a gradient there.
+// built for 24, 64 or 192: the wrapper refuses a gradient there.
+// Non-causal calls (whisper's encoder and every cross-attention) read all
+// Skv keys in every query tile; a one-row query (a decode step's cross
+// attention) runs one 64-row tile whose 63 dead rows are computed over
+// zero-filled Q rows, never written and never read.
 
 #include <cuda_bf16.h>
 #include <cuda_runtime.h>
@@ -520,6 +527,7 @@ extern "C" int flash_attention_launch(const void* q, const void* k, const void* 
     case 8: return dtype == 0 ? launch<float, 8>(ARGS) : launch_bf16<8>(ARGS_BF16);
     case 16: return dtype == 0 ? launch<float, 16>(ARGS) : launch_bf16<16>(ARGS_BF16);
     case 24: return dtype == 0 ? launch<float, 24>(ARGS) : launch_bf16<24>(ARGS_BF16);
+    case 64: return dtype == 0 ? launch<float, 64>(ARGS) : launch_bf16<64>(ARGS_BF16);
     case 112: return dtype == 0 ? launch<float, 112>(ARGS) : launch_bf16<112>(ARGS_BF16);
     case 128: return dtype == 0 ? launch<float, 128>(ARGS) : launch_bf16<128>(ARGS_BF16);
     case 192: return dtype == 0 ? launch<float, 192>(ARGS) : launch_bf16<192>(ARGS_BF16);

@@ -1,5 +1,5 @@
-"""Core transformer layers of the dense path: norms, rope, embeddings,
-GQA attention, gated MLP -- for serving and training.
+"""Core transformer layers: norms, rope, embeddings, GQA self- and
+cross-attention, gated MLP -- for serving and training.
 
 Parameters are nested dicts of tensors built from ParamDef trees (see
 common.py), with the JAX package's key paths and ``(in, out)`` matmul
@@ -27,16 +27,20 @@ def rmsnorm_def(d_model: int, gemma_style: bool = False):
     return {"w": ParamDef((d_model,), ("embed",), init="zeros" if gemma_style else "ones")}
 
 
-def attention_def(cfg: ModelConfig):
-    """Standard (non-MLA) GQA attention parameter defs."""
+def attention_def(cfg: ModelConfig, *, cross: bool = False):
+    """Standard (non-MLA) GQA attention parameter defs; ``cross`` adds the
+    zero-initialised ``gate`` of tanh-gated cross-attention."""
     d, q_dim, kv_dim = cfg.d_model, cfg.q_dim, cfg.kv_dim
-    return {
+    defs = {
         "wq": ParamDef((d, q_dim), ("embed", "qkv"), init="scaled"),
         "wk": ParamDef((d, kv_dim), ("embed", "qkv"), init="scaled"),
         "wv": ParamDef((d, kv_dim), ("embed", "qkv"), init="scaled"),
         "wo": ParamDef((q_dim, d), ("qkv", "embed"), init="scaled",
                        scale=1.0 / math.sqrt(2 * max(cfg.n_layers, 1))),
     }
+    if cross:
+        defs["gate"] = ParamDef((1,), (None,), init="zeros")
+    return defs
 
 
 def mlp_def(cfg: ModelConfig, d_ff: int | None = None):
@@ -163,10 +167,14 @@ def update_cache_at(buf, new, idx, axis: int):
 
 def attention(x, p, cfg: ModelConfig, *, positions, cache=None, cache_index=None,
               chunked=False, block_tables=None, pos_offset=None,
-              paged_step=None, kv_len=None):
-    """GQA self-attention (the modes of the JAX package's
-    ``layers.attention``, cross-attention aside):
+              paged_step=None, kv_len=None, context=None):
+    """GQA attention (the modes of the JAX package's ``layers.attention``):
 
+      * cross (``context`` (B, Sc, d_model) given, no cache): K/V from the
+        context, no rope and no causal mask, through
+        ``ops.flash_attention(causal=False)`` -- the whisper encoder
+        (``context`` is x itself: bidirectional) and the decoder's cross
+        attention over the encoder output in the training forward.
       * cache-free (``cache`` None): causal attention over x through
         ``ops.flash_attention`` -- the training forward.
       * whole-prompt prefill (contiguous ``(ck, cv)``, S > 1, not
@@ -197,6 +205,9 @@ def attention(x, p, cfg: ModelConfig, *, positions, cache=None, cache_index=None
       * contiguous chunked prefill (S > 1, ``chunked``), at an int or
         per-slot ``cache_index``.
 
+    Params with a ``gate`` (tanh-gated cross-attention) scale the output
+    by ``tanh(gate)``.
+
     A quantized pool arrives as ``(ck, cv, ks, vs)``: int8/fp8 pages and
     their (P, Hkv, page) float32 scales. Both paged modes quantize the
     new K/V (``ops.quantize_kv``, one scale per position) and write codes
@@ -209,6 +220,10 @@ def attention(x, p, cfg: ModelConfig, *, positions, cache=None, cache_index=None
     B, S, _ = x.shape
     H, Hkv, Dh = cfg.n_heads, cfg.n_kv_heads, cfg.head_dim
 
+    if context is not None:
+        if cache is not None:
+            raise ValueError("cross-attention takes no cache: pass its K/V instead")
+        return cross_attention(x, p, cfg, *cross_kv(context, p, cfg))
     q = _split_heads(_matmul(x, p["wq"], cfg), H, Dh)
     k = _split_heads(_matmul(x, p["wk"], cfg), Hkv, Dh)
     v = _split_heads(_matmul(x, p["wv"], cfg), Hkv, Dh)
@@ -220,7 +235,7 @@ def attention(x, p, cfg: ModelConfig, *, positions, cache=None, cache_index=None
     if cache is None:
         out = ops.flash_attention(q.contiguous(), k.contiguous(), v.contiguous(),
                                   causal=True)
-        return _matmul(_merge_heads(out), p["wo"], cfg)
+        return _gated(_matmul(_merge_heads(out), p["wo"], cfg), p)
 
     ck, cv, *qs = cache
     ks, vs = qs or (None, None)
@@ -304,7 +319,29 @@ def attention(x, p, cfg: ModelConfig, *, positions, cache=None, cache_index=None
         out = ops.flash_attention(q.contiguous(), k.contiguous(), v.contiguous(),
                                   causal=True)
 
-    return _matmul(_merge_heads(out), p["wo"], cfg)
+    return _gated(_matmul(_merge_heads(out), p["wo"], cfg), p)
+
+
+def cross_kv(context, p, cfg: ModelConfig):
+    """K and V (B, Hkv, Sc, D) of attention params ``p`` over ``context``
+    (B, Sc, d_model): no rope."""
+    return (_split_heads(_matmul(context, p["wk"], cfg), cfg.n_kv_heads, cfg.head_dim),
+            _split_heads(_matmul(context, p["wv"], cfg), cfg.n_kv_heads, cfg.head_dim))
+
+
+def cross_attention(x, p, cfg: ModelConfig, k, v):
+    """x's queries over context K/V (B, Hkv, Sc, D): no rope and no mask
+    (non-causal ``ops.flash_attention``), scaled by ``tanh(gate)`` where
+    ``p`` has a gate."""
+    q = _split_heads(_matmul(x, p["wq"], cfg), cfg.n_heads, cfg.head_dim)
+    out = ops.flash_attention(q.contiguous(), k.to(q.dtype).contiguous(),
+                              v.to(q.dtype).contiguous(), causal=False)
+    return _gated(_matmul(_merge_heads(out), p["wo"], cfg), p)
+
+
+def _gated(y, p):
+    """tanh(gate) * y for gated cross-attention params, else y."""
+    return torch.tanh(p["gate"].to(y.dtype)) * y if "gate" in p else y
 
 
 def _matmul(x, w, cfg: ModelConfig):

@@ -1,9 +1,21 @@
 """TransformerLM: the serving and training entry points of the JAX
 package's ``models/lm.py`` for the dense GQA family (minitron-8b,
-gemma-7b, granite-20b, deepseek-67b) and the MoE family, with MLA
+gemma-7b, granite-20b, deepseek-67b), the MoE family, with MLA
 (deepseek-v2-lite-16b: unstacked leading dense blocks ``dense{i}``,
-then MoE blocks) or GQA (grok-1-314b). Cross-attention (the vision
-family) is not ported yet.
+then MoE blocks) or GQA (grok-1-314b), and the vision family
+(llama-3.2-vision-11b: a stacked side-stack ``cross`` of tanh-gated
+cross-attention blocks, one after every ``cross_attn_every``-th layer,
+over the stub frontend's patch embeddings).
+
+Vision: ``extra={"vision": (B, n_image_tokens, vision_dim)}`` passed to
+``forward``, ``prefill`` or ``prefill_chunk`` is projected (``vis_proj``)
+and each cross layer's K/V are computed once; the cached entry points
+write them into the cache leaves ``cross_k``/``cross_v`` (n_cross, B,
+Hkv, n_image_tokens, D), which later chunks, ``verify_chunk`` and
+``decode_step`` attend (non-causal ``ops.flash_attention``) as they find
+them. Without extras the cross blocks attend whatever those leaves hold
+(zeros in a fresh cache), as in the JAX package, whose serving engine
+passes no extras.
 
 The JAX package runs the layers under ``lax.scan`` over stacked params;
 here a Python loop walks the same ``(L, ...)`` leaves. Each layer's
@@ -38,11 +50,10 @@ def _layer(tree, i: int):
 
 class TransformerLM:
     def __init__(self, cfg: ModelConfig):
-        if cfg.cross_attn_every:
-            raise NotImplementedError(
-                f"{cfg.name}: cross-attention not ported yet (dense, MoE and MLA only)")
         self.cfg = cfg
         self.n_scan = cfg.n_layers - cfg.first_dense_layers
+        self.has_cross = cfg.cross_attn_every > 0
+        self.n_cross = cfg.n_layers // cfg.cross_attn_every if self.has_cross else 0
         self.mla_absorbed = cfg.mla_absorbed_decode
 
     # ------------------------------------------------------------------ params
@@ -68,6 +79,13 @@ class TransformerLM:
                                              ("vocab", "embed"), init="embed")}
         for i in range(cfg.first_dense_layers):
             defs[f"dense{i}"] = self._block_def(moe_block=False)
+        if self.has_cross:
+            defs["cross"] = _stack({"ln": layers.rmsnorm_def(cfg.d_model),
+                                    "attn": layers.attention_def(cfg, cross=True)},
+                                   self.n_cross)
+            if cfg.vision_dim and cfg.vision_dim != cfg.d_model:
+                defs["vis_proj"] = {"w": ParamDef((cfg.vision_dim, cfg.d_model),
+                                                  (None, "embed"), init="scaled")}
         return defs
 
     def init(self, seed: int = 0, device="cpu"):
@@ -92,6 +110,9 @@ class TransformerLM:
         shapes = {n: (self.n_scan,) + s for n, s in zip(self._kv_names(), one)}
         for i in range(cfg.first_dense_layers):
             shapes.update(zip(self._dense_names(i), one))
+        if self.has_cross:
+            cross = (self.n_cross, batch, cfg.n_kv_heads, cfg.n_image_tokens, cfg.head_dim)
+            shapes.update(cross_k=cross, cross_v=cross)
         return {"pos": 0, **{n: torch.zeros(s, dtype=cfg.cdtype(), device=device)
                              for n, s in shapes.items()}}
 
@@ -107,6 +128,9 @@ class TransformerLM:
         for i in range(cfg.first_dense_layers):
             for n in self._dense_names(i):
                 specs[n] = one
+        if self.has_cross:
+            # state leaves (a batch axis, no "kv_seq"): the pool snapshots them
+            specs["cross_k"] = specs["cross_v"] = (None, "batch", "kv_heads", None, None)
         return specs
 
     def _entry(self, cache, names, i=None):
@@ -149,6 +173,47 @@ class TransformerLM:
         return x + self._mlp(layers.rmsnorm(x, bp["ln2"], cfg), bp["mlp"], moe_block,
                              cache is not None)
 
+    def _cross_block(self, x, cp, k, v):
+        """Gated cross-attention over precomputed context K/V, k and v
+        (B, Hkv, Sc, D): no rope, no mask, x + tanh(gate) * attn."""
+        h = layers.rmsnorm(x, cp["ln"], self.cfg)
+        return x + layers.cross_attention(h, cp["attn"], self.cfg, k, v)
+
+    def _vision_context(self, params, vision_embed):
+        """Stub-frontend patch embeddings -> model-dim context (or None)."""
+        if vision_embed is None:
+            return None
+        x = vision_embed.to(self.cfg.cdtype())
+        if "vis_proj" in params:
+            x = x @ params["vis_proj"]["w"].to(x.dtype)
+        return x
+
+    def _cross_kv_all(self, params, context):
+        """(k, v) of every cross layer over ``context``: (n_cross, B, Hkv,
+        Sc, D) each."""
+        ks, vs = zip(*(layers.cross_kv(context, _layer(params["cross"]["attn"], i), self.cfg)
+                       for i in range(self.n_cross)))
+        return torch.stack(ks), torch.stack(vs)
+
+    def _cross_every(self, x, i, params, cross_kv):
+        """The cross block after scanned layer ``i``, where one is due."""
+        every = self.cfg.cross_attn_every
+        idx = self.cfg.first_dense_layers + i
+        if cross_kv is None or idx % every != every - 1:
+            return x
+        inv = idx // every
+        return self._cross_block(x, _layer(params["cross"], inv),
+                                 cross_kv[0][inv], cross_kv[1][inv])
+
+    def _take_vision(self, params, cache, extra):
+        """Write the cross K/V of ``extra["vision"]``, when given, into the
+        cache's cross leaves (in place)."""
+        context = self._vision_context(params, (extra or {}).get("vision"))
+        if self.has_cross and context is not None:
+            k, v = self._cross_kv_all(params, context)
+            cache["cross_k"].copy_(k)
+            cache["cross_v"].copy_(v)
+
     def _run_cached(self, params, x, positions, cache, cache_index, chunked=False):
         """Shared prefill/decode layer loop. x (B, S, D). In paged mode
         ``cache`` also carries ``block_tables`` and ``pos_offset`` (the
@@ -167,12 +232,14 @@ class TransformerLM:
                 kv_len = layers.decode_kv_len(cache_index, x.shape[0], x.device)
         kw = dict(positions=positions, cache_index=cache_index, chunked=chunked,
                   block_tables=bt, pos_offset=poff, paged_step=paged_step, kv_len=kv_len)
+        cross_kv = (cache["cross_k"], cache["cross_v"]) if self.has_cross else None
         for i in range(self.cfg.first_dense_layers):
             x = self._block(x, params[f"dense{i}"], cache=self._dense_cache(cache, i),
                             moe_block=False, **kw)
         for i in range(self.n_scan):
             x = self._block(x, _layer(params["blocks"], i),
                             cache=self._layer_cache(cache, i), **kw)
+            x = self._cross_every(x, i, params, cross_kv)
         return x
 
     def _head(self, params, x):
@@ -183,12 +250,13 @@ class TransformerLM:
     # ------------------------------------------------------------------ training
     def forward(self, params, tokens, extra=None):
         """Training forward (no cache): tokens (B, T) -> logits (B, T, V)
-        in the compute dtype."""
-        if extra:
-            raise NotImplementedError("vision/frames extras are not ported yet")
+        in the compute dtype. ``extra`` may carry {"vision": embeddings}."""
         cfg = self.cfg
         x = layers.embed(tokens, params["embed"], cfg)
         positions = torch.arange(tokens.shape[1], device=tokens.device)
+        context = self._vision_context(params, (extra or {}).get("vision"))
+        cross_kv = (self._cross_kv_all(params, context)
+                    if self.has_cross and context is not None else None)
 
         def block(x, bp, moe_block=True):
             return self._block(x, bp, positions=positions, moe_block=moe_block)
@@ -205,6 +273,7 @@ class TransformerLM:
             x = run(x, params[f"dense{i}"], moe_block=False)
         for i in range(self.n_scan):
             x = run(x, _layer(params["blocks"], i))
+            x = self._cross_every(x, i, params, cross_kv)
         return self._head(params, x)
 
     def loss(self, params, batch):
@@ -214,9 +283,9 @@ class TransformerLM:
     def prefill(self, params, tokens, cache, extra=None):
         """Whole-prompt prefill into a fresh contiguous cache: K/V written
         at 0, causal attention through ``ops.flash_attention``. Returns
-        the last position's logits (B, V) and the cache with ``pos`` = T."""
-        if extra:
-            raise NotImplementedError("vision/frames extras are not ported yet")
+        the last position's logits (B, V) and the cache with ``pos`` = T.
+        ``extra["vision"]``, when given, fills the cross leaves first."""
+        self._take_vision(params, cache, extra)
         T = tokens.shape[1]
         x = layers.embed(tokens, params["embed"], self.cfg)
         positions = torch.arange(T, device=tokens.device)
@@ -224,11 +293,12 @@ class TransformerLM:
         logits = self._head(params, x[:, -1:])[:, 0]
         return logits, {**cache, "pos": T}
 
-    def prefill_chunk(self, params, tokens, cache):
+    def prefill_chunk(self, params, tokens, cache, extra=None):
         """Prefill continuation: process a prompt chunk starting at
         ``cache["pos"]`` (an int), attending against the already-cached
         prefix. Returns the last position's logits (B, V) and the cache
-        with ``pos`` advanced (K/V written in place). The head runs over
+        with ``pos`` advanced (K/V written in place; ``extra["vision"]``,
+        when given, fills the cross leaves first). The head runs over
         every row of the chunk, as ``verify_chunk``'s does, so the two
         give the same bits for the same window (a matmul's summation
         order may depend on its row count); its cost is the head's
@@ -236,6 +306,7 @@ class TransformerLM:
         B, T = tokens.shape
         start = int(cache["pos"])
         sstart = start - int(cache.get("pos_offset", 0) or 0)
+        self._take_vision(params, cache, extra)
         x = layers.embed(tokens, params["embed"], self.cfg)
         positions = torch.arange(sstart, sstart + T, device=tokens.device)
         x = self._run_cached(params, x, positions, cache, cache_index=start,
@@ -255,7 +326,9 @@ class TransformerLM:
         ``cache["pos"]`` is NOT advanced: the caller moves it by the
         number of accepted tokens. Rejected positions need no undo: they
         sit beyond the new ``pos``, are masked out by ``kv_len`` and are
-        rewritten before ``pos`` reaches them again."""
+        rewritten before ``pos`` reaches them again. The cross blocks
+        attend the cache's cross leaves; ``extra`` is taken and unused,
+        as in the JAX package."""
         T = tokens.shape[1]
         start = cache["pos"]
         sstart = start - cache["pos_offset"] if "pos_offset" in cache else start
@@ -282,11 +355,13 @@ class TransformerLM:
             drafts.append(tok[:, 0])
         return torch.stack(drafts[:k], dim=1), cache
 
-    def decode_step(self, params, token, cache):
+    def decode_step(self, params, token, cache, extra=None):
         """One token per slot: ``token`` (B, 1); ``cache["pos"]`` an int
         (one shared position) or a (B,) int32 tensor of per-slot positions
         (paged, or the contiguous cache of the splice path). Returns
-        logits (B, V) and the cache with ``pos`` advanced."""
+        logits (B, V) and the cache with ``pos`` advanced. The cross
+        blocks attend the cache's cross leaves; ``extra`` is taken and
+        unused, as in the JAX package."""
         pos = cache["pos"]
         x = layers.embed(token, params["embed"], self.cfg)
         if isinstance(pos, int):

@@ -449,8 +449,8 @@ def test_flash_attention_refuses_what_it_does_not_take_on_card(dtype):
     _card()
     dt = getattr(torch, dtype)
     atol, rtol = _tol(dtype)
-    q = torch.randn((1, 4, 8, 64), device="cuda").to(dt)
-    kv = torch.randn((1, 2, 8, 64), device="cuda").to(dt)
+    q = torch.randn((1, 4, 8, 32), device="cuda").to(dt)
+    kv = torch.randn((1, 2, 8, 32), device="cuda").to(dt)
     before = fa_k.launches
     with pytest.raises(RuntimeError, match="built for"):
         fa_k.flash_attention(q, kv, kv)
@@ -487,6 +487,7 @@ DECODE_CASES = [
     (8, 16, 16, 256, 192, [1, 5, 16, 17, 100, 128, 255, 256], 0.0),  # MLA's D 192
     (8, 16, 16, 256, 192, [3, 9, 60, 61, 129, 200, 254, 256], 30.0),
     (2, 4, 4, 48, 24, [20, 41], 0.0),                              # the smoke MLA's D 24
+    (8, 16, 16, 256, 64, [1, 5, 16, 17, 100, 128, 255, 256], 0.0),   # whisper-medium's D 64
 ]
 
 
@@ -513,7 +514,7 @@ def test_decode_attention_split_matches_plain_on_card(dtype, B, Hq, Hkv, S, D, l
 
 
 @pytest.mark.cuda
-@pytest.mark.parametrize("D", [8, 16, 24, 112, 128, 192, 256])
+@pytest.mark.parametrize("D", [8, 16, 24, 64, 112, 128, 192, 256])
 @pytest.mark.parametrize("Sq,Skv,causal,cap", [
     (200, 200, True, 0.0), (65, 300, True, 0.0), (130, 70, True, 0.0),
     (100, 190, False, 0.0), (129, 129, True, 25.0), (1, 64, True, 0.0)])
@@ -1011,3 +1012,95 @@ def test_moe_smoke_configs_serve_on_card_as_on_cpu(arch, kv_dtype):
     assert dec_k.launches > before[0]
     if not cfg.use_mla:     # MLA decodes through decode_attention over its latent view
         assert pa_k.launches + pa_k.launches_quant > before[1]
+
+
+@pytest.mark.cuda
+@pytest.mark.parametrize("dtype", ["float32", "bfloat16"])
+@pytest.mark.parametrize("B,Hq,Hkv,Sq,Skv,D,causal", [
+    (8, 16, 16, 1, 1500, 64, False),        # whisper's cross attention, a decode step
+    (1, 16, 16, 1500, 1500, 64, False),     # whisper's encoder
+    (1, 16, 16, 16, 1500, 64, False),       # a prefill piece's cross attention
+    (1, 16, 16, 250, 250, 64, True),        # whisper's whole-prompt prefill
+    (8, 32, 8, 1, 1601, 128, False)])       # llama-3.2-vision's cross, a decode step
+def test_cross_attention_shapes_on_card(dtype, B, Hq, Hkv, Sq, Skv, D, causal):
+    """The flash forward at the cross-attention families' shapes against
+    the plain version, one launch a call; at D = 64 a gradient raises
+    rather than falling back (the backward is not built for it)."""
+    _card()
+    dt = getattr(torch, dtype)
+    atol, rtol = _tol(dtype)
+    g = torch.Generator(device="cuda").manual_seed(12)
+    q = torch.randn((B, Hq, Sq, D), generator=g, device="cuda").to(dt)
+    k, v = (torch.randn((B, Hkv, Skv, D), generator=g, device="cuda").to(dt) for _ in "kv")
+    before = fa_k.launches
+    got = fa_k.flash_attention(q, k, v, causal=causal)
+    torch.cuda.synchronize()
+    assert fa_k.launches == before + 1
+    torch.testing.assert_close(got, fa_k.plain(q, k, v, causal=causal), atol=atol, rtol=rtol)
+    if D == 64:
+        before = (fa_k.launches, fa_k.launches_bwd)
+        with pytest.raises(NotImplementedError, match="backward kernel is built for"):
+            fa_k.flash_attention(q.clone().requires_grad_(), k, v, causal=causal)
+        assert (fa_k.launches, fa_k.launches_bwd) == before
+
+
+@pytest.mark.cuda
+@pytest.mark.parametrize("arch", ["whisper-medium", "llama-3.2-vision-11b"])
+def test_cross_attention_smoke_configs_serve_on_card_as_on_cpu(arch):
+    """The encoder-decoder and vision smokes in float32 (D = 16; the
+    vision gates set to 0.5), on the card through the kernels and on the
+    CPU through the plain versions with the same weights: greedy streams
+    identical through generate() and the splice batcher (a repeat is a
+    prefix hit), and the model alone with its stub input on the first
+    prefill piece, then decode steps, logits within 5e-5."""
+    _card()
+    from repro_torch.configs import get_smoke_config
+    from repro_torch.models.common import tree_map
+    from repro_torch.serving import ServingEngine
+    from repro_torch.serving.pagepool import chunk_plan
+
+    cfg = get_smoke_config(arch).replace(vocab_size=300, vocab_pad_to=64,
+                                         compute_dtype="float32")
+    gpu = ServingEngine(cfg, max_seq=96, device="cuda")
+    if "cross" in gpu.params:
+        gpu.params["cross"]["attn"]["gate"].fill_(0.5)
+    cpu = ServingEngine(cfg, max_seq=96, device="cpu",
+                        params=tree_map(lambda t: t.cpu(), gpu.params))
+    prompts = ["hello world", "a prompt longer than one sixteen-token page, twice over", "x"]
+    before = (dec_k.launches, fa_k.launches)
+    try:
+        for p in prompts:
+            assert gpu.generate(p, max_new_tokens=12).tokens == \
+                cpu.generate(p, max_new_tokens=12).tokens
+        for p in prompts + [prompts[1]]:
+            a = gpu.submit(p, max_new_tokens=12).result(timeout=300)
+            c = cpu.submit(p, max_new_tokens=12).result(timeout=300)
+            assert (a.tokens, a.prefix_hit_tokens) == (c.tokens, c.prefix_hit_tokens)
+        assert a.prefix_hit_tokens > 0 and not gpu.scheduler.batcher.paged
+    finally:
+        gpu.shutdown()
+        cpu.shutdown()
+    assert dec_k.launches > before[0] and fa_k.launches > before[1]
+    g = torch.Generator().manual_seed(0)
+    key, shape = (("frames", (1, cfg.encoder_seq_len, cfg.d_model)) if cfg.is_encoder_decoder
+                  else ("vision", (1, cfg.n_image_tokens, cfg.vision_dim)))
+    stub = 0.1 * torch.randn(shape, generator=g)
+    ids = torch.randint(3, 259, (1, 37), generator=g)
+    out = []
+    for eng in (gpu, cpu):
+        m, dev = eng.model, eng.device
+        cache, off, steps = m.init_cache(1, 96, dev), 0, []
+        with torch.inference_mode():
+            for i, n in enumerate(chunk_plan(0, ids.shape[1], 16)):
+                logits, cache = m.prefill_chunk(eng.params, ids[:, off:off + n].to(dev), cache,
+                                                {key: stub.to(dev)} if i == 0 else None)
+                off += n
+            steps.append(logits.cpu())
+            for _ in range(3):
+                logits, cache = m.decode_step(eng.params, torch.argmax(logits, -1)[:, None],
+                                              cache)
+                steps.append(logits.cpu())
+        out.append(steps)
+    for a, c in zip(*out):
+        torch.testing.assert_close(a, c, atol=5e-5, rtol=0)
+        assert int(a.argmax()) == int(c.argmax())

@@ -51,6 +51,8 @@ def test_importing_the_port_loads_no_jax():
             "repro_torch.serving.scheduler, repro_torch.core.desktop, "
             "repro_torch.serving.quantize, repro_torch.models.moe, repro_torch.models.mla, "
             "repro_torch.configs.deepseek_v2_lite_16b, repro_torch.configs.grok_1_314b, "
+            "repro_torch.models.encdec, repro_torch.configs.whisper_medium, "
+            "repro_torch.configs.llama_3_2_vision_11b, "
             "repro_torch.serving.prng, repro_torch.launch.serve, "
             "repro_torch.training, repro_torch.kernels.flash_attention, "
             "repro_torch.launch.train; "
@@ -82,6 +84,10 @@ def test_entry_points_need_a_card_unless_asked_for_cpu(monkeypatch):
         build_system(hpc_arch="deepseek-v2-lite-16b")
     with pytest.raises(RuntimeError, match="no CUDA device"):
         build_system(hpc_arch="grok-1-314b")
+    with pytest.raises(RuntimeError, match="no CUDA device"):
+        build_system(hpc_arch="whisper-medium")
+    with pytest.raises(RuntimeError, match="no CUDA device"):
+        build_system(hpc_arch="llama-3.2-vision-11b")
     with pytest.raises(RuntimeError, match="no CUDA device"):
         build_system(replicas=2)
     with pytest.raises(RuntimeError, match="no CUDA device"):

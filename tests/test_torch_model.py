@@ -47,8 +47,12 @@ def test_configs_match_reference_field_for_field(arch):
                       (get_smoke_config(arch), ref_smoke(arch))):
         for f in ref.__dataclass_fields__:
             assert getattr(port, f) == getattr(ref, f), f
-    with pytest.raises(NotImplementedError, match="not ported"):
-        get_config("llama-3.2-vision-11b")
+    from repro.configs import ARCHS
+    for other in ARCHS:                     # every arch of the reference is ported
+        for port, ref in ((get_config(other), ref_full(other)),
+                          (get_smoke_config(other), ref_smoke(other))):
+            assert all(getattr(port, f) == getattr(ref, f)
+                       for f in ref.__dataclass_fields__), other
 
 
 def test_param_tree_layout_matches_reference(models):

@@ -33,9 +33,19 @@ KW = dict(vocab_size=300, vocab_pad_to=64, compute_dtype="float32")
 
 
 def test_list_archs_lists_every_reference_arch():
+    """Every arch is listed and builds: its full config's param tree and
+    its smoke model, by the reference's key paths and shapes."""
+    from repro_torch.models.common import flatten
     assert list_archs() == ref_list_archs()
-    with pytest.raises(NotImplementedError):
-        get_config("whisper-medium")
+    from repro.configs import get_config as ref_full
+    for arch in list_archs():
+        full = build_model(get_config(arch))
+        assert {p: d.shape for p, d in flatten(full.param_defs())} == {
+            p: d.shape for p, d in flatten(ref_build(ref_full(arch)).param_defs())}, arch
+        smoke = build_model(get_smoke_config(arch).replace(**KW)).init(seed=0)
+        assert {p: tuple(t.shape) for p, t in flatten(smoke)} == {
+            p: d.shape for p, d in flatten(ref_build(ref_smoke(arch).replace(**KW))
+                                           .param_defs())}, arch
 
 
 @pytest.mark.parametrize("kv_dtype", ["fp32", "int8"])

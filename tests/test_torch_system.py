@@ -119,8 +119,10 @@ def test_relay_never_sees_plaintext(systems, monkeypatch):
 
 
 def test_unported_options_refuse():
+    # W4A16 on the encoder-decoder: its cross-attention output projection
+    # is a dense matmul in the JAX package (which fails on a quantized one)
     with pytest.raises(NotImplementedError, match="not ported"):
-        build_system(device="cpu", hpc_arch="whisper-medium")
+        build_system(device="cpu", hpc_arch="whisper-medium", quantize_mlp=True)
     with pytest.raises(ValueError, match="kv_dtype must be one of"):
         build_system(device="cpu", kv_dtype="int4")
 
