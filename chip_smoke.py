@@ -120,7 +120,14 @@ Phases, each of which fails the run when it fails:
      1024) through make_train_step with the driver's AdamW schedule at a
      peak lr of 2e-5, the last step under the profiler; losses finite and
      falling, the counters of flash_attention, its backward kernel and
-     rmsnorm, zeroed just before, must grow;
+     rmsnorm, zeroed just before, must grow; then, the same way, the other
+     families (FAMILY_TRAINS): zamba2-7b at 12 of 81 layers (ssd, its
+     gradient by plain recompute, whose device share of the step is
+     measured), deepseek-v2-lite-16b at 4 of 27 (MLA's flash backward at
+     D = 192), whisper-medium at full depth over 448 tokens and 1500 stub
+     frames (the backward at D = 64), llama-3.2-vision-11b at 5 of 40 (one
+     cross block, gate 0.5, over 1601 stub patches), each peak under the
+     card's 80 GB;
   9. the training driver (python -m repro_torch.launch.train --smoke
      --device cuda), for its default arch (xlstm-125m's smoke config) and
      for --arch minitron-8b side by side: 6 steps with a checkpoint every
@@ -176,14 +183,14 @@ serves the smoke gemma, granite and deepseek (D = 8; and over int8 pages
 with W4A16) on card and CPU, and the MoE family's smokes (deepseek-v2-lite
 over float32 and int8 latent pages, grok-1). mla_shapes_phase holds and
 times the MoE family's kernel shapes: decode attention and the flash
-forward at MLA's D = 192 and the smoke's 24 (a flash gradient there must
-raise), rmsnorm at 2048, awq_matmul at deepseek-v2-lite's W4A16 shapes
-(the dense block's w2 at K = 10944, 171 groups of 64).
+forward at MLA's D = 192 and the smoke's 24, rmsnorm at 2048,
+awq_matmul at deepseek-v2-lite's W4A16 shapes (the dense block's w2 at K
+= 10944, 171 groups of 64).
 crossattn_shapes_phase holds and times the cross-attention families'
 shapes: the flash forward at whisper's D = 64 (the encoder (1, 16/16,
 1500) non-causal, the cross attention of a B = 8 decode step and of a
-16-token piece over 1500 encoder positions, a causal 250-token prefill;
-a gradient at D = 64 must raise) and at the vision cross shape (B = 8,
+16-token piece over 1500 encoder positions, a causal 250-token prefill)
+and at the vision cross shape (B = 8,
 32/8, one query over 1601 image tokens, D = 128), decode attention at
 whisper's (B = 8, 16/16 of 64, S = 256 ragged). The reference phase also
 serves the whisper and vision smokes (float32, D = 16) on card and CPU
@@ -192,9 +199,19 @@ with a seeded stream and a prefix hit, then the model alone with its
 stub input on the first prefill piece and four decode steps).
 In the kernels JSON, ``launches`` is a kernel's count summed over the
 eleven serving paths, the two speculative paths, the two rolling paths, the
-desktop fleet and the two training paths (each zeroed just before its
+desktop fleet and the six training paths (each zeroed just before its
 path and read just after); ``shapes`` lists
 the other timed shapes.
+The flash checks above also run at the training paths' shapes
+(FLASH_BWD_NEW, appended to FLASH_SHAPES: whisper's encoder, cross and
+decoder at D = 64, MLA's D = 192 and its smoke's 24, the vision cross
+1023 over 1601 at D = 128, zamba2's shared block at D = 112) and at a
+16-token whisper cross piece; training_shapes_phase times the backward
+there beside SDPA's backward. ssd is also held at zamba2-7b's training
+shape (b = 2, T = 1024, 1023 live steps, bf16). The reference phase also trains the other families' smokes
+(FAMILY_SMOKES: zamba2, deepseek-v2-lite, grok-1, whisper with stub
+frames, llama-vision with stub patches and gates 0.5) 3 float32 steps on
+card and CPU: losses and params must agree, and their kernels launch.
 The line before the last is the kernels JSON; the last line is
 {"ok": true, "device": {...}}. Exits nonzero with no result line when
 no CUDA device is present or the port's sources are missing.
@@ -295,6 +312,22 @@ FLASH_SHAPES = ((2, 32, 8, 1023, 1023, 128, True, 0.0), (1, 32, 8, 250, 250, 128
                 (2, 16, 16, 1023, 1023, 256, True, 0.0), (1, 16, 16, 250, 250, 256, True, 0.0),
                 (1, 4, 2, 100, 250, 256, True, 30.0), (1, 4, 2, 200, 130, 256, True, 0.0),
                 (2, 8, 2, 63, 63, 8, True, 0.0))
+# the flash backward at the training paths' shapes: (what, (B, Hq, Hkv,
+# Sq, Skv, D, causal)); T = 447 is whisper's 448-token text context less
+# one, 1023 the other paths' 1024 less one; 1500 and 1601 keys leave a
+# partial last key tile. flash_phase holds them (appended to
+# FLASH_SHAPES, with a 16-token whisper cross piece: one partial query
+# tile); training_shapes_phase times them
+FLASH_BWD_NEW = (
+    ("whisper encoder", (2, 16, 16, 1500, 1500, 64, False)),
+    ("whisper cross", (2, 16, 16, 447, 1500, 64, False)),
+    ("whisper decoder", (2, 16, 16, 447, 447, 64, True)),
+    ("deepseek-v2-lite MLA", (2, 16, 16, 1023, 1023, 192, True)),
+    ("deepseek-v2-lite smoke MLA", (2, 4, 4, 63, 63, 24, True)),
+    ("vision cross", (2, 32, 8, 1023, 1601, 128, False)),
+    ("zamba2 shared block", (2, 32, 32, 1023, 1023, 112, True)))
+FLASH_SHAPES += tuple(s + (0.0,) for _, s in FLASH_BWD_NEW) + (
+    (1, 16, 16, 16, 1500, 64, False, 0.0),)
 # granite-20b's whole-prompt prefill (G = 48), forward only: no path trains it
 GRANITE_PREFILL = (1, 48, 1, 250, 250, 128, True, 0.0)
 # training: full-width minitron-8b cut to 4 of its 32 layers (float32
@@ -311,6 +344,31 @@ TRAIN_OC = dict(lr=2e-5, warmup_steps=5, decay_steps=10)
 # second moment: Adam turns a gradient error dg into a step error of
 # about lr * dg / (sqrt(vh) + eps) (tests/test_torch_training.py)
 TRAIN_LOSS_ATOL, TRAIN_PARAM_ATOL, TRAIN_G_TOL = 1e-4, 1e-5, 1e-6
+# the other families at full width, each TRAIN_STEPS steps of batch
+# TRAIN_BATCH: (arch, layers, seq, kernels that must launch): zamba2-7b at
+# 12 of 81 layers (two calls of the shared block, D 112), deepseek-v2-lite
+# at 4 of 27 (one dense block, three MoE; MLA's flash backward at D 192),
+# whisper-medium at full depth over its 448-token text context and 1500
+# stub frames (the backward at D 64: encoder, cross, decoder), and
+# llama-3.2-vision at 5 of 40 (one cross block over 1601 stub patches: the
+# non-causal Sq != Skv backward at D 128)
+FAMILY_TRAINS = (
+    ("zamba2-7b", 12, TRAIN_SEQ, ("ssd", "flash_attention", "flash_attention_bwd", "rmsnorm")),
+    ("deepseek-v2-lite-16b", 4, TRAIN_SEQ, ("flash_attention", "flash_attention_bwd",
+                                            "rmsnorm")),
+    ("whisper-medium", 24, 448, ("flash_attention", "flash_attention_bwd")),
+    ("llama-3.2-vision-11b", 5, TRAIN_SEQ, ("flash_attention", "flash_attention_bwd",
+                                            "rmsnorm")))
+# the other families' smokes trained card vs CPU, and the kernels each
+# must launch on the card: zamba2's ssd (its gradient by plain recompute)
+# and the shared block's flash at D 16; MLA's flash backward at D 24; the
+# encoder-decoder's and the vision cross's non-causal backward
+FAMILY_SMOKES = (
+    ("zamba2-7b", ("ssd", "flash_attention", "flash_attention_bwd", "rmsnorm")),
+    ("deepseek-v2-lite-16b", ("flash_attention", "flash_attention_bwd", "rmsnorm")),
+    ("grok-1-314b", ("flash_attention", "flash_attention_bwd", "rmsnorm")),
+    ("whisper-medium", ("flash_attention", "flash_attention_bwd")),
+    ("llama-3.2-vision-11b", ("flash_attention", "flash_attention_bwd", "rmsnorm")))
 PREFILL_E2E_REL = 0.05     # end-to-end prefill vs chunked: share of max |logit|
 # rolling windows on the full-width HPC tier: 1 sink + 12 rolling pages + 1
 # spare = a cap of 14 pages (224 tokens) a slot, 4 pages (64 tokens) a roll;
@@ -815,14 +873,16 @@ def kernel_phase(torch, timer):
 
     # ---- ssd: the smoke chunk (16) in float32, with and without h0; then
     # zamba2-7b's prefill piece -- a 32-token piece padded to one 256-step
-    # chunk (dt = 0 on the padding) -- the same chunk fully live, and two
-    # full chunks (the carry)
+    # chunk (dt = 0 on the padding) -- the same chunk fully live, two full
+    # chunks (the carry), and its training shape: batch 2, T = 1023 padded
+    # to four chunks
     for dname, (b, T, H, P, N, L, live) in (
             ("float32", (2, 48, 4, 16, 16, 16, 37)),
             ("float32", (1, 256, 112, 64, 64, 256, 32)),
             ("bfloat16", (1, 256, 112, 64, 64, 256, 32)),
             ("bfloat16", (1, 256, 112, 64, 64, 256, 256)),
-            ("bfloat16", (1, 512, 112, 64, 64, 256, 512))):
+            ("bfloat16", (1, 512, 112, 64, 64, 256, 512)),
+            ("bfloat16", (TRAIN_BATCH, 1024, 112, 64, 64, 256, TRAIN_SEQ - 1))):
         dt = getattr(torch, dname)
         x = randn(b, T, H, P, dtype=dt)
         dtv = 1e-3 + 0.1 * torch.rand((b, T, H), generator=g, device="cuda")
@@ -869,6 +929,7 @@ def kernel_phase(torch, timer):
     spec_shapes_phase(torch, timer, rows, randn, g)
     mla_shapes_phase(torch, timer, rows, randn, g)
     crossattn_shapes_phase(torch, timer, rows, randn, g)
+    training_shapes_phase(torch, timer, rows, randn)
 
     for (name, dname), errs in sorted((k, v) for k, v in rows.items()
                                       if isinstance(k, tuple)):
@@ -1200,13 +1261,6 @@ def mla_shapes_phase(torch, timer, rows, randn, g):
                     f"flash_attention {what} {(b, h, h, sq, sq, d)} causal={causal}",
                     fa_k.flash_attention(q, k, v, causal=causal, scale=sc),
                     fa_k.plain(q, k, v, causal=causal, scale=sc), dname))
-        qg = q.clone().requires_grad_()
-        try:
-            fa_k.flash_attention(qg, k, v, scale=sc)
-        except NotImplementedError:
-            pass
-        else:
-            raise AssertionError(f"flash_attention D={d}: a gradient must raise")
         pairs = sum(i + 1 for i in range(sq))
         time_shape(torch, timer, rows, "flash_attention", f"{what} {(b, h, h, sq, sq, d)} causal",
                    lambda: fa_k.flash_attention(q, k, v, scale=sc),
@@ -1264,8 +1318,8 @@ def crossattn_shapes_phase(torch, timer, rows, randn, g):
     16-token prefill piece; a causal 250-token prefill) and at
     llama-3.2-vision's cross shape (B = 8, 32/8, one query over 1601 image
     tokens, D = 128, non-causal); decode attention at whisper's decoder
-    (B = 8, 16/16 heads of 64, S = 256, ragged). A gradient through flash
-    at D = 64 must raise."""
+    (B = 8, 16/16 heads of 64, S = 256, ragged). flash_phase holds the
+    gradient at D = 64 (FLASH_SHAPES)."""
     import torch.nn.functional as F
     from repro_torch.kernels import decode_attention as dec_k
     from repro_torch.kernels import flash_attention as fa_k
@@ -1293,13 +1347,6 @@ def crossattn_shapes_phase(torch, timer, rows, randn, g):
                                                           enable_gqa=True),
                    (2 * q.numel() + k.numel() + v.numel()) * 2, 4 * b * hq * d * pairs,
                    plain_n=20)
-        if d == 64 and causal:
-            try:
-                fa_k.flash_attention(q.clone().requires_grad_(), k, v)
-            except NotImplementedError:
-                pass
-            else:
-                raise AssertionError("flash_attention D=64: a gradient must raise")
     h, d, lens = 16, 64, [1, 5, 16, 17, 100, 128, 255, 256]
     kl = torch.tensor(lens, dtype=torch.int32, device="cuda")
     for dname in ("float32", "bfloat16"):
@@ -1319,6 +1366,38 @@ def crossattn_shapes_phase(torch, timer, rows, randn, g):
                lambda: dec_k.plain(q, k, v, kv_len=kl),
                lambda: F.scaled_dot_product_attention(q, k, v, attn_mask=mask),
                2 * q.numel() * 2 + 2 * sum(lens) * h * d * 2 + 4 * B, 4 * d * h * sum(lens))
+
+
+def training_shapes_phase(torch, timer, rows, randn):
+    """The flash backward at the training paths' shapes (FLASH_BWD_NEW;
+    flash_phase holds them against the plain versions): in bf16 the
+    backward kernel's launches timed beside the plain recompute and SDPA's
+    backward (a yardstick the port never calls), with device times and the
+    bound of five products of the forward's size."""
+    import torch.nn.functional as F
+    from repro_torch.kernels import flash_attention as fa_k
+    for what, (b, hq, hkv, sq, skv, d, causal) in FLASH_BWD_NEW:
+        shape, sc, dt = (b, hq, hkv, sq, skv, d), 1.0 / math.sqrt(d), torch.bfloat16
+        q, go = randn(b, hq, sq, d, dtype=dt), randn(b, hq, sq, d, dtype=dt)
+        k, v = randn(b, hkv, skv, d, dtype=dt), randn(b, hkv, skv, d, dtype=dt)
+        pairs = sum(min(skv, skv - sq + i + 1) for i in range(sq)) if causal else sq * skv
+        with torch.no_grad():
+            o, lse, o_lo = fa_k._launch(q, k, v, causal, sc, 0.0, True)
+        qg, kg, vg = (t.clone().requires_grad_() for t in (q, k, v))
+        sdpa = F.scaled_dot_product_attention(qg, kg, vg, is_causal=causal, enable_gqa=True)
+        time_shape(torch, timer, rows, "flash_attention_bwd",
+                   f"{what} {shape} {'causal' if causal else 'non-causal'} (the backward "
+                   f"kernel's launches, Delta included, DP {fa_k.bwd_width(d)}; plain: "
+                   f"autograd of the plain version, forward included; library: SDPA's "
+                   f"backward)",
+                   lambda: fa_k._launch_bwd(q, k, v, o, o_lo, lse, go, causal, sc, 0.0,
+                                            True, True),
+                   lambda: torch.autograd.grad(fa_k.plain(qg, kg, vg, causal=causal),
+                                               (qg, kg, vg), go),
+                   lambda: torch.autograd.grad(sdpa, (qg, kg, vg), go, retain_graph=True),
+                   (5 * q.numel() + 4 * k.numel()) * 2 + 4 * lse.numel(),
+                   10 * b * hq * d * pairs, plain_n=10)
+        del o, lse, o_lo, sdpa, qg, kg, vg
 
 
 def paged_plan(torch, b, hq, hkv, n_pages, quant):
@@ -1849,43 +1928,86 @@ def speculative_reference_phase(torch):
         cpu.shutdown()
 
 
-def training_reference_phase(torch):
-    """The small float32 minitron trains TRAIN_STEPS // 2 steps on the card
+def stub_extra(cfg, B, seed, device):
+    """The stub inputs ``cfg``'s forward takes, made on ``device`` from a
+    numpy seed x STUB_SCALE (float32), or None: encoder frames (B,
+    encoder_seq_len, d_model) or vision patches (B, n_image_tokens,
+    vision_dim)."""
+    import numpy as np
+    import torch
+    if cfg.is_encoder_decoder:
+        shape, key = (B, cfg.encoder_seq_len, cfg.d_model), "frames"
+    elif cfg.cross_attn_every:
+        shape, key = (B, cfg.n_image_tokens, cfg.vision_dim), "vision"
+    else:
+        return None
+    x = STUB_SCALE * np.random.default_rng(seed).standard_normal(shape, dtype=np.float32)
+    return {key: torch.from_numpy(x).to(device)}
+
+
+def training_reference_phase(torch, arch="minitron-8b",
+                             must=("flash_attention", "flash_attention_bwd", "rmsnorm")):
+    """The small float32 ``arch`` trains TRAIN_STEPS // 2 steps on the card
     (kernels) and on the CPU (plain versions) from the same weights and
-    batches: losses and params must agree."""
+    batches (batch 2 x seq 64, T = 63: ragged against the tiles and the
+    SSD chunk; stub frames / patches from a numpy seed x STUB_SCALE, the
+    vision gates at VISION_GATE so that the cross attention's dO is not
+    zero): losses and params must agree, and every kernel in ``must``
+    must launch on the card. An MoE config's routing is recorded on the
+    card; where the CPU's float32 routing differs, the CPU run is made
+    again with the card's routing pinned (``moe_routing``)."""
     import numpy as np
     from repro_torch.configs import get_smoke_config
-    from repro_torch.kernels import flash_attention as fa_k
-    from repro_torch.kernels import rmsnorm as rms_k
     from repro_torch.models import build_model
     from repro_torch.models.common import flatten, tree_map
     from repro_torch.training import (AdamWConfig, SyntheticLMData, adamw_init,
                                       make_train_step)
 
-    cfg = get_smoke_config("minitron-8b").replace(vocab_size=300, vocab_pad_to=64,
-                                                  compute_dtype="float32")
+    t0 = time.perf_counter()
+    cfg = get_smoke_config(arch).replace(vocab_size=300, vocab_pad_to=64,
+                                         compute_dtype="float32")
     model = build_model(cfg)
     oc = AdamWConfig(lr=1e-3, warmup_steps=5, decay_steps=10)     # the driver's defaults
     gpu = model.init(0, "cuda")
-    cpu = tree_map(lambda t: t.to("cpu", copy=True), gpu)     # the step updates in place
-    runs = {}
-    n_fa, n_bwd, n_rms = fa_k.launches, fa_k.launches_bwd, rms_k.launches
-    for name, params in (("card", gpu), ("cpu", cpu)):
-        data = SyntheticLMData(cfg.vocab_size, 2, 64, seed=0)         # T = 63: ragged
+    if "cross" in gpu:
+        gpu["cross"]["attn"]["gate"].fill_(VISION_GATE)
+    cpu0 = tree_map(lambda t: t.to("cpu", copy=True), gpu)    # the step updates in place
+
+    def run(params, dev):
+        data = SyntheticLMData(cfg.vocab_size, 2, 64, seed=0)
         step = make_train_step(model, oc)
         opt, losses = adamw_init(params), []
-        dev = flatten(params)[0][1].device
-        for _ in range(3):
-            params, opt, m = step(params, opt,
-                                  {"tokens": torch.from_numpy(data.next()["tokens"]).to(dev)})
+        for i in range(3):
+            batch = {"tokens": torch.from_numpy(data.next()["tokens"]).to(dev)}
+            extra = stub_extra(cfg, 2, i, dev)
+            if extra is not None:
+                batch["extra"] = extra
+            params, opt, m = step(params, opt, batch)
             losses.append(float(m["loss"]))
-        runs[name] = (params, opt, losses)
-    if fa_k.launches == n_fa or fa_k.launches_bwd == n_bwd or rms_k.launches == n_rms:
-        raise AssertionError("reference training did not launch flash_attention (forward "
-                             "and backward) and rmsnorm")
-    (pg, _, lg), (pc, oc_cpu, lc) = runs["card"], runs["cpu"]
+        return params, opt, losses
+
+    for mod, attr in counters().values():
+        setattr(mod, attr, 0)
+    routes = {"card": [], "cpu": []}
+    with (moe_routing(routes["card"]) if cfg.n_experts else contextlib.nullcontext()):
+        pg, _, lg = run(gpu, "cuda")
+    launched = {name: getattr(mod, attr) for name, (mod, attr) in counters().items()}
+    for name in must:
+        if launched[name] <= 0:
+            raise AssertionError(f"reference training ({arch}) did not launch {name}")
+    pinned = ""
+    with (moe_routing(routes["cpu"]) if cfg.n_experts else contextlib.nullcontext()):
+        pc, oc_cpu, lc = run(tree_map(lambda t: t.clone(), cpu0), "cpu")
+    if cfg.n_experts:
+        differ = sum(not torch.equal(a.cpu(), b) for a, b in zip(routes["card"], routes["cpu"]))
+        pinned = (f"; MoE routing: {differ} of {len(routes['card'])} router calls differ "
+                  "card vs CPU")
+        if differ:
+            with moe_routing(routes["card"], replay=True):
+                pc, oc_cpu, lc = run(tree_map(lambda t: t.clone(), cpu0), "cpu")
+            pinned += ", so the CPU run was made again with the card's routing pinned"
     if not np.allclose(lg, lc, atol=TRAIN_LOSS_ATOL, rtol=0):
-        raise AssertionError(f"training losses differ card vs CPU: {lg} vs {lc}")
+        raise AssertionError(f"training losses ({arch}) differ card vs CPU: {lg} vs {lc}")
     worst, beyond, n_w = 0.0, 0, 0
     for (path, a), (_, b), (_, nu) in zip(flatten(pg), flatten(pc), flatten(oc_cpu["nu"])):
         err = (a.cpu() - b).abs()
@@ -1893,16 +2015,18 @@ def training_reference_phase(torch):
         lim = TRAIN_PARAM_ATOL + 3 * oc.lr * torch.clamp(
             TRAIN_G_TOL / (vh.sqrt() + oc.eps), max=2.0)
         if bool((err > lim).any()):
-            raise AssertionError(f"{'/'.join(path)}: card vs CPU params differ by up to "
-                                 f"{(err - lim).max().item():.3e} beyond their bound")
+            raise AssertionError(f"{arch} {'/'.join(path)}: card vs CPU params differ by up "
+                                 f"to {(err - lim).max().item():.3e} beyond their bound")
         worst = max(worst, err.max().item())
         beyond += int((err > TRAIN_PARAM_ATOL).sum())
         n_w += err.numel()
-    log(f"reference: small float32 minitron trained 3 steps (batch 2 x seq 64, T = 63) "
+    log(f"reference: small float32 {cfg.name} trained 3 steps (batch 2 x seq 64, T = 63) "
         f"on card and CPU: losses {[round(x, 6) for x in lg]} vs "
         f"{[round(x, 6) for x in lc]}; params max abs diff {worst:.3e}, {beyond} of "
         f"{n_w} weights beyond {TRAIN_PARAM_ATOL} (within lr * {TRAIN_G_TOL} / "
-        f"(sqrt(vh) + eps) a step)")
+        f"(sqrt(vh) + eps) a step); card launches "
+        f"{ {k: v for k, v in launched.items() if v} }{pinned} "
+        f"({time.perf_counter() - t0:.1f} s)")
 
 
 @contextlib.contextmanager
@@ -2175,10 +2299,15 @@ def extras_check(torch, hpc, label):
         + "; ".join(notes))
 
 
-def training_phase(torch, arch):
-    """``arch`` at full width cut to TRAIN_LAYERS layers trains TRAIN_STEPS
-    steps of the synthetic stream through make_train_step; the last step
-    runs under the profiler. Returns the kernel launches of the path."""
+def training_phase(torch, arch, n_layers=TRAIN_LAYERS, seq=TRAIN_SEQ,
+                   must=("flash_attention", "flash_attention_bwd", "rmsnorm")):
+    """``arch`` at full width cut to ``n_layers`` layers trains TRAIN_STEPS
+    steps of the synthetic stream (batch TRAIN_BATCH x ``seq`` tokens, T =
+    seq - 1) through make_train_step, with the stub frames / patches its
+    forward takes (seeded, STUB_SCALE; the vision gates at VISION_GATE);
+    the last step runs under the profiler. The kernels in ``must`` must
+    launch; the peak stays under the card's memory. Returns the kernel
+    launches of the path and its figures."""
     import numpy as np
     from torch.profiler import ProfilerActivity, profile
     from repro_torch.configs import get_config
@@ -2187,19 +2316,25 @@ def training_phase(torch, arch):
     from repro_torch.training import AdamWConfig, SyntheticLMData, make_train_step
     from repro_torch.training.train import init_train_state
 
-    cfg = get_config(arch, n_layers=TRAIN_LAYERS)
+    t_start = time.perf_counter()
+    cfg = get_config(arch, n_layers=n_layers)
     model = build_model(cfg)
     torch.cuda.reset_peak_memory_stats()
     params, opt = init_train_state(model, 0, "cuda")
+    if "cross" in params:
+        params["cross"]["attn"]["gate"].fill_(VISION_GATE)
     n_params = sum(t.numel() for _, t in flatten(params))
     state_gb = torch.cuda.memory_allocated() / 1e9
     step = make_train_step(model, AdamWConfig(**TRAIN_OC))
-    data = SyntheticLMData(cfg.vocab_size, TRAIN_BATCH, TRAIN_SEQ)
+    data = SyntheticLMData(cfg.vocab_size, TRAIN_BATCH, seq)
     for mod, attr in counters().values():
         setattr(mod, attr, 0)
     losses, walls = [], []
     for i in range(TRAIN_STEPS):
         batch = {"tokens": torch.from_numpy(data.next()["tokens"]).cuda()}
+        extra = stub_extra(cfg, TRAIN_BATCH, i, "cuda")
+        if extra is not None:
+            batch["extra"] = extra
         torch.cuda.synchronize()
         with (profile(activities=[ProfilerActivity.CPU, ProfilerActivity.CUDA])
               if i == TRAIN_STEPS - 1 else contextlib.nullcontext()) as prof:
@@ -2218,31 +2353,64 @@ def training_phase(torch, arch):
     dev_ms = sum(getattr(e, "self_device_time_total", 0) for e in evs) / 1e3
     top = sorted(evs, key=lambda e: -getattr(e, "self_device_time_total", 0))[:10]
     if not (all(np.isfinite(losses)) and losses[-1] < losses[0]):
-        raise AssertionError(f"training losses {losses}: not finite, or not falling")
-    for name in ("flash_attention", "flash_attention_bwd", "rmsnorm"):
+        raise AssertionError(f"training {arch}: losses {losses}: not finite, or not falling")
+    for name in must:
         if launches[name] <= 0:
-            raise AssertionError(f"training path: kernel {name} was not launched")
+            raise AssertionError(f"training path {arch}: kernel {name} was not launched")
+    if peak > CARD_BYTES:
+        raise AssertionError(f"training path {arch}: peak {peak / 1e9:.2f} GB, over the "
+                             f"card's {CARD_BYTES / 1e9:.0f} GB")
     steady = sorted(walls[1:-1])[len(walls[1:-1]) // 2]
-    tokens = TRAIN_BATCH * TRAIN_SEQ
-    log(f"training path: {arch} at full width cut to {TRAIN_LAYERS} of "
+    tokens = TRAIN_BATCH * (seq - 1)
+    what = "" if extra is None else " over " + " ".join(
+        f"{tuple(t.shape)} stub {k}" for k, t in extra.items())
+    log(f"training path: {arch} at full width, {n_layers} of "
         f"{get_config(arch).n_layers} layers, "
         f"{n_params / 1e9:.3f} B params (float32, bf16 compute, remat), "
-        f"{state_gb:.2f} GB of params and moments; batch {TRAIN_BATCH} x seq {TRAIN_SEQ}, "
+        f"{state_gb:.2f} GB of params and moments; batch {TRAIN_BATCH} x seq {seq}{what}, "
         f"AdamW peak lr {TRAIN_OC['lr']} warmup {TRAIN_OC['warmup_steps']}: losses "
         f"{[round(x, 4) for x in losses]}; step wall median {steady:.1f} ms over steps "
         f"2-{TRAIN_STEPS - 1} (first {walls[0]:.1f} ms), {tokens / steady * 1e3:.0f} tokens/s; "
         f"profiled step {walls[-1]:.1f} ms wall, {dev_ms:.1f} ms device -> busy "
         f"{dev_ms / walls[-1] * 100:.0f}%; peak device memory {peak / 2**30:.2f} GiB "
-        f"({peak / 1e9:.2f} GB)")
+        f"({peak / 1e9:.2f} GB); {time.perf_counter() - t_start:.1f} s")
     for e in top:
         log(f"  {getattr(e, 'self_device_time_total', 0) / 1e3:8.3f} ms "
             f"{e.count:5d} calls  {e.key[:90]}")
     log(f"training path ({arch}) launches: {json.dumps(launches)}")
+    out = dict(step_ms=steady, tok_s=tokens / steady * 1e3, dev_ms=dev_ms,
+               busy=dev_ms / walls[-1], peak_gib=peak / 2**30, losses=losses)
+    if "ssd" in must:
+        # the profiled step's own ssd work: the kernel forward (its first
+        # pass and remat's recompute) and the gradient, autograd of the
+        # plain version recomputed (the _SSD node's backward)
+        f_ms, n_f = device_ms_under(prof, "_SSD")
+        b_ms, n_b = device_ms_under(prof, "autograd::engine::evaluate_function: _SSDBackward",
+                                    skip=("_SSD",))
+        log(f"training path ({arch}) ssd in the profiled step: {n_f} kernel forwards "
+            f"{f_ms:.2f} ms of device time ({f_ms / dev_ms:.1%}); {n_b} gradients (plain "
+            f"recompute and autograd) {b_ms:.2f} ms ({b_ms / dev_ms:.1%} of the step's "
+            f"{dev_ms:.1f} ms)")
+        if n_b == 0:
+            raise AssertionError(f"training path {arch}: no ssd gradient went through _SSD")
+        if b_ms > 0:        # else the profiler linked no kernel to the node: not measured
+            out.update(ssd_fwd_ms=f_ms, ssd_grad_ms=b_ms, ssd_grad_share=b_ms / dev_ms)
     del params, opt, m, batch, prof
     gc.collect()
     torch.cuda.empty_cache()
-    return launches, dict(step_ms=steady, tok_s=tokens / steady * 1e3, dev_ms=dev_ms,
-                          busy=dev_ms / walls[-1], peak_gib=peak / 2**30, losses=losses)
+    return launches, out
+
+
+def device_ms_under(prof, name, skip=()):
+    """(device ms, count) of the kernels launched under the profiled host
+    events called ``name`` and their children, leaving out the subtrees of
+    events called in ``skip``."""
+    def under(e):
+        if e.name in skip:
+            return 0
+        return sum(k.duration for k in e.kernels) + sum(under(c) for c in e.cpu_children)
+    evs = [e for e in prof.events() if e.name == name]
+    return sum(under(e) for e in evs) / 1e3, len(evs)
 
 
 def driver_phase(torch):
@@ -3167,6 +3335,8 @@ def main() -> int:
     speculative_reference_phase(torch)
     rolling_reference_phase(torch)
     training_reference_phase(torch)
+    for arch, must in FAMILY_SMOKES:
+        training_reference_phase(torch, arch, must)
     since(t0, "reference phases")
 
     paths, rolling = {}, {}
@@ -3309,7 +3479,10 @@ def main() -> int:
             f"{label} {stats[key]:14.4f}" for label, (_, stats) in rolling.items()))
 
     trains = {arch: training_phase(torch, arch) for arch in ("minitron-8b", "gemma-7b")}
-    since(t0, "training paths")
+    since(t0, "dense training paths")
+    for arch, n_layers, seq, must in FAMILY_TRAINS:
+        trains[arch] = training_phase(torch, arch, n_layers, seq, must)
+        since(t0, f"training path {arch}")
     driver_phase(torch)
     since(t0, "training driver")
 
@@ -3355,10 +3528,12 @@ def main() -> int:
                         "bound_by": r["bound_by"], "library_ms": r["library_ms"],
                         **({"shapes": r["shapes"]} if "shapes" in r else {})})
     for arch, (_, train) in trains.items():
-        log(f"{card}: training path ({arch}, {TRAIN_LAYERS} layers, batch {TRAIN_BATCH} x "
-            f"seq {TRAIN_SEQ}): step {train['step_ms']:.1f} ms, {train['tok_s']:.0f} "
-            f"tokens/s, device {train['dev_ms']:.1f} ms, busy {train['busy'] * 100:.0f}%, "
-            f"peak {train['peak_gib']:.2f} GiB")
+        log(f"{card}: training path ({arch}, batch {TRAIN_BATCH}): step "
+            f"{train['step_ms']:.1f} ms, {train['tok_s']:.0f} tokens/s, device "
+            f"{train['dev_ms']:.1f} ms, busy {train['busy'] * 100:.0f}%, peak "
+            f"{train['peak_gib']:.2f} GiB, losses {[round(x, 4) for x in train['losses']]}"
+            + (f", ssd gradients {train['ssd_grad_share']:.1%} of the step's device time"
+               if "ssd_grad_share" in train else ""))
     log(f"{card}: flash_attention backward at minitron-8b's training shape "
         f"{rows['flash_attention_bwd']['ms']:.4f} ms (SDPA's "
         f"{rows['flash_attention_bwd']['library_ms']:.4f} ms, bound "

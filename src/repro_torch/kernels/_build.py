@@ -115,15 +115,18 @@ def refuse_grad(name: str, *tensors):
 def plain_backward(ctx, g, plain, n_args: int):
     """The backward of an ``autograd.Function`` whose forward is a kernel
     and whose gradient is autograd of the kernel's plain version: recompute
-    ``plain`` on the saved tensors (``ctx.args`` its keyword arguments) and
-    return the gradients of those that need one, then None for the
-    ``n_args`` non-tensor arguments of ``forward``."""
+    ``plain`` on the saved tensors (``ctx.args`` its keyword arguments; a
+    saved None stays None) and return the gradients of those that need
+    one, then None for the ``n_args`` non-tensor arguments of ``forward``.
+    ``g`` is the output's gradient, or a tuple of them where ``plain``
+    returns a tuple."""
     with torch.enable_grad():
-        ins = [t.detach().requires_grad_(need)
+        ins = [None if t is None else t.detach().requires_grad_(need)
                for t, need in zip(ctx.saved_tensors, ctx.needs_input_grad)]
-        want = [t for t in ins if t.requires_grad]
+        want = [t for t in ins if t is not None and t.requires_grad]
         got = iter(torch.autograd.grad(plain(*ins, **ctx.args), want, g))
-    return tuple(next(got) if t.requires_grad else None for t in ins) + (None,) * n_args
+    return tuple(next(got) if t is not None and t.requires_grad else None
+                 for t in ins) + (None,) * n_args
 
 
 def raw_stream(dev) -> int:

@@ -54,14 +54,18 @@
 //    causal tiles first, walks the key tiles its rows see, as the forward.
 //
 // Body 2, bfloat16 (wgmma, one warpgroup of 128 threads a block; two at
-// D = 256), with the forward's building blocks (wgmma.cuh): bf16 tiles of
-// 64 rows in the 128-byte swizzle, copied by cp.async into a two-stage
-// ring (the next (Q, dO) tile in flight while this one is computed), D =
-// 112 and 16, 8 padded to 128 and 64 with zero columns. At D = 256 one
-// warpgroup would hold dK and dV in 256 floats a thread: there each of
-// two warpgroups owns 128 columns of dK, dV and dQ (the registers of D =
-// 128), and both form S^T and dP^T over all of D, the second repeating
-// the first's two products; 202 KB of shared memory, one block an SM. Grid: one thread block cluster
+// D = 192 and 256), with the forward's building blocks (wgmma.cuh): bf16
+// tiles of 64 rows in the 128-byte swizzle, copied by cp.async into a
+// two-stage ring (the next (Q, dO) tile in flight while this one is
+// computed), D = 112 and 24, 16, 8 padded to 128 and 64 with zero columns
+// (64 is one column block as it is). At D = 256 one warpgroup would hold
+// dK and dV in 256 floats a thread: there each of two warpgroups owns 128
+// columns of dK, dV and dQ (the registers of D = 128), and both form S^T
+// and dP^T over all of D, the second repeating the first's two products;
+// 202 KB of shared memory, one block an SM. D = 192 (MLA) runs that body
+// padded to 256 with zero columns: S^T and dP^T take D's 12 k16 steps,
+// the three gradient products the padded 256 columns (a quarter of their
+// work on zeros), 202 KB as at 256. Grid: one thread block cluster
 // of C blocks (C the largest divisor of G up to 8) per unit (b * Hkv + kv
 // head, 64-key tile): B Hkv ceil(Skv / 64) C blocks, 1024 at the training
 // shape; 108 KB of shared memory a block (D = 128), so two blocks an SM.
@@ -108,10 +112,12 @@
 // Registers: at D = 128, dK and dV hold 64 + 64 floats a thread, S^T and
 // dP^T 32 + 32, the bf16 halves of P and dS 16 + 16 each, dQ's share 64
 // once those are dead.
-// Both bodies: D is a template parameter, built for 8 (deepseek-67b's
-// smoke), 16 (the other smoke configs), 112 (zamba2's shared block), 128
-// (minitron-8b and the other dense configs) and 256 (gemma-7b); another D
-// fails at launch with cudaErrorInvalidValue.
+// Both bodies: D is a template parameter, built for the forward's widths:
+// 8 (deepseek-67b's smoke), 16 (the other smoke configs), 24 (the MLA
+// smoke's 16 + 8), 64 (whisper-medium), 112 (zamba2's shared block), 128
+// (minitron-8b, the other dense configs and the vision cross attention),
+// 192 (MLA's 128 + 64) and 256 (gemma-7b); another D fails at launch with
+// cudaErrorInvalidValue.
 
 #include <cooperative_groups.h>
 #include <cuda_bf16.h>
@@ -604,9 +610,13 @@ __device__ __forceinline__ void p_ds_tile(float* s, float* dp, const float* sL, 
 }
 
 template <int D> struct Bf16 {
-  static constexpr int DP = wg::Tile<D>::DP, TILE = wg::Tile<D>::BYTES;
-  // warpgroups a block: two at D = 256, each owning W = DP / NWG columns
-  // of dK, dV and dQ (m64n128 accumulators, as at D = 128)
+  // D padded to whole 64-column blocks; D = 192 to 256, so that each of
+  // two warpgroups owns 128 columns (a 96-column half would start inside
+  // a 128-byte swizzle row): the last 64 columns are zeros, read by the
+  // gradient products and never stored
+  static constexpr int DP = D == 192 ? 256 : wg::Tile<D>::DP, TILE = 64 * DP * 2;
+  // warpgroups a block: two at D = 192 and 256, each owning W = DP / NWG
+  // columns of dK, dV and dQ (m64n128 accumulators, as at D = 128)
   static constexpr int NWG = DP > 128 ? 2 : 1, NT = 128 * NWG, W = DP / NWG;
   // K, V and two stages of (Q, dO); dS^T (64 x 64 bf16); two stages of
   // (lse, Delta) of 64 floats each; slack to align the tiles to 1 KB
@@ -1035,22 +1045,26 @@ static int launch_bf16(const BwdArgs* a, cudaStream_t s) {
 // delta is a (B, Hq, Sq) float32 workspace. dq may be null (no query
 // gradient wanted); dk and dv are both given or both null. The bf16 body
 // also takes sem (B * Hq * ceil(Sq / 64) + 1 ints, zeroed here) and, with
-// dq, dq_acc (B * Hq * ceil(Sq / 64) * 64 * DP floats). Returns the first
+// dq, dq_acc (B * Hq * ceil(Sq / 64) * 64 * DP floats, DP = Bf16<D>::DP). Returns the first
 // launch error, or cudaErrorInvalidValue for a head dim, type, shape or
 // grid the kernel does not take.
 extern "C" int flash_attention_bwd_launch(const BwdArgs* a) {
   if (a->Hkv <= 0 || a->Hq % a->Hkv != 0 || a->B <= 0 || (long long)a->B * a->Hq > 65535 ||
       a->Sq <= 0 || a->Skv <= 0 || (a->dtype != 0 && a->dtype != 1) ||
       (a->dk == nullptr) != (a->dv == nullptr) || (a->dq == nullptr && a->dk == nullptr) ||
-      (a->D != 8 && a->D != 16 && a->D != 112 && a->D != 128 && a->D != 256) ||
+      (a->D != 8 && a->D != 16 && a->D != 24 && a->D != 64 && a->D != 112 && a->D != 128 &&
+       a->D != 192 && a->D != 256) ||
       (a->dtype == 1 && (a->sem == nullptr || (a->dq != nullptr && a->dq_acc == nullptr))))
     return (int)cudaErrorInvalidValue;
   cudaStream_t s = (cudaStream_t)a->stream;
   switch (a->D) {
     case 8: return a->dtype == 0 ? launch_f32<8>(a, s) : launch_bf16<8>(a, s);
     case 16: return a->dtype == 0 ? launch_f32<16>(a, s) : launch_bf16<16>(a, s);
+    case 24: return a->dtype == 0 ? launch_f32<24>(a, s) : launch_bf16<24>(a, s);
+    case 64: return a->dtype == 0 ? launch_f32<64>(a, s) : launch_bf16<64>(a, s);
     case 112: return a->dtype == 0 ? launch_f32<112>(a, s) : launch_bf16<112>(a, s);
     case 128: return a->dtype == 0 ? launch_f32<128>(a, s) : launch_bf16<128>(a, s);
+    case 192: return a->dtype == 0 ? launch_f32<192>(a, s) : launch_bf16<192>(a, s);
     default: return a->dtype == 0 ? launch_f32<256>(a, s) : launch_bf16<256>(a, s);
   }
 }

@@ -43,7 +43,7 @@ launches = 0
 launches_bwd = 0
 CHUNK_Q = 512              # the plain version's query chunk past 1024 queries
 HEAD_DIMS = (8, 16, 24, 64, 112, 128, 192, 256)   # the forward kernel's
-BWD_HEAD_DIMS = (8, 16, 112, 128, 256)         # the backward kernel's
+BWD_HEAD_DIMS = HEAD_DIMS                          # the backward kernel's
 
 _ARGS = (ctypes.c_void_p,) * 6 + (ctypes.c_int,) * 6 + (
     ctypes.c_float, ctypes.c_float, ctypes.c_int, ctypes.c_int, ctypes.c_void_p)
@@ -126,6 +126,14 @@ def plain_bwd(q, k, v, o, lse, do, *, causal=True, scale=None, logit_soft_cap=0.
     return dq.reshape(B, Hq, Sq, D).to(q.dtype), dk.to(k.dtype), dv.to(v.dtype)
 
 
+def bwd_width(D: int) -> int:
+    """The bf16 backward's padded head width DP (``csrc/
+    flash_attention_bwd.cu``'s ``Bf16<D>::DP``): D rounded up to whole
+    64-column blocks, and 192 padded to 256 (two warpgroups of 128
+    columns, as at 256)."""
+    return 256 if D == 192 else -(-D // 64) * 64
+
+
 def _launch(q, k, v, causal, scale, cap, with_lse):
     """The forward kernel: (out, lse, out_lo). With ``with_lse``, lse is
     the row log-sum-exp and, for bfloat16, out_lo is out's rounding
@@ -167,7 +175,7 @@ def _launch_bwd(q, k, v, o, o_lo, lse, do, causal, scale, cap, need_q, need_kv):
         # the bf16 kernel's dQ sums (float32, 64 x DP a query tile) and its
         # counters (a turn per query tile, then the ticket; the Delta pass
         # zeroes them)
-        nq, dp = -(-Sq // 64), -(-D // 64) * 64
+        nq, dp = -(-Sq // 64), bwd_width(D)
         sem = torch.empty(B * Hq * nq + 1, dtype=torch.int32, device=q.device)
         if need_q:
             dq_acc = torch.empty(B * Hq * nq * 64 * dp, dtype=torch.float32, device=q.device)
@@ -231,6 +239,6 @@ def flash_attention(q, k, v, *, causal=True, scale=None, logit_soft_cap=0.0):
         if D not in BWD_HEAD_DIMS:
             raise NotImplementedError(
                 f"flash_attention's backward kernel is built for D in {BWD_HEAD_DIMS}, "
-                f"got D={D}: training at this head width is not ported yet")
+                f"got D={D}")
         return _FlashAttention.apply(q, k, v, causal, scale, logit_soft_cap)
     return _launch(q, k, v, causal, scale, logit_soft_cap, False)[0]

@@ -7,10 +7,11 @@ int8/fp8 codes with ``k_scales``/``v_scales``), ``awq_matmul`` and
 dispatch by device: a tensor on the CPU goes to the plain PyTorch
 version, a CUDA tensor launches the hand-written Hopper kernel, or the
 wrapper raises. There is no switch to pick one or the other, and no
-fallback from a kernel that fails to build or launch. ``rmsnorm`` and
-``flash_attention`` are differentiable (flash_attention's backward is a
-kernel of its own, rmsnorm's is autograd of the plain version); the
-other four raise where autograd would record them.
+fallback from a kernel that fails to build or launch. ``rmsnorm``,
+``flash_attention`` and ``ssd`` are differentiable (flash_attention's
+backward is a kernel of its own, rmsnorm's and ssd's are autograd of the
+plain version, recomputed); the other three raise where autograd would
+record them.
 
 ``chunk_attention``, ``gather_kv_pages``, ``gather_dequant_kv_pages``,
 ``kv_qmax``, ``quantize_kv``, ``dequantize_kv`` and ``ssd_step`` (the

@@ -10,8 +10,14 @@ launch a call); bfloat16 on the tensor cores, the chunk cut into
 ``sub_chunk(chunk)``-step sub-chunks, one block each and a thread block
 cluster a chunk, after a pass that forms C.B once for all heads (two
 launches a call). A CPU tensor takes the plain version; ``launches``
-counts kernel launches. It has no gradient yet (the hybrid family does not
-train): where autograd would record it, it raises (``_build.refuse_grad``).
+counts kernel launches.
+
+Gradient: the JAX package trains the hybrid family through XLA's
+autodiff of the plain ``ref.ssd`` (its Pallas kernel has no backward).
+On the card, ``_SSD``'s forward is the kernel and its backward
+recomputes the plain version on the saved inputs and returns PyTorch
+autograd's gradient of it (``_build.plain_backward``), as rmsnorm's does;
+on the CPU the plain version is differentiated directly.
 """
 
 from __future__ import annotations
@@ -35,12 +41,29 @@ def sub_chunk(chunk: int) -> int:
     return 64 if chunk % 64 == 0 else 16 if chunk % 16 == 0 else 0
 
 
+def _plain(x, dt, A, B, C, D, h0, *, chunk):
+    return plain(x, dt, A, B, C, D, chunk=chunk, h0=h0)
+
+
+class _SSD(torch.autograd.Function):
+    """Forward: the kernel. Backward: autograd of the plain version,
+    recomputed on the saved inputs (h0 may be None)."""
+
+    @staticmethod
+    def forward(ctx, x, dt, A, B, C, D, h0, chunk):
+        ctx.save_for_backward(x, dt, A, B, C, D, h0)
+        ctx.args = dict(chunk=chunk)
+        return _launch(x, dt, A, B, C, D, chunk, h0)
+
+    @staticmethod
+    def backward(ctx, gy, gh):
+        return _build.plain_backward(ctx, (gy, gh), _plain, 1)
+
+
 def ssd(x, dt, A, B, C, D, *, chunk: int = 64, h0=None):
     """x (b, T, H, P) float32/bfloat16; dt (b, T, H), A (H,), D (H,) and
     h0 (b, H, P, N) float32; B, C (b, T, N) of x's dtype; T a multiple of
     ``chunk`` -> y (b, T, H, P) in x's dtype, h_final (b, H, P, N) f32."""
-    global launches
-    _build.refuse_grad("ssd", x, dt, A, B, C, D, h0)
     dev = x.device
     if dev.type == "cpu":
         return plain(x, dt, A, B, C, D, chunk=chunk, h0=h0)
@@ -64,6 +87,18 @@ def ssd(x, dt, A, B, C, D, *, chunk: int = 64, h0=None):
         raise ValueError("ssd kernel needs a contiguous x")
     if T % chunk:
         raise ValueError(f"T={T} is not a multiple of chunk={chunk}")
+    if torch.is_grad_enabled() and any(
+            t is not None and t.requires_grad for t in (x, dt, A, B, C, D, h0)):
+        return _SSD.apply(x, dt, A, B, C, D, h0, chunk)
+    return _launch(x, dt, A, B, C, D, chunk, h0)
+
+
+def _launch(x, dt, A, B, C, D, chunk, h0):
+    """The kernel on checked inputs: (y, h_final)."""
+    global launches
+    dev = x.device
+    b, T, H, P = x.shape
+    N = B.shape[-1]
     y = torch.empty_like(x)
     h_out = torch.empty((b, H, P, N), dtype=torch.float32, device=dev)
     if b * H == 0:

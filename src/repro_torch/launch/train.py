@@ -1,14 +1,16 @@
-"""Training driver: an --arch of the dense or ssm family on one device,
-with checkpoint/restart fault tolerance and a resumable data pipeline
-(the JAX package's ``launch/train.py``, plus ``--device``).
+"""Training driver: any --arch on one device, with checkpoint/restart
+fault tolerance and a resumable data pipeline (the JAX package's
+``launch/train.py``, plus ``--device``).
 
   PYTHONPATH=src python -m repro_torch.launch.train --steps 50 --batch 8 \
-      --seq 64 --ckpt-dir /tmp/ckpt [--smoke] [--device cpu]
+      --seq 64 --ckpt-dir /tmp/ckpt [--smoke] [--device cpu] [--arch ...]
 
 It trains on the CUDA card unless ``--device`` names another device, and
 raises where there is no card. The default arch is the JAX package's,
-xlstm-125m (its smoke config under ``--smoke``); the hybrid family does
-not train in the port yet.
+xlstm-125m (its smoke config under ``--smoke``). Like the JAX driver it
+passes no extra inputs: llama-3.2-vision-11b trains without patches (its
+cross blocks are skipped), and whisper-medium, whose encoder needs
+frames, raises ``ValueError``.
 """
 
 from __future__ import annotations

@@ -1,5 +1,5 @@
 """Whisper-style encoder-decoder (the JAX package's ``models/encdec.py``),
-for serving.
+for serving and training.
 
 The audio frontend (mel + strided conv stem) is a stub, as in the JAX
 package: ``extra={"frames": (B, encoder_seq_len, d_model)}`` carries
@@ -19,10 +19,13 @@ leaves as they find them (zeros in a fresh cache: the serving engine
 passes no extras, as in the JAX package).
 
 Attention goes through ``ops.flash_attention`` (the encoder and every
-cross-attention, non-causal; the whole-prompt prefill, causal) and
-``ops.decode_attention`` (the decoder's self-attention, one token a
-slot). Training (``loss``) is not ported: the flash backward is not
-built for whisper's D = 64.
+cross-attention, non-causal; the whole-prompt prefill and the training
+decoder, causal) and ``ops.decode_attention`` (the decoder's
+self-attention, one token a slot). ``loss`` is the shared next-token
+loss over ``forward`` with ``batch["extra"]["frames"]``; under
+``cfg.remat`` the training forward recomputes each encoder and decoder
+layer in the backward pass (``torch.utils.checkpoint``, the JAX
+package's ``jax.checkpoint``).
 """
 
 from __future__ import annotations
@@ -34,7 +37,7 @@ import torch.nn.functional as F
 
 from repro_torch.models import layers
 from repro_torch.models.common import ModelConfig, ParamDef, init_params
-from repro_torch.models.lm import _layer, _stack
+from repro_torch.models.lm import _layer, _lm_loss, _remat, _stack
 
 
 def layernorm_def(d):
@@ -126,12 +129,15 @@ class EncDecLM:
         S, D = frames.shape[1], frames.shape[2]
         positions = torch.arange(S, device=frames.device)
         x = frames.to(dt) + sinusoid(positions, D).to(dt)
-        for i in range(cfg.n_encoder_layers):
-            bp = _layer(params["enc_blocks"], i)
+
+        def body(x, bp):
             h = layernorm(x, bp["ln1"])
             x = x + layers.attention(h, bp["attn"], self._acfg, positions=positions,
                                      context=h)
-            x = x + plain_mlp(layernorm(x, bp["ln2"]), bp["mlp"])
+            return x + plain_mlp(layernorm(x, bp["ln2"]), bp["mlp"])
+
+        for i in range(cfg.n_encoder_layers):
+            x = _remat(cfg, body, x, _layer(params["enc_blocks"], i))
         return layernorm(x, params["enc_ln"])
 
     @staticmethod
@@ -171,15 +177,18 @@ class EncDecLM:
         enc_out = self.encode(params, self._frames(extra))
         positions = torch.arange(tokens.shape[1], device=tokens.device)
         x = self._embed_dec(tokens, params, positions)
+
+        def body(x, bp, enc_out):
+            return self._dec_block(x, bp, positions=positions, enc_out=enc_out)
+
         for i in range(self.cfg.n_layers):
-            x = self._dec_block(x, _layer(params["dec_blocks"], i), positions=positions,
-                                enc_out=enc_out)
+            x = _remat(self.cfg, body, x, _layer(params["dec_blocks"], i), enc_out)
         return self._head(params, x)
 
     def loss(self, params, batch):
-        raise NotImplementedError(
-            "training of the encoder-decoder family is not ported yet: the flash "
-            "backward kernel is not built for its D = 64")
+        """The next-token loss over ``forward``: batch = {tokens (B, T+1),
+        extra {"frames": ...}, loss_mask?}."""
+        return _lm_loss(self, params, batch)
 
     # ---------------------------------------------------------------- cache
     def init_cache(self, batch, max_seq, device="cpu"):

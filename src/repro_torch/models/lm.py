@@ -48,6 +48,15 @@ def _layer(tree, i: int):
     return tree_map(lambda t: t[i], tree)
 
 
+def _remat(cfg: ModelConfig, fn, *args):
+    """fn(*args), recomputed in the backward pass under ``cfg.remat`` when
+    autograd records (non-reentrant ``torch.utils.checkpoint``: the JAX
+    package's ``jax.checkpoint`` of a scanned layer)."""
+    if cfg.remat and torch.is_grad_enabled():
+        return torch.utils.checkpoint.checkpoint(fn, *args, use_reentrant=False)
+    return fn(*args)
+
+
 class TransformerLM:
     def __init__(self, cfg: ModelConfig):
         self.cfg = cfg
@@ -258,22 +267,16 @@ class TransformerLM:
         cross_kv = (self._cross_kv_all(params, context)
                     if self.has_cross and context is not None else None)
 
-        def block(x, bp, moe_block=True):
-            return self._block(x, bp, positions=positions, moe_block=moe_block)
-
-        remat = cfg.remat and torch.is_grad_enabled()
-
-        def run(x, bp, moe_block=True):
-            if remat:
-                return torch.utils.checkpoint.checkpoint(block, x, bp, moe_block,
-                                                         use_reentrant=False)
-            return block(x, bp, moe_block)
+        def block(x, bp, moe_block, i):
+            # a scanned layer and the cross block after it are recomputed
+            # together, as the JAX package checkpoints its scan body
+            x = self._block(x, bp, positions=positions, moe_block=moe_block)
+            return x if i is None else self._cross_every(x, i, params, cross_kv)
 
         for i in range(cfg.first_dense_layers):
-            x = run(x, params[f"dense{i}"], moe_block=False)
+            x = _remat(cfg, block, x, params[f"dense{i}"], False, None)
         for i in range(self.n_scan):
-            x = run(x, _layer(params["blocks"], i))
-            x = self._cross_every(x, i, params, cross_kv)
+            x = _remat(cfg, block, x, _layer(params["blocks"], i), True, i)
         return self._head(params, x)
 
     def loss(self, params, batch):

@@ -1,5 +1,5 @@
-"""Mamba-2 block and the Zamba2-style hybrid LM: the serving entry points
-of the JAX package's ``models/ssm.py``.
+"""Mamba-2 block and the Zamba2-style hybrid LM: the JAX package's
+``models/ssm.py``, for serving and training.
 
 Zamba2 is a backbone of Mamba-2 layers with ONE shared transformer block
 (full attention + MLP) invoked every ``attn_every``-th layer, so the
@@ -9,10 +9,13 @@ leading layer axis, ``shared`` unstacked, ``(in, out)`` matmuls), so a
 JAX tree carries over by key path. The JAX package's ``lax.scan`` over
 layers becomes a Python loop, its ``lax.cond`` on ``idx % attn_every`` a
 Python ``if``; the conv, SSM and shared-block K/V caches are written in
-place. Prefill runs the SSD scan (``ops.ssd``, the Hopper kernel on the
-card) as a continuation from the cached state; decode the O(1)
-``ops.ssd_step``. Training (``forward``, ``loss``) and whole-prompt
-``prefill`` are not ported yet: serving prefills in chunks.
+place. Chunked prefill runs the SSD scan (``ops.ssd``, the Hopper kernel
+on the card) as a continuation from the cached state; decode the O(1)
+``ops.ssd_step``. The training forward (``forward``, ``loss``) and the
+whole-prompt ``prefill`` run the scan from zero state; the training
+forward recomputes each layer in the backward pass when ``cfg.remat``
+(``torch.utils.checkpoint``, the JAX package's ``jax.checkpoint``), and
+``ops.ssd``'s gradient is autograd of its plain version.
 """
 
 from __future__ import annotations
@@ -25,7 +28,7 @@ import torch.nn.functional as F
 from repro_torch.kernels import ops
 from repro_torch.models import layers
 from repro_torch.models.common import ModelConfig, ParamDef, init_params
-from repro_torch.models.lm import _layer, _stack
+from repro_torch.models.lm import _layer, _lm_loss, _remat, _stack
 
 # ---------------------------------------------------------------------------
 # Mamba-2 block
@@ -91,13 +94,14 @@ def _scan(xs, Bm, Cm, dt, A, D, cfg: ModelConfig, h0=None):
 
 def mamba2_block(x, p, cfg: ModelConfig, *, conv_state=None, ssm_state=None,
                  chunk_states=None):
-    """x (B, T, D). With ``conv_state``/``ssm_state`` and T == 1 runs the
-    recurrent step; with ``chunk_states=(conv (B, K-1, C), ssm (B, H, P,
-    N))`` the SSD scan as a continuation from those states (chunked
-    prefill: the causal conv is seeded with the previous K-1 inputs and
-    the scan with h0); otherwise the scan from zero state. Returns
-    (y, new_conv_state, new_ssm_state); the from-zero scan returns the
-    conv state only when ``conv_state`` is given."""
+    """x (B, T, D). With ``ssm_state`` and T == 1 runs the recurrent step
+    from (``conv_state``, ``ssm_state``); with ``chunk_states=(conv (B,
+    K-1, C), ssm (B, H, P, N))`` the SSD scan as a continuation from those
+    states (chunked prefill: the causal conv is seeded with the previous
+    K-1 inputs and the scan with h0); otherwise the scan from zero state
+    (training, whole-prompt prefill). Returns (y, new_conv_state,
+    new_ssm_state); the from-zero scan returns the conv state only when
+    ``conv_state`` is given (any value: the JAX package's sentinel)."""
     B, T, _ = x.shape
     di, N, H, P = cfg.d_inner, cfg.ssm_state, cfg.n_ssm_heads, cfg.ssm_head_dim
     K = cfg.ssm_conv_kernel
@@ -110,7 +114,7 @@ def mamba2_block(x, p, cfg: ModelConfig, *, conv_state=None, ssm_state=None,
     dt = F.softplus(dt.float() + p["dt_bias"].float())
     Dh = p["D"].float()
 
-    if conv_state is not None and T == 1:
+    if ssm_state is not None and T == 1:
         c_out, new_conv = _conv_step(xbc[:, 0], conv_state, p["conv_w"], p["conv_b"])
         c_out = F.silu(c_out)
         xs, Bm, Cm = c_out[:, :di], c_out[:, di:di + N], c_out[:, di + N:]
@@ -205,14 +209,15 @@ class HybridLM:
         }
 
     # ------------------------------------------------------------------ blocks
-    def _shared_block(self, x, sp, *, positions, cache, inv: int, pos, chunked=False,
-                      kv_len=None):
+    def _shared_block(self, x, sp, *, positions, cache=None, inv: int = 0, pos=0,
+                      chunked=False, kv_len=None):
         """The shared block's invocation ``inv``: attention writes its K/V
-        in place into that invocation's slice of ``attn_k``/``attn_v``."""
+        in place into that invocation's slice of ``attn_k``/``attn_v``;
+        without a cache (training) it is causal attention over x."""
         cfg = self.cfg
         h = layers.rmsnorm(x, sp["ln1"], cfg)
-        a = layers.attention(h, sp["attn"], cfg, positions=positions,
-                             cache=(cache["attn_k"][inv], cache["attn_v"][inv]),
+        kv = None if cache is None else (cache["attn_k"][inv], cache["attn_v"][inv])
+        a = layers.attention(h, sp["attn"], cfg, positions=positions, cache=kv,
                              cache_index=pos, chunked=chunked, kv_len=kv_len)
         x = x + a
         return x + layers.mlp(layers.rmsnorm(x, sp["ln2"], cfg), sp["mlp"], cfg)
@@ -242,7 +247,53 @@ class HybridLM:
                                        chunked=chunked, kv_len=kv_len)
         return layers.rmsnorm(x, params["ln_f"], cfg)
 
+    # ------------------------------------------------------------------ training
+    def forward(self, params, tokens, extra=None):
+        """Training forward (no cache): tokens (B, T) -> logits (B, T, V)
+        in the compute dtype. Each Mamba-2 layer scans from zero state and
+        every ``attn_every``-th is followed by the shared block."""
+        cfg, k = self.cfg, self.cfg.attn_every
+        x = layers.embed(tokens, params["embed"], cfg)
+        positions = torch.arange(tokens.shape[1], device=tokens.device)
+
+        def body(x, bp, shared):
+            x = mamba2_block(x, bp, cfg)[0]
+            if shared:
+                x = self._shared_block(x, params["shared"], positions=positions)
+            return x
+
+        for i in range(cfg.n_layers):
+            x = _remat(cfg, body, x, _layer(params["blocks"], i), i % k == k - 1)
+        x = layers.rmsnorm(x, params["ln_f"], cfg)
+        return layers.unembed(x, params["lm_head"], cfg)
+
+    def loss(self, params, batch):
+        return _lm_loss(self, params, batch)
+
     # ------------------------------------------------------------------ serving
+    def prefill(self, params, tokens, cache, extra=None):
+        """Whole-prompt prefill into a fresh cache: every Mamba-2 layer
+        scans the prompt from zero state and writes its final SSM state
+        and its last K-1 conv inputs in place; the shared block writes
+        its K/V at 0 (causal ``ops.flash_attention``). Returns the last
+        position's logits (B, V) and the cache with ``pos`` = T."""
+        cfg, k = self.cfg, self.cfg.attn_every
+        T = tokens.shape[1]
+        x = layers.embed(tokens, params["embed"], cfg)
+        positions = torch.arange(T, device=tokens.device)
+        for i in range(cfg.n_layers):
+            conv = cache["conv"][i]
+            x, new_conv, new_ssm = mamba2_block(x, _layer(params["blocks"], i), cfg,
+                                                conv_state=conv)
+            conv.copy_(new_conv)
+            cache["ssm"][i].copy_(new_ssm)
+            if i % k == k - 1:
+                x = self._shared_block(x, params["shared"], positions=positions,
+                                       cache=cache, inv=i // k, pos=0)
+        x = layers.rmsnorm(x, params["ln_f"], cfg)
+        logits = layers.unembed(x[:, -1:], params["lm_head"], cfg)[:, 0]
+        return logits, {**cache, "pos": T}
+
     def prefill_chunk(self, params, tokens, cache):
         """Prefill continuation from ``cache["pos"]`` (an int): every Mamba
         layer's SSD scan resumes from its cached (conv, ssm) state and the

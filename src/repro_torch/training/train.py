@@ -3,9 +3,10 @@ gradient accumulation (the JAX package's ``training/train.py``; the
 accumulation is a Python loop where the JAX package scans).
 
 The gradient is PyTorch autograd of ``model.loss``. On the card its
-forward runs the Hopper kernels (``flash_attention``, ``rmsnorm``),
-whose backward is autograd of their plain versions: the counterpart of
-the JAX package, which trains through XLA's autodiff of the plain code.
+forward runs the Hopper kernels (``flash_attention``, ``rmsnorm``,
+``ssd``); flash_attention's backward is a kernel of its own, rmsnorm's
+and ssd's are autograd of their plain versions: the counterpart of the
+JAX package, which trains through XLA's autodiff of the plain code.
 """
 
 from __future__ import annotations
@@ -31,9 +32,11 @@ def make_train_step(model, oc: AdamWConfig, *, accum_steps: int = 1,
     """Returns train_step(params, opt_state, batch) -> (params, opt_state,
     metrics); params and opt_state are updated in place and returned.
 
-    batch: {"tokens": (B, T) integer tensor, optional "loss_mask"}. With
-    accum_steps > 1 the batch is split along dim 0 into that many
-    microbatches and their gradients averaged in float32.
+    batch: {"tokens": (B, T) integer tensor, optional "loss_mask", optional
+    "extra": {...} (the stub frames or patches, batch-major)}. With
+    accum_steps > 1 every tensor of the batch, the extra ones included, is
+    split along dim 0 into that many microbatches and their gradients
+    averaged in float32.
 
     cast_params: cast the float32 masters to this dtype once at the top of
     the loss; gradients still reach the float32 leaves through the cast.
@@ -47,7 +50,11 @@ def make_train_step(model, oc: AdamWConfig, *, accum_steps: int = 1,
                 dt = torch_dtype(cast_params)
                 used = tree_map(lambda p: p.to(dt), live)
             loss, metrics = model.loss(used, batch)
-            grads = torch.autograd.grad(loss, [t for _, t in flatten(live)])
+            leaves = [t for _, t in flatten(live)]
+            # a leaf the loss does not reach (the vision cross stack when a
+            # batch brings no patches) gets a zero gradient, as under jax.grad
+            grads = [torch.zeros_like(t) if g is None else g for t, g in zip(
+                leaves, torch.autograd.grad(loss, leaves, allow_unused=True))]
         return (loss.detach(), {k: v.detach() for k, v in metrics.items()},
                 tree_unflatten(params, list(grads)))
 
@@ -55,7 +62,7 @@ def make_train_step(model, oc: AdamWConfig, *, accum_steps: int = 1,
         if accum_steps == 1:
             loss, metrics, grads = grads_of(params, batch)
         else:
-            n = next(iter(batch.values())).shape[0] // accum_steps
+            n = batch["tokens"].shape[0] // accum_steps
             grads, losses, ms = None, [], []
             for i in range(accum_steps):
                 mb = tree_map(lambda x: x[i * n:(i + 1) * n], batch)

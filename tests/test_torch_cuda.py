@@ -341,6 +341,13 @@ FLASH_SHAPES = [
     (1, 4, 2, 200, 130, 256, True, 0.0),         # D 256: causal Skv < Sq
     (2, 8, 2, 63, 63, 8, True, 0.0),             # deepseek-67b's smoke: D 8
     (1, 8, 2, 70, 130, 8, False, 0.0),           # D 8, non-causal
+    (2, 4, 4, 63, 63, 24, True, 0.0),            # the MLA smoke's training shape: D 24
+    (1, 4, 4, 100, 150, 24, False, 0.0),         # D 24, non-causal, Sq != Skv
+    (1, 16, 16, 447, 1500, 64, False, 0.0),      # whisper's cross: a partial last key tile
+    (1, 16, 16, 300, 300, 64, True, 0.0),        # whisper's decoder: D 64 causal
+    (1, 16, 16, 250, 250, 192, True, 0.0),       # MLA: D 192 (padded to 256 in bf16)
+    (1, 16, 16, 130, 200, 192, False, 0.0),      # D 192, non-causal, Sq != Skv
+    (1, 32, 8, 200, 1601, 128, False, 0.0),      # the vision cross: 1601 image tokens
 ]
 
 
@@ -406,6 +413,50 @@ def test_kernel_gradients_match_plain_autograd_on_card(dtype):
 
 
 @pytest.mark.cuda
+@pytest.mark.parametrize("dtype,P,N,chunk", [("float32", 16, 16, 16),
+                                             ("bfloat16", 64, 64, 256)])
+@pytest.mark.parametrize("h0", [False, True])
+def test_ssd_gradient_is_autograd_of_plain_on_card(dtype, P, N, chunk, h0):
+    """ssd's forward is the kernel (its launches counted, its y and state
+    as the plain version's) and its gradient autograd of the plain
+    version recomputed on the saved inputs: differentiating the plain
+    version directly gives the same gradient of every input (the same
+    arithmetic on the same inputs; held to the dtype's tolerance), h0
+    given or None."""
+    _card()
+    dt_ = getattr(torch, dtype)
+    g = torch.Generator(device="cuda").manual_seed(9)
+    b, T, H = 2, 2 * chunk, 3
+
+    def rn(*s, dtype=torch.float32):
+        return torch.randn(s, generator=g, device="cuda").to(dtype)
+
+    ins = [rn(b, T, H, P, dtype=dt_), 0.01 + 0.1 * torch.rand((b, T, H), generator=g,
+                                                              device="cuda"),
+           -1.0 - 4.0 * torch.rand(H, generator=g, device="cuda"), rn(b, T, N, dtype=dt_),
+           rn(b, T, N, dtype=dt_), rn(H), rn(b, H, P, N) if h0 else None]
+    gy, gh = rn(b, T, H, P, dtype=dt_), rn(b, H, P, N)
+
+    def run(fn):
+        leaves = [None if t is None else t.detach().clone().requires_grad_() for t in ins]
+        y, h = fn(*leaves[:6], chunk=chunk, h0=leaves[6])
+        live = [t for t in leaves if t is not None]
+        return (y, h), torch.autograd.grad((y, h), live, (gy, gh))
+
+    before = ssd_k.launches
+    (y, h), got = run(ssd_k.ssd)
+    torch.cuda.synchronize()
+    assert ssd_k.launches == before + (2 if dtype == "bfloat16" else 1)
+    (yp, hp), want = run(ssd_k.plain)
+    atol, rtol = _tol(dtype)
+    torch.testing.assert_close(y, yp, atol=atol, rtol=rtol)
+    assert (h - hp).abs().max().item() <= 1e-5 * max(1.0, hp.abs().max().item())
+    for a, w in zip(got, want):
+        assert a.dtype == w.dtype
+        torch.testing.assert_close(a, w, atol=atol, rtol=rtol)
+
+
+@pytest.mark.cuda
 def test_kernels_without_a_gradient_refuse_inputs_that_require_grad_on_card():
     _card()
     g = torch.Generator(device="cuda").manual_seed(7)
@@ -420,17 +471,12 @@ def test_kernels_without_a_gradient_refuse_inputs_that_require_grad_on_card():
     bt = torch.tensor([[1, 2], [3, 4]], dtype=torch.int32, device="cuda")
     qw = ref.awq_pack(torch.randint(0, 16, (64, 32), generator=g, device="cuda"))
     sc, zr = torch.rand((1, 32), device="cuda"), torch.zeros((1, 32), device="cuda")
-    x = torch.randn((2, 16, 2, 16), device="cuda")
-    dt = torch.full((2, 16, 2), 0.01, device="cuda")
-    B = torch.randn((2, 16, 16), device="cuda")
     calls = {
         "decode_attention": lambda: dec_k.decode_attention(q, kv, kv, kv_len=kl),
         "paged_attention": lambda: pa_k.paged_attention(q, pages, pages,
                                                         block_tables=bt, kv_len=kl),
         "awq_matmul": lambda: awq_k.awq_matmul(rn(4, 64, grad=True), qw, sc, zr,
                                                group_size=64),
-        "ssd": lambda: ssd_k.ssd(x.requires_grad_(), dt, -torch.ones(2, device="cuda"),
-                                 B, B, torch.ones(2, device="cuda"), chunk=16),
     }
     for name, call in calls.items():
         with pytest.raises(RuntimeError, match=f"{name} kernel has no gradient"):
@@ -937,7 +983,8 @@ def test_mla_head_widths_on_card(dtype, D):
     with V zero-padded to it: decode attention (B = 8, 16/16 heads,
     ragged) and the flash forward (whole-prompt prefill, causal and not)
     against the plain versions at an explicit scale, one launch a call;
-    a gradient through flash at this D raises rather than falling back."""
+    and the last call's gradient through the backward kernel (one launch)
+    against plain autograd."""
     _card()
     dt = getattr(torch, dtype)
     atol, rtol = _tol(dtype)
@@ -964,11 +1011,13 @@ def test_mla_head_widths_on_card(dtype, D):
         assert fa_k.launches == before + 1
         torch.testing.assert_close(got, fa_k.plain(q, k, v, causal=causal, scale=sc),
                                    atol=atol, rtol=rtol)
-    qg = q.clone().requires_grad_()
+    go = rn(1, H, sq, D)
     before = (fa_k.launches, fa_k.launches_bwd)
-    with pytest.raises(NotImplementedError, match="backward kernel is built for"):
-        fa_k.flash_attention(qg, k, v, scale=sc)
-    assert (fa_k.launches, fa_k.launches_bwd) == before
+    got = _grads(q, k, v, go, fa_k.flash_attention, causal=causal, scale=sc)
+    assert (fa_k.launches, fa_k.launches_bwd) == (before[0] + 1, before[1] + 1)
+    for name, a, w in zip("qkv", got, _grads(q, k, v, go, fa_k.plain, causal=causal,
+                                             scale=sc)):
+        torch.testing.assert_close(a, w, atol=atol, rtol=rtol, msg=lambda m: f"d{name}: {m}")
 
 
 @pytest.mark.cuda
@@ -1024,8 +1073,8 @@ def test_moe_smoke_configs_serve_on_card_as_on_cpu(arch, kv_dtype):
     (8, 32, 8, 1, 1601, 128, False)])       # llama-3.2-vision's cross, a decode step
 def test_cross_attention_shapes_on_card(dtype, B, Hq, Hkv, Sq, Skv, D, causal):
     """The flash forward at the cross-attention families' shapes against
-    the plain version, one launch a call; at D = 64 a gradient raises
-    rather than falling back (the backward is not built for it)."""
+    the plain version, one launch a call; where Sq > 1, the gradient
+    through the backward kernel (one launch) against plain autograd."""
     _card()
     dt = getattr(torch, dtype)
     atol, rtol = _tol(dtype)
@@ -1037,11 +1086,14 @@ def test_cross_attention_shapes_on_card(dtype, B, Hq, Hkv, Sq, Skv, D, causal):
     torch.cuda.synchronize()
     assert fa_k.launches == before + 1
     torch.testing.assert_close(got, fa_k.plain(q, k, v, causal=causal), atol=atol, rtol=rtol)
-    if D == 64:
-        before = (fa_k.launches, fa_k.launches_bwd)
-        with pytest.raises(NotImplementedError, match="backward kernel is built for"):
-            fa_k.flash_attention(q.clone().requires_grad_(), k, v, causal=causal)
-        assert (fa_k.launches, fa_k.launches_bwd) == before
+    if Sq > 1:
+        go = torch.randn((B, Hq, Sq, D), generator=g, device="cuda").to(dt)
+        before = fa_k.launches_bwd
+        got = _grads(q, k, v, go, fa_k.flash_attention, causal=causal)
+        assert fa_k.launches_bwd == before + 1
+        for name, a, w in zip("qkv", got, _grads(q, k, v, go, fa_k.plain, causal=causal)):
+            torch.testing.assert_close(a, w, atol=atol, rtol=rtol,
+                                       msg=lambda m: f"d{name}: {m}")
 
 
 @pytest.mark.cuda

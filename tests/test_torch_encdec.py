@@ -106,7 +106,13 @@ def test_encode_and_forward_match_reference(models):
               jm.forward(jp, jnp.asarray(toks), {"frames": jnp.asarray(fr)}))
     with pytest.raises(ValueError, match="frames"):
         pm.forward(pp, torch.from_numpy(toks))
-    with pytest.raises(NotImplementedError, match="not ported"):
+    # the loss over that forward, with the frames in batch["extra"]
+    with torch.no_grad():
+        loss, _ = pm.loss(pp, {"tokens": torch.from_numpy(toks),
+                               "extra": {"frames": torch.from_numpy(fr)}})
+    jloss, _ = jm.loss(jp, {"tokens": jnp.asarray(toks), "extra": {"frames": jnp.asarray(fr)}})
+    np.testing.assert_allclose(loss.item(), float(jloss), atol=1e-5, rtol=0)
+    with pytest.raises(ValueError, match="frames"):
         pm.loss(pp, {"tokens": torch.from_numpy(toks)})
 
 

@@ -10,8 +10,9 @@ see its keys (the tiles holding rows that see no key first, then the
 others from the last down to the diagonal) for each query head of the kv
 head, forms S and dP once, and produces dV over P in two bf16 pieces (hi
 and lo), dK over dS in two pieces, and dQ's share over dS rounded once to
-bf16. At D = 256 a block is two warpgroups, each forming S and dP over
-all of D and producing 128 of the columns of dV, dK and dQ's share.
+bf16. At D = 256, and at D = 192 padded to 256, a block is two
+warpgroups, each forming S and dP over all of D and producing 128 of the
+columns of dV, dK and dQ's share.
 dQ's shares of a (query head, query tile) are admitted in ascending key
 tile order, whatever order the units arrive in: the first stores, the
 others add, the last scales. The share's workspace layout (a thread's
@@ -53,13 +54,17 @@ CASES = [
     (1, 4, 2, 100, 70, 256, True, 30.0),     # D 256, no-key rows, cap, G 2
     (1, 4, 1, 130, 130, 8, True, 0.0),       # deepseek-67b's smoke D 8, G 4
     (1, 2, 1, 90, 150, 8, False, 0.0),       # D 8, non-causal
+    (1, 2, 2, 63, 63, 24, True, 0.0),        # the MLA smoke's D 24, one ragged tile
+    (1, 2, 2, 75, 150, 64, False, 0.0),      # whisper's D 64, cross: Sq != Skv
+    (1, 2, 2, 70, 70, 192, True, 0.0),       # MLA's D 192: two warpgroups over 256
 ]
 
 
 def warpgroup_columns(D):
     """The column ranges of dV, dK and dQ that a block's warpgroups own:
-    one warpgroup over the padded width up to 128, two of 128 at 256."""
-    DP = -(-D // 64) * 64
+    one warpgroup over the padded width up to 128, two of 128 at 192
+    (padded to 256) and 256."""
+    DP = fa.bwd_width(D)
     W = DP // 2 if DP > 128 else DP
     return [(c0, min(c0 + W, D)) for c0 in range(0, DP, W) if c0 < D]
 
@@ -227,14 +232,39 @@ def test_packed_args_match_the_source():
     assert re.search(r'struct format "([^"]+)"', text).group(1) == fa._BWD_PACK.format
 
 
-@pytest.mark.parametrize("D", [8, 16, 112, 128, 256])
+def _c_int(expr: str, D: int) -> int:
+    """Evaluate one of the source's constexpr int expressions of D: at
+    most one ``a ? b : c``, integer division."""
+    import re
+    m = re.fullmatch(r"(.+?)\?(.+?):(.+)", expr)
+    if m:
+        expr = f"({m.group(2)}) if ({m.group(1)}) else ({m.group(3)})"
+    return eval(expr.replace("/", "//"), {}, {"D": D})
+
+
+@pytest.mark.parametrize("D", fa.BWD_HEAD_DIMS)
+def test_bwd_width_matches_the_source(D):
+    """``bwd_width`` sizes dq_acc; the kernel writes 64 x ``Bf16<D>::DP``
+    floats a (query head, query tile) there, so the two must agree at
+    every width the backward takes."""
+    import re
+    from pathlib import Path
+    csrc = Path(fa.__file__).resolve().parent / "csrc"
+    tile = re.search(r"struct Tile \{\s*static constexpr int DP = ([^;]+);",
+                     (csrc / "wgmma.cuh").read_text()).group(1)
+    dp = re.search(r"struct Bf16 \{.*?static constexpr int DP = ([^,;]+)[,;]",
+                   (csrc / "flash_attention_bwd.cu").read_text(), re.S).group(1)
+    assert _c_int(dp.replace("wg::Tile<D>::DP", f"({tile})"), D) == fa.bwd_width(D)
+
+
+@pytest.mark.parametrize("D", fa.BWD_HEAD_DIMS)
 def test_dq_share_workspace_layout_covers_the_tile_once(D):
     """dQ's share of a (query head, query tile) leaves the block as 64 x DP
     floats: thread tid (of NT = 128 or 256) stores its m64nW fragment's
     floats 4 i .. 4 i + 3 as float4 i NT + tid, and the last key tile
     reads the sum back at the same places. Every (row, column) of the
     padded tile is one float of it, and the warpgroups' columns tile D."""
-    DP = -(-D // 64) * 64
+    DP = fa.bwd_width(D)
     NWG = 2 if DP > 128 else 1
     NT, W = 128 * NWG, DP // NWG
     seen = {}

@@ -66,15 +66,23 @@ def test_configs_match_reference_field_for_field(arch):
 
 
 def test_cross_attention_still_refused():
-    """Cross-attention serves now (a dense config with ``cross_attn_every``
-    builds its gated cross stack); training the encoder-decoder family
-    is what is still refused."""
+    """Cross-attention serves and trains now (a dense config with
+    ``cross_attn_every`` builds its gated cross stack); the
+    encoder-decoder's loss trains with frames and still refuses a batch
+    without them, as its forward does."""
     from repro_torch.models.encdec import EncDecLM
     lm = TransformerLM(get_smoke_config("minitron-8b").replace(cross_attn_every=2))
     assert lm.n_cross == 1 and "gate" in lm.param_defs()["cross"]["attn"]
-    enc = EncDecLM(get_smoke_config("whisper-medium"))
-    with pytest.raises(NotImplementedError, match="not ported"):
-        enc.loss(enc.init(seed=0), {"tokens": torch.zeros((1, 4), dtype=torch.int64)})
+    cfg = get_smoke_config("whisper-medium")
+    enc = EncDecLM(cfg)
+    params = enc.init(seed=0)
+    toks = torch.zeros((1, 5), dtype=torch.int64)
+    frames = 0.1 * torch.randn((1, cfg.encoder_seq_len, cfg.d_model),
+                               generator=torch.Generator().manual_seed(0))
+    loss, _ = enc.loss(params, {"tokens": toks, "extra": {"frames": frames}})
+    assert loss.ndim == 0 and bool(loss.isfinite())
+    with pytest.raises(ValueError, match="frames"):
+        enc.loss(params, {"tokens": toks})
 
 
 def test_param_tree_and_interop_round_trip(models):
