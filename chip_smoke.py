@@ -128,6 +128,17 @@ Phases, each of which fails the run when it fails:
      frames (the backward at D = 64), llama-3.2-vision-11b at 5 of 40 (one
      cross block, gate 0.5, over 1601 stub patches), each peak under the
      card's 80 GB;
+  8a. distribution: make_local_mesh() gives a (1, 1) NCCL mesh;
+     full-width minitron-8b cut to 4 layers is saved with
+     CheckpointManager and brought onto the mesh by elastic_restore, then
+     trains 2 steps there (DTensor params, axis_rules(DEFAULT_RULES),
+     grad_shardings) beside the same 2 steps on plain tensors: losses,
+     updated params and the flash / flash backward / rmsnorm launch
+     counts must agree; deepseek-v2-lite-16b at full width cut to 2 layers
+     runs its moe_dispatch="shard_map" forward on the mesh against the
+     gspmd forward (routing equal, logits within the bf16 tolerance);
+     analyze_step counts the minitron step's FLOPs on meta tensors,
+     printed beside analytic_costs and the step's device time;
   9. the training driver (python -m repro_torch.launch.train --smoke
      --device cuda), for its default arch (xlstm-125m's smoke config) and
      for --arch minitron-8b side by side: 6 steps with a checkpoint every
@@ -199,8 +210,8 @@ with a seeded stream and a prefix hit, then the model alone with its
 stub input on the first prefill piece and four decode steps).
 In the kernels JSON, ``launches`` is a kernel's count summed over the
 eleven serving paths, the two speculative paths, the two rolling paths, the
-desktop fleet and the six training paths (each zeroed just before its
-path and read just after); ``shapes`` lists
+desktop fleet, the six training paths and the distributed phase's mesh
+runs (each zeroed just before its path and read just after); ``shapes`` lists
 the other timed shapes.
 The flash checks above also run at the training paths' shapes
 (FLASH_BWD_NEW, appended to FLASH_SHAPES: whisper's encoder, cross and
@@ -208,10 +219,12 @@ decoder at D = 64, MLA's D = 192 and its smoke's 24, the vision cross
 1023 over 1601 at D = 128, zamba2's shared block at D = 112) and at a
 16-token whisper cross piece; training_shapes_phase times the backward
 there beside SDPA's backward. ssd is also held at zamba2-7b's training
-shape (b = 2, T = 1024, 1023 live steps, bf16). The reference phase also trains the other families' smokes
-(FAMILY_SMOKES: zamba2, deepseek-v2-lite, grok-1, whisper with stub
-frames, llama-vision with stub patches and gates 0.5) 3 float32 steps on
-card and CPU: losses and params must agree, and their kernels launch.
+shape (b = 2, T = 1024, 1023 live steps, bf16), and its gradient (autograd
+of the plain version, recomputed) is timed there beside its bound. The
+reference phase also trains the other families' smokes (FAMILY_SMOKES:
+zamba2, deepseek-v2-lite, grok-1, whisper with stub frames, llama-vision
+with stub patches and gates 0.5) 3 float32 steps on card and CPU: losses
+and params must agree, and their kernels launch.
 The line before the last is the kernels JSON; the last line is
 {"ok": true, "device": {...}}. Exits nonzero with no result line when
 no CUDA device is present or the port's sources are missing.
@@ -337,6 +350,8 @@ GRANITE_PREFILL = (1, 48, 1, 250, 250, 128, True, 0.0)
 # 4096-wide matrix's output by O(1) and the loss climbs (13.15 -> 16.19
 # over 6 steps on the card), so the peak is 2e-5
 TRAIN_LAYERS, TRAIN_BATCH, TRAIN_SEQ, TRAIN_STEPS = 4, 2, 1024, 6
+# the distributed phase's steps, on the (1, 1) mesh and on plain tensors
+DIST_STEPS = 2
 TRAIN_OC = dict(lr=2e-5, warmup_steps=5, decay_steps=10)
 # card-vs-CPU training of the small float32 model: losses within
 # TRAIN_LOSS_ATOL; each param within TRAIN_PARAM_ATOL + steps * lr *
@@ -558,6 +573,28 @@ def ssd_tensor_flops(dt, P, N, L):
     cb_tiles = sum(1 for m in range(mt) for n in range(Q // 8) if n * 8 <= m * 16 + 15)
     return (b * ns * cb_tiles * 2 * 16 * 8 * N + b * ns * H * 2 * 2 * Q * N * P
             + live * (3 * 2 * P * N * Q + 2 * mt * (mt + 1) // 2 * 2 * 16 * 16 * P))
+
+
+def ssd_grad_bound(torch, timer, randn, x, dt, A, Bm, Cm, Dv, L):
+    """ssd's gradient at these inputs (no h0, as training calls it): its
+    bound -- bytes: x, dt, A, B, C, D and the output's gradient read once,
+    the six input gradients written once; operations: two products (one a
+    operand) for each tensor-core product of the forward, ssd_tensor_flops
+    -- and the measured time of _SSD's backward alone (the plain version
+    recomputed and differentiated). Returns (bound ms, bound by, ms)."""
+    from repro_torch.kernels import ssm_scan as ssd_k
+    ins = [t.detach().clone().requires_grad_() for t in (x, dt, A, Bm, Cm, Dv)]
+    y, _ = ssd_k.ssd(*ins, chunk=L)
+    gy = randn(*y.shape, dtype=y.dtype)
+    b, T, H, P = x.shape
+    N = Bm.shape[-1]
+    elt = x.element_size()
+    nbytes = (3 * x.numel() * elt + 2 * dt.numel() * 4 + 4 * Bm.numel() * elt
+              + 4 * A.numel() * 4)
+    bms, by = bound_ms(nbytes, 2 * ssd_tensor_flops(dt, P, N, L), "bfloat16")
+    ms = timer.ms(lambda: torch.autograd.grad(y, ins, gy, retain_graph=True), n=10)
+    del y, ins
+    return bms, by, ms
 
 
 def bound_ms(nbytes, flops, dtype):
@@ -923,6 +960,12 @@ def kernel_phase(torch, timer):
                 f"float32 CUDA-core bound of the scan's {f32_flops / 1e9:.3f} GFLOP "
                 f"{f32_bms:.6f} ms, {f32_by}); device time {dev}, {bms / dev_total:.1%} of "
                 f"the bound, {f32_bms / dev_total:.1%} of the float32 one")
+        if dname == "bfloat16" and T == 1024:     # zamba2's training shape: the gradient
+            gbms, gby, g_ms = ssd_grad_bound(torch, timer, randn, x, dtv, A, Bm, Cm, Dv, L)
+            log(f"time {what} bf16: the gradient (autograd of the plain version, "
+                f"recomputed: _SSD's backward) {g_ms:.4f} ms; its bound {gbms:.6f} ms "
+                f"({gby}: each input and output gradient moved once, two products for each "
+                f"of the forward's tensor-core products); {gbms / g_ms:.2%} of the bound")
 
     flash_phase(torch, timer, rows, randn)
     new_configs_phase(torch, timer, rows, randn, g)
@@ -2463,6 +2506,227 @@ def driver_phase(torch):
         raise AssertionError("\n".join(errors))
 
 
+def distributed_phase(torch, card):
+    """The distribution on the card's one-device mesh: make_local_mesh()
+    gives a (1, 1) NCCL mesh; full-width minitron-8b cut to TRAIN_LAYERS
+    (float32 params, bf16 compute) is initialised, saved with
+    CheckpointManager and brought back onto the mesh by elastic_restore;
+    DIST_STEPS train steps run there under axis_rules(DEFAULT_RULES) with
+    grad_shardings, beside the same steps on plain tensors first: losses
+    within TRAIN_LOSS_ATOL, updated params within TRAIN_PARAM_ATOL, and
+    flash_attention, its backward and rmsnorm launched as many times (the
+    local shards are the whole tensors). Then deepseek-v2-lite-16b at full
+    width cut to 2 layers (the dense first block and one MoE block, bf16):
+    the moe_dispatch="shard_map" forward on the mesh against the gspmd
+    forward on plain tensors, routing indices equal and logits within the
+    bf16 tolerance. Then analyze_step counts the minitron step's FLOPs on
+    meta tensors, printed beside analytic_costs and the plain step's
+    device time. Returns the mesh runs' kernel launches."""
+    import shutil
+
+    import torch.distributed as dist
+    from torch.profiler import ProfilerActivity, profile
+
+    from repro_torch.configs import ShapeCell, get_config
+    from repro_torch.distributed.fault import elastic_restore, shardings_for_mesh
+    from repro_torch.distributed.sharding import DEFAULT_RULES, axis_rules, use_mesh
+    from repro_torch.launch.analysis import PEAK_FLOPS as H100_BF16, analytic_costs, \
+        analyze_step
+    from repro_torch.launch.mesh import make_local_mesh
+    from repro_torch.models import build_model, shape_tree
+    from repro_torch.models.common import flatten
+    from repro_torch.training import (AdamWConfig, CheckpointManager, SyntheticLMData,
+                                      adamw_init, make_train_step)
+
+    t_start = time.perf_counter()
+    mesh = make_local_mesh()
+    if tuple(mesh.shape) != (1, 1) or dist.get_backend() != "nccl":
+        raise AssertionError(f"make_local_mesh() gave {mesh} over {dist.get_backend()}")
+    cfg = get_config("minitron-8b", n_layers=TRAIN_LAYERS)
+    model = build_model(cfg)
+    data = SyntheticLMData(cfg.vocab_size, TRAIN_BATCH, TRAIN_SEQ)
+    batches = [{"tokens": torch.from_numpy(data.next()["tokens"]).cuda()}
+               for _ in range(DIST_STEPS)]
+    ckpt_dir = ROOT / "build" / "dist_ckpt"
+    shutil.rmtree(ckpt_dir, ignore_errors=True)
+    ckpt = CheckpointManager(str(ckpt_dir), keep_last=1)
+    torch.cuda.reset_peak_memory_stats()
+    params = model.init(0)
+    t0 = time.perf_counter()
+    ckpt.save(0, {"params": params}, aux={"seed": 0})
+    save_s = time.perf_counter() - t0
+    ckpt_gb = sum(f.stat().st_size for f in ckpt_dir.rglob("*.npy")) / 1e9
+
+    def run(step, ps, opt, label, ctx):
+        for mod, attr in counters().values():
+            setattr(mod, attr, 0)
+        losses, walls, prof = [], [], None
+        with ctx:
+            for i, batch in enumerate(batches):
+                torch.cuda.synchronize()
+                last = i == len(batches) - 1
+                with (profile(activities=[ProfilerActivity.CPU, ProfilerActivity.CUDA])
+                      if last else contextlib.nullcontext()) as pr:
+                    t0 = time.perf_counter()
+                    ps, opt, m = step(ps, opt, batch)
+                    losses.append(float(m["loss"]))
+                    torch.cuda.synchronize()
+                    walls.append((time.perf_counter() - t0) * 1e3)
+                if last:
+                    prof = pr
+        dev = sum(getattr(e, "self_device_time_total", 0) for e in prof.key_averages()
+                  if str(getattr(e, "device_type", "")).endswith("CUDA")) / 1e3
+        launches = {name: getattr(mod, attr) for name, (mod, attr) in counters().items()}
+        log(f"distributed phase, {label}: losses {losses}; step walls "
+            f"{[round(w, 1) for w in walls]} ms; last step {dev:.1f} ms device time "
+            f"(profiled); launches {json.dumps(launches)}")
+        return ps, opt, losses, walls, dev, launches
+
+    oc = AdamWConfig(**TRAIN_OC)
+    params, opt, plain_losses, plain_walls, plain_dev, plain_launch = run(
+        make_train_step(model, oc), params, adamw_init(params), "plain tensors",
+        contextlib.nullcontext())
+    if plain_dev <= 0:
+        raise AssertionError("the profiler saw no device time in the plain step")
+    plain_final = {path: t.detach().cpu() for path, t in flatten(params)}
+    del params, opt
+    gc.collect()
+    torch.cuda.empty_cache()
+
+    t0 = time.perf_counter()
+    dparams, aux, step0 = elastic_restore(ckpt, model, mesh)
+    restore_s = time.perf_counter() - t0
+    if step0 != 0 or aux != {"seed": 0}:
+        raise AssertionError(f"elastic_restore gave step {step0}, aux {aux}")
+    places = {tuple(t.placements) for _, t in flatten(dparams)}
+    shardings = shardings_for_mesh(model, mesh)
+    on_mesh = contextlib.ExitStack()
+    on_mesh.enter_context(axis_rules(DEFAULT_RULES))
+    on_mesh.enter_context(use_mesh(mesh))
+    dparams, dopt, mesh_losses, mesh_walls, mesh_dev, mesh_launch = run(
+        make_train_step(model, oc, grad_shardings=shardings), dparams, adamw_init(dparams),
+        "(1, 1) mesh, DTensor params", on_mesh)
+    loss_err = max(abs(a - b) for a, b in zip(plain_losses, mesh_losses))
+    param_err = max(float((t.to_local() - plain_final[path].to(t.device)).abs().max())
+                    for path, t in flatten(dparams))
+    peak = torch.cuda.max_memory_allocated()
+    del dparams, dopt, plain_final
+    shutil.rmtree(ckpt_dir, ignore_errors=True)
+    gc.collect()
+    torch.cuda.empty_cache()
+    log(f"distributed phase: {card}: minitron-8b at full width, {TRAIN_LAYERS} layers "
+        f"(float32 params, bf16 compute), batch {TRAIN_BATCH} x seq {TRAIN_SEQ}: "
+        f"checkpoint {ckpt_gb:.2f} GB saved in {save_s:.1f} s, elastic_restore onto "
+        f"{mesh} in {restore_s:.1f} s (placements {sorted(map(str, places))}); "
+        f"{DIST_STEPS} steps: plain losses {plain_losses}, mesh losses {mesh_losses}: max "
+        f"|diff| {loss_err:.3e} (tolerance {TRAIN_LOSS_ATOL}); updated params max |diff| "
+        f"{param_err:.3e} (tolerance {TRAIN_PARAM_ATOL}); step walls plain "
+        f"{plain_walls} ms, mesh {mesh_walls} ms; last step device time plain "
+        f"{plain_dev:.1f} ms, mesh {mesh_dev:.1f} ms; peak {peak / 2**30:.2f} GiB")
+    if loss_err > TRAIN_LOSS_ATOL or param_err > TRAIN_PARAM_ATOL:
+        raise AssertionError("the mesh train step differs from the plain one")
+    for name in ("flash_attention", "flash_attention_bwd", "rmsnorm"):
+        if mesh_launch[name] <= 0 or mesh_launch[name] != plain_launch[name]:
+            raise AssertionError(f"distributed phase: {name} launched {mesh_launch[name]} "
+                                 f"times on the mesh, {plain_launch[name]} on plain tensors")
+    if peak > CARD_BYTES:
+        raise AssertionError(f"distributed phase: peak {peak / 1e9:.2f} GB")
+
+    # the step's FLOPs on meta tensors (the plain versions stand in for the
+    # kernels), beside the closed form and the measured device time
+    meta = shape_tree(model.param_defs(), cfg.pdtype())
+
+    def grad_step(ps, batch):
+        leaves = [t.requires_grad_() for _, t in flatten(ps)]
+        loss, _ = model.loss(ps, batch)
+        return torch.autograd.grad(loss, leaves)
+
+    t0 = time.perf_counter()
+    counted = analyze_step(grad_step, meta, {"tokens": torch.empty(
+        (TRAIN_BATCH, TRAIN_SEQ), dtype=torch.int64, device="meta")})
+    analyze_s = time.perf_counter() - t0
+    closed = analytic_costs(cfg, ShapeCell("train", TRAIN_SEQ - 1, TRAIN_BATCH, "train"))
+    achieved = counted["flops"] / (plain_dev / 1e3)
+    log(f"distributed phase: {card}: analyze_step (meta tensors, {analyze_s:.1f} s) counts "
+        f"{counted['flops'] / 1e12:.4f} TFLOP of matmuls in the minitron step (forward, "
+        f"remat recompute, backward; the plain attention's full S x S products); "
+        f"analytic_costs for (B {TRAIN_BATCH}, S {TRAIN_SEQ - 1}, L {TRAIN_LAYERS}) "
+        f"{closed['model_flops_global'] / 1e12:.4f} TFLOP (6 N D + causal attention); "
+        f"ratio {counted['flops'] / closed['model_flops_global']:.4f}; over the plain step's "
+        f"{plain_dev:.1f} ms of device time: {achieved / 1e12:.1f} TFLOP/s counted, "
+        f"{closed['model_flops_global'] / (plain_dev / 1e3) / 1e12:.1f} TFLOP/s closed form, "
+        f"{achieved / H100_BF16:.1%} / "
+        f"{closed['model_flops_global'] / (plain_dev / 1e3) / H100_BF16:.1%} of the "
+        f"{H100_BF16 / 1e12:.0f} TFLOP/s bf16 peak; collectives {counted['collective_bytes']}")
+    if counted["flops"] <= 0:
+        raise AssertionError("analyze_step counted no FLOPs")
+
+    moe_launch = shard_map_moe_check(torch, mesh)
+    dist.destroy_process_group()
+    log(f"distributed phase done in {time.perf_counter() - t_start:.1f} s")
+    return {k: mesh_launch[k] + moe_launch[k] for k in mesh_launch}
+
+
+def shard_map_moe_check(torch, mesh):
+    """deepseek-v2-lite-16b at full width cut to 2 layers (the dense first
+    block and one MoE block, bf16): the moe_dispatch="shard_map" forward
+    on ``mesh`` against the gspmd forward on plain tensors; routing
+    indices equal, logits within the bf16 tolerance. Returns the kernel
+    launches of the two forwards."""
+    from torch.distributed.tensor import distribute_tensor
+
+    from repro_torch.configs import get_config
+    from repro_torch.distributed.fault import shardings_for_mesh
+    from repro_torch.distributed.sharding import DEFAULT_RULES, axis_rules, use_mesh
+    from repro_torch.models import build_model, moe as moe_mod
+    from repro_torch.models.common import tree_map
+    from repro_torch.training import SyntheticLMData
+
+    mcfg = get_config("deepseek-v2-lite-16b").replace(
+        **full_width("deepseek-v2-lite-16b", n_layers=2))
+    mmodel = build_model(mcfg)
+    mparams = mmodel.init(0)
+    toks = torch.from_numpy(SyntheticLMData(mcfg.vocab_size, TRAIN_BATCH, TRAIN_SEQ)
+                            .next()["tokens"]).cuda()[:, :-1]
+    for mod, attr in counters().values():
+        setattr(mod, attr, 0)
+    plain_route, sm_route = [], []
+    with torch.no_grad(), moe_routing(plain_route):
+        want = mmodel.forward(mparams, toks)
+    sm_model = build_model(mcfg.replace(moe_dispatch="shard_map"))
+    dmp = tree_map(lambda t, pl: distribute_tensor(t, mesh, pl), mparams,
+                   shardings_for_mesh(sm_model, mesh, dtype=mcfg.pdtype()))
+    inner, sm_calls = moe_mod.moe_mlp_shard_map, []
+
+    def counted_sm(*a, **k):
+        y = inner(*a, **k)
+        sm_calls.append(y is not None)
+        return y
+
+    moe_mod.moe_mlp_shard_map = counted_sm
+    try:
+        with torch.no_grad(), moe_routing(sm_route), axis_rules(DEFAULT_RULES), \
+                use_mesh(mesh):
+            got = sm_model.forward(dmp, toks).to_local()
+    finally:
+        moe_mod.moe_mlp_shard_map = inner
+    moe_launch = {name: getattr(mod, attr) for name, (mod, attr) in counters().items()}
+    same = len(plain_route) == len(sm_route) and all(
+        torch.equal(a, b) for a, b in zip(plain_route, sm_route))
+    err = check_close("deepseek-v2-lite (2 layers) shard_map vs gspmd logits", got, want,
+                      "bfloat16")
+    log(f"distributed phase: deepseek-v2-lite-16b at full width, 2 layers (bf16), "
+        f"{tuple(toks.shape)} tokens: shard_map dispatch ran {sum(sm_calls)} of "
+        f"{len(sm_calls)} MoE blocks, routing indices equal {same}, logits max |diff| "
+        f"{err:.3e}; launches {json.dumps(moe_launch)}")
+    if not (sm_calls and all(sm_calls)) or not same:
+        raise AssertionError("the shard_map MoE forward did not run, or routed otherwise")
+    del mparams, dmp, want, got
+    gc.collect()
+    torch.cuda.empty_cache()
+    return moe_launch
+
+
 def rolling_reference_phase(torch):
     """Rolling windows of the small float32 minitron on the card against
     the CPU with the same weights: a greedy prompt that rolls while it
@@ -3483,6 +3747,8 @@ def main() -> int:
     for arch, n_layers, seq, must in FAMILY_TRAINS:
         trains[arch] = training_phase(torch, arch, n_layers, seq, must)
         since(t0, f"training path {arch}")
+    dist_launch = distributed_phase(torch, card)
+    since(t0, "distributed phase")
     driver_phase(torch)
     since(t0, "training driver")
 
@@ -3522,7 +3788,7 @@ def main() -> int:
                         "launches": sum(l[name] for l, _ in paths.values())
                         + sum(l[name] for l, _ in specs.values())
                         + sum(l[name] for l, _ in rolling.values()) + fleet[0][name]
-                        + sum(l[name] for l, _ in trains.values()),
+                        + sum(l[name] for l, _ in trains.values()) + dist_launch[name],
                         "max_abs_err": r["max_abs_err"], "ms": r["ms"],
                         "plain_ms": r["plain_ms"], "bound_ms": r["bound_ms"],
                         "bound_by": r["bound_by"], "library_ms": r["library_ms"],

@@ -1,4 +1,6 @@
-from repro_torch.configs.registry import (ARCHS, PORTED, get_config, get_smoke_config,
-                                          list_archs)
+from repro_torch.configs.registry import (ARCHS, PORTED, SHAPES, SUBQUADRATIC, ShapeCell,
+                                          get_config, get_smoke_config, list_archs,
+                                          shapes_for)
 
-__all__ = ["ARCHS", "PORTED", "get_config", "get_smoke_config", "list_archs"]
+__all__ = ["ARCHS", "PORTED", "SHAPES", "SUBQUADRATIC", "ShapeCell", "get_config",
+           "get_smoke_config", "list_archs", "shapes_for"]

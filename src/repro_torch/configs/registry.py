@@ -1,13 +1,16 @@
-"""Architecture registry: full configs and smoke configs.
+"""Architecture registry: full configs, smoke configs, and shape cells.
 
 ``ARCHS`` lists every architecture the JAX package supports and
 ``PORTED`` maps each to its config module here; an arch outside
-``PORTED`` raises ``NotImplementedError``.
+``PORTED`` raises ``NotImplementedError``. ``SHAPES`` are the four LM
+shape cells; ``shapes_for(arch)`` applies the documented skips
+(long_500k only for sub-quadratic archs).
 """
 
 from __future__ import annotations
 
 import importlib
+from dataclasses import dataclass
 
 ARCHS = [
     "zamba2-7b",
@@ -28,6 +31,33 @@ PORTED = {"minitron-8b": "minitron_8b", "zamba2-7b": "zamba2_7b",
           "deepseek-v2-lite-16b": "deepseek_v2_lite_16b", "grok-1-314b": "grok_1_314b",
           "whisper-medium": "whisper_medium",
           "llama-3.2-vision-11b": "llama_3_2_vision_11b"}
+
+
+@dataclass(frozen=True)
+class ShapeCell:
+    name: str
+    seq_len: int
+    global_batch: int
+    kind: str  # train | prefill | decode
+
+
+SHAPES = {
+    "train_4k": ShapeCell("train_4k", 4096, 256, "train"),
+    "prefill_32k": ShapeCell("prefill_32k", 32768, 32, "prefill"),
+    "decode_32k": ShapeCell("decode_32k", 32768, 128, "decode"),
+    "long_500k": ShapeCell("long_500k", 524288, 1, "decode"),
+}
+
+# Archs with sub-quadratic sequence mixing run long_500k; pure
+# full-attention archs skip it.
+SUBQUADRATIC = {"zamba2-7b", "xlstm-125m"}
+
+
+def shapes_for(arch: str):
+    cells = ["train_4k", "prefill_32k", "decode_32k"]
+    if arch in SUBQUADRATIC:
+        cells.append("long_500k")
+    return [SHAPES[c] for c in cells]
 
 
 def _load(arch: str):

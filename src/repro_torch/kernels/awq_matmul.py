@@ -114,10 +114,11 @@ def awq_matmul(x, qw, scales, zeros, *, bits: int = 4, group_size: int = 128):
     """x (M, K) float32/bfloat16; qw (K/8, N) int32; scales, zeros
     (K/group_size, N) float32 -> (M, N) in x's dtype."""
     global launches, _launch
+    _build.refuse_dtensor("awq_matmul", x, qw, scales, zeros)
     _build.refuse_grad("awq_matmul", x, scales, zeros)
+    if _build.runs_plain(x):
+        return plain(x, qw, scales, zeros, bits=bits, group_size=group_size)
     if not x.is_cuda:
-        if x.device.type == "cpu":
-            return plain(x, qw, scales, zeros, bits=bits, group_size=group_size)
         raise ValueError(f"awq_matmul kernel needs CUDA tensors, got {x.device}")
     if bits != 4:
         raise ValueError(f"awq_matmul kernel takes 4-bit codes, got bits={bits}")

@@ -77,9 +77,10 @@ def decode_attention(q, k, v, *, kv_len, scale=None, logit_soft_cap: float = 0.0
     """q (B, Hq, 1, D); k, v (B, Hkv, S, D) of q's dtype; kv_len int or
     (B,) -> (B, Hq, 1, D)."""
     global launches
+    _build.refuse_dtensor("decode_attention", q, k, v)
     _build.refuse_grad("decode_attention", q, k, v)
     dev = q.device
-    if dev.type == "cpu":
+    if _build.runs_plain(q):
         return plain(q, k, v, kv_len=kv_len, scale=scale, logit_soft_cap=logit_soft_cap)
     B, Hq, Sq, D = q.shape
     Bk, Hkv, S, Dk = k.shape

@@ -217,9 +217,16 @@ def flash_attention(q, k, v, *, causal=True, scale=None, logit_soft_cap=0.0):
     """q (B, Hq, Sq, D); k, v (B, Hkv, Skv, D) of q's dtype, float32 or
     bfloat16 -> (B, Hq, Sq, D). Causal with query row i at absolute
     position i + (Skv - Sq); with Skv < Sq a row that sees no key is the
-    mean of V over all Skv keys, as in the plain version."""
+    mean of V over all Skv keys, as in the plain version.
+
+    On DTensors each device attends its own shards: q, k and v may stay
+    split alike along the batch, and along the heads over one mesh dim
+    that divides both Hq and Hkv (so local query heads keep their kv
+    groups); any other layout is gathered first."""
+    if _build.any_dtensor(q, k, v):
+        return _on_mesh(q, k, v, causal, scale, logit_soft_cap)
     dev = q.device
-    if dev.type == "cpu":
+    if _build.runs_plain(q):
         return plain(q, k, v, causal=causal, scale=scale, logit_soft_cap=logit_soft_cap)
     if dev.type != "cuda":
         raise ValueError(f"flash_attention kernel needs CUDA tensors, got {dev}")
@@ -242,3 +249,22 @@ def flash_attention(q, k, v, *, causal=True, scale=None, logit_soft_cap=0.0):
                 f"got D={D}")
         return _FlashAttention.apply(q, k, v, causal, scale, logit_soft_cap)
     return _launch(q, k, v, causal, scale, logit_soft_cap, False)[0]
+
+
+def _on_mesh(q, k, v, causal, scale, cap):
+    mesh = next(t for t in (q, k, v) if isinstance(t, _build.DTensor)).device_mesh
+    Hq, Hkv = q.shape[1], k.shape[1]
+    places, heads_split = [], False
+    for i in range(mesh.ndim):
+        p = _build.common_shard((q, k, v), i, (0, 1))
+        if p is not None and p.dim == 1:
+            n = mesh.size(i)
+            if heads_split or Hq % n or Hkv % n:
+                p = None
+            heads_split = heads_split or p is not None
+        places.append(p or _build.Replicate())
+    places = tuple(places)
+    return _build.on_local_shards(
+        lambda ql, kl, vl: flash_attention(ql.contiguous(), kl.contiguous(), vl.contiguous(),
+                                           causal=causal, scale=scale, logit_soft_cap=cap),
+        (q, k, v), (places,) * 3, places)

@@ -96,9 +96,10 @@ def paged_attention(q, k_pages, v_pages, *, block_tables, kv_len, scale=None,
     (P, Hkv, page) float32; block_tables (B, n_pages) int32; kv_len,
     pos_offset int or (B,) -> (B, Hq, 1, D)."""
     global launches, launches_quant
+    _build.refuse_dtensor("paged_attention", q, k_pages, v_pages, k_scales, v_scales)
     _build.refuse_grad("paged_attention", q, k_pages, v_pages, k_scales, v_scales)
     dev = q.device
-    if dev.type == "cpu":
+    if _build.runs_plain(q):
         return plain(q, k_pages, v_pages, block_tables=block_tables, kv_len=kv_len,
                      scale=scale, logit_soft_cap=logit_soft_cap, pos_offset=pos_offset,
                      k_scales=k_scales, v_scales=v_scales)

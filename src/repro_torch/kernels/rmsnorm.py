@@ -67,10 +67,22 @@ class _RMSNorm(torch.autograd.Function):
 
 
 def rmsnorm(x, w, *, eps: float = 1e-5, gemma_style: bool = False):
-    """x (..., D) float32/bfloat16, w (D,) -> y like x."""
+    """x (..., D) float32/bfloat16, w (D,) -> y like x. On DTensors the
+    rows are normalised where they lie: x may stay split along every dim
+    but the last, w is replicated (its gradient a partial sum over the
+    split dims)."""
+    if _build.any_dtensor(x, w):
+        mesh = (x if isinstance(x, _build.DTensor) else w).device_mesh
+        keep = tuple(_build.common_shard((x,), i, range(x.ndim - 1)) or _build.Replicate()
+                     for i in range(mesh.ndim))
+        rep = (_build.Replicate(),) * mesh.ndim
+        return _build.on_local_shards(
+            lambda xl, wl: rmsnorm(xl.contiguous(), wl.contiguous(), eps=eps,
+                                   gemma_style=gemma_style),
+            (x, w), (keep, rep), keep, (keep, _build.grad_partial(keep)))
+    if _build.runs_plain(x):
+        return plain(x, w, eps=eps, gemma_style=gemma_style)
     if not x.is_cuda:
-        if x.device.type == "cpu":
-            return plain(x, w, eps=eps, gemma_style=gemma_style)
         raise ValueError(f"rmsnorm kernel needs x and w on one CUDA device, "
                          f"got {x.device} and {w.device}")
     if w.get_device() != x.get_device():

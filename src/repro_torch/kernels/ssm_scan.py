@@ -63,9 +63,25 @@ class _SSD(torch.autograd.Function):
 def ssd(x, dt, A, B, C, D, *, chunk: int = 64, h0=None):
     """x (b, T, H, P) float32/bfloat16; dt (b, T, H), A (H,), D (H,) and
     h0 (b, H, P, N) float32; B, C (b, T, N) of x's dtype; T a multiple of
-    ``chunk`` -> y (b, T, H, P) in x's dtype, h_final (b, H, P, N) f32."""
+    ``chunk`` -> y (b, T, H, P) in x's dtype, h_final (b, H, P, N) f32.
+
+    On DTensors each device scans its own sequences: x, dt, B, C (and h0)
+    may stay split alike along the batch; A and D are replicated (their
+    gradients partial sums); any other layout is gathered first."""
+    if _build.any_dtensor(x, dt, A, B, C, D, h0):
+        batched = tuple(t for t in (x, dt, B, C, h0) if t is not None)
+        mesh = next(t for t in batched + (A, D) if isinstance(t, _build.DTensor)).device_mesh
+        keep = tuple(_build.common_shard(batched, i, (0,)) or _build.Replicate()
+                     for i in range(mesh.ndim))
+        rep, part = (_build.Replicate(),) * mesh.ndim, _build.grad_partial(keep)
+        return _build.on_local_shards(
+            lambda x, dt, A, B, C, D, h0: ssd(
+                x.contiguous(), dt.contiguous(), A, B.contiguous(), C.contiguous(), D,
+                chunk=chunk, h0=None if h0 is None else h0.contiguous()),
+            (x, dt, A, B, C, D, h0), (keep, keep, rep, keep, keep, rep, keep),
+            (keep, keep), (keep, keep, part, keep, keep, part, keep))
     dev = x.device
-    if dev.type == "cpu":
+    if _build.runs_plain(x):
         return plain(x, dt, A, B, C, D, chunk=chunk, h0=h0)
     if dev.type != "cuda":
         raise ValueError(f"ssd kernel needs CUDA tensors, got {dev}")

@@ -128,6 +128,12 @@ class ModelConfig:
     def n_ssm_heads(self) -> int:
         return self.d_inner // self.ssm_head_dim
 
+    @property
+    def n_param_estimate(self) -> int:
+        """0, as the JAX package's placeholder returns: ``count_params`` of
+        a model's ``param_defs()`` is the count."""
+        return 0
+
     def cdtype(self) -> torch.dtype:
         return torch_dtype(self.compute_dtype)
 
@@ -179,17 +185,29 @@ def tree_unflatten(like, leaves):
     return out
 
 
-def tree_map(fn, tree):
+def tree_map(fn, tree, *rest):
+    """fn over the leaves of ``tree`` (and the matching leaves of the
+    trees in ``rest``, which share its dict structure)."""
     if isinstance(tree, dict):
-        return {k: tree_map(fn, v) for k, v in tree.items()}
-    return fn(tree)
+        return {k: tree_map(fn, v, *(r[k] for r in rest)) for k, v in tree.items()}
+    return fn(tree, *rest)
 
 
-def init_params(defs, seed: int, param_dtype=torch.float32, device="cpu"):
-    """Materialize a ParamDef tree. Each leaf is drawn on ``device``
+def model_device(device=None) -> torch.device:
+    """``serving.engine.resolve_device``: ``None`` is the CUDA card, which
+    must be present. Imported when called, as the engine imports the
+    models."""
+    from repro_torch.serving.engine import resolve_device
+    return resolve_device(device)
+
+
+def init_params(defs, seed: int, param_dtype=torch.float32, device=None):
+    """Materialize a ParamDef tree. Each leaf is drawn on ``device`` (the
+    CUDA card by default, which must be present; ``"cpu"`` for the CPU)
     directly in its dtype from a generator of its own (``seed`` plus the
     leaf's index in sorted key-path order), so a full-width model never
     exists as float32 anywhere."""
+    device = model_device(device)
     out: dict = {}
     for i, (path, d) in enumerate(flatten(defs)):
         dt = torch_dtype(d.dtype or param_dtype)
@@ -220,6 +238,28 @@ def init_params(defs, seed: int, param_dtype=torch.float32, device="cpu"):
             node = node.setdefault(k, {})
         node[path[-1]] = t
     return out
+
+
+def shape_tree(defs, param_dtype=torch.float32):
+    """ParamDef tree -> tree of ``meta`` tensors of each leaf's shape and
+    dtype: nothing is allocated (the counterpart of ``ShapeDtypeStruct``)."""
+    return tree_map(lambda d: torch.empty(d.shape, dtype=torch_dtype(d.dtype or param_dtype),
+                                          device="meta"), defs)
+
+
+def spec_tree(defs):
+    """ParamDef tree -> logical-axes tree (same structure, tuple leaves)."""
+    return tree_map(lambda d: d.logical, defs)
+
+
+def count_params(defs) -> int:
+    return int(sum(math.prod(d.shape) for _, d in flatten(defs)))
+
+
+def cast_tree(params, dtype):
+    """The tree with each floating leaf cast to ``dtype``."""
+    dt = torch_dtype(dtype)
+    return tree_map(lambda x: x.to(dt) if x.is_floating_point() else x, params)
 
 
 # ---------------------------------------------------------------------------
@@ -262,6 +302,28 @@ class LeafLayout:
 
 def _is_spec(s) -> bool:
     return isinstance(s, tuple) and all(isinstance(e, (str, type(None))) for e in s)
+
+
+def cache_axes(specs):
+    """cache_specs() tree -> (batch_axes, seq_axes): same-structure trees of
+    axis indices, -1 where the leaf lacks the axis (a -1 sentinel, as the
+    JAX package's, whose leaves must survive pytree flattening)."""
+
+    def axis(name):
+        def one(spec):
+            if not _is_spec(spec):
+                return -1
+            return spec.index(name) if name in spec else -1
+        return one
+
+    def walk(node, fn):
+        if isinstance(node, dict):
+            return {k: walk(v, fn) for k, v in node.items()}
+        if not _is_spec(node) and isinstance(node, (tuple, list)):
+            return type(node)(walk(v, fn) for v in node)
+        return fn(node)
+
+    return walk(specs, axis("batch")), walk(specs, axis("kv_seq"))
 
 
 def cache_layout(specs: dict) -> dict:

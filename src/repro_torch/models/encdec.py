@@ -35,8 +35,9 @@ import math
 import torch
 import torch.nn.functional as F
 
+from repro_torch.distributed.sharding import shard_as
 from repro_torch.models import layers
-from repro_torch.models.common import ModelConfig, ParamDef, init_params
+from repro_torch.models.common import ModelConfig, ParamDef, init_params, model_device
 from repro_torch.models.lm import _layer, _lm_loss, _remat, _stack
 
 
@@ -68,6 +69,7 @@ def plain_mlp_def(cfg: ModelConfig):
 def plain_mlp(x, p):
     """Ungated MLP with tanh-approximated GELU."""
     h = F.gelu(x @ p["w1"].to(x.dtype) + p["b1"].to(x.dtype), approximate="tanh")
+    h = shard_as(h, "batch", "seq", "ffn")
     return h @ p["w2"].to(x.dtype) + p["b2"].to(x.dtype)
 
 
@@ -118,7 +120,7 @@ class EncDecLM:
             "dec_ln": layernorm_def(cfg.d_model),
         }
 
-    def init(self, seed: int = 0, device="cpu"):
+    def init(self, seed: int = 0, device=None):
         return init_params(self.param_defs(), seed, self.cfg.pdtype(), device)
 
     # ---------------------------------------------------------------- encoder
@@ -128,7 +130,7 @@ class EncDecLM:
         cfg, dt = self.cfg, self.cfg.cdtype()
         S, D = frames.shape[1], frames.shape[2]
         positions = torch.arange(S, device=frames.device)
-        x = frames.to(dt) + sinusoid(positions, D).to(dt)
+        x = shard_as(frames.to(dt) + sinusoid(positions, D).to(dt), "batch", "seq", "embed")
 
         def body(x, bp):
             h = layernorm(x, bp["ln1"])
@@ -191,7 +193,8 @@ class EncDecLM:
         return _lm_loss(self, params, batch)
 
     # ---------------------------------------------------------------- cache
-    def init_cache(self, batch, max_seq, device="cpu"):
+    def init_cache(self, batch, max_seq, device=None):
+        device = model_device(device)
         cfg, dt = self.cfg, self.cfg.cdtype()
         self_kv = (cfg.n_layers, batch, cfg.n_kv_heads, max_seq, cfg.head_dim)
         cross = (cfg.n_layers, batch, cfg.n_kv_heads, cfg.encoder_seq_len, cfg.head_dim)

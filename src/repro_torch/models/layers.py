@@ -15,6 +15,7 @@ import math
 import torch
 import torch.nn.functional as F
 
+from repro_torch.distributed.sharding import gather_unless_divides, shard_as
 from repro_torch.kernels import ops
 from repro_torch.models.common import ModelConfig, ParamDef
 
@@ -69,14 +70,16 @@ def rmsnorm(x, p, cfg: ModelConfig):
 
 
 def embed(tokens, p, cfg: ModelConfig):
-    x = p["w"][tokens].to(cfg.cdtype())
+    x = F.embedding(tokens, p["w"]).to(cfg.cdtype())
     if cfg.gemma_style:
         x = x * math.sqrt(cfg.d_model)
-    return x
+    # "res_seq" is the residual stream's sequence axis: bound to "model"
+    # it makes the layers sequence-parallel
+    return shard_as(x, "batch", "res_seq", "embed")
 
 
 def unembed(x, p, cfg: ModelConfig):
-    return x @ p["w"].to(x.dtype).t()
+    return shard_as(x @ p["w"].to(x.dtype).t(), "batch", "seq", "vocab")
 
 
 def rope_freqs(positions, head_dim: int, theta: float):
@@ -116,6 +119,7 @@ def rope_shift(x, delta: int, theta: float):
 
 def _split_heads(x, n_heads, head_dim):
     B, S, _ = x.shape
+    x = gather_unless_divides(x, -1, n_heads)
     return x.reshape(B, S, n_heads, head_dim).transpose(1, 2)
 
 
@@ -231,11 +235,14 @@ def attention(x, p, cfg: ModelConfig, *, positions, cache=None, cache_index=None
         cos, sin = rope_freqs(positions, Dh, cfg.rope_theta)
         q = apply_rope(q, cos, sin)
         k = apply_rope(k, cos, sin)
+    q = shard_as(q, "batch", "heads", "seq", None)
+    k = shard_as(k, "batch", "kv_heads", "kv_seq", None)
+    v = shard_as(v, "batch", "kv_heads", "kv_seq", None)
 
     if cache is None:
         out = ops.flash_attention(q.contiguous(), k.contiguous(), v.contiguous(),
                                   causal=True)
-        return _gated(_matmul(_merge_heads(out), p["wo"], cfg), p)
+        return _attn_out(out, p, cfg)
 
     ck, cv, *qs = cache
     ks, vs = qs or (None, None)
@@ -319,7 +326,7 @@ def attention(x, p, cfg: ModelConfig, *, positions, cache=None, cache_index=None
         out = ops.flash_attention(q.contiguous(), k.contiguous(), v.contiguous(),
                                   causal=True)
 
-    return _gated(_matmul(_merge_heads(out), p["wo"], cfg), p)
+    return _attn_out(out, p, cfg)
 
 
 def cross_kv(context, p, cfg: ModelConfig):
@@ -333,15 +340,21 @@ def cross_attention(x, p, cfg: ModelConfig, k, v):
     """x's queries over context K/V (B, Hkv, Sc, D): no rope and no mask
     (non-causal ``ops.flash_attention``), scaled by ``tanh(gate)`` where
     ``p`` has a gate."""
-    q = _split_heads(_matmul(x, p["wq"], cfg), cfg.n_heads, cfg.head_dim)
-    out = ops.flash_attention(q.contiguous(), k.to(q.dtype).contiguous(),
-                              v.to(q.dtype).contiguous(), causal=False)
-    return _gated(_matmul(_merge_heads(out), p["wo"], cfg), p)
+    q = shard_as(_split_heads(_matmul(x, p["wq"], cfg), cfg.n_heads, cfg.head_dim),
+                 "batch", "heads", "seq", None)
+    k = shard_as(k.to(q.dtype), "batch", "kv_heads", "kv_seq", None)
+    v = shard_as(v.to(q.dtype), "batch", "kv_heads", "kv_seq", None)
+    out = ops.flash_attention(q.contiguous(), k.contiguous(), v.contiguous(), causal=False)
+    return _attn_out(out, p, cfg)
 
 
-def _gated(y, p):
-    """tanh(gate) * y for gated cross-attention params, else y."""
-    return torch.tanh(p["gate"].to(y.dtype)) * y if "gate" in p else y
+def _attn_out(out, p, cfg: ModelConfig):
+    """The heads merged and projected by ``wo``, scaled by tanh(gate) for
+    gated cross-attention params."""
+    y = _matmul(_merge_heads(out), p["wo"], cfg)
+    if "gate" in p:
+        y = torch.tanh(p["gate"].to(y.dtype)) * y
+    return shard_as(y, "batch", "res_seq", "embed")
 
 
 def _matmul(x, w, cfg: ModelConfig):
@@ -360,12 +373,12 @@ def _matmul(x, w, cfg: ModelConfig):
 def mlp(x, p, cfg: ModelConfig, act: str | None = None):
     """Gated MLP: SwiGLU (silu) or GeGLU (gelu)."""
     a = act or cfg.act
-    h1 = _matmul(x, p["w1"], cfg)
-    h3 = _matmul(x, p["w3"], cfg)
+    h1 = shard_as(_matmul(x, p["w1"], cfg), "batch", "seq", "ffn")
+    h3 = shard_as(_matmul(x, p["w3"], cfg), "batch", "seq", "ffn")
     if a == "silu":
         h = F.silu(h1) * h3
     elif a == "gelu":
         h = F.gelu(h1, approximate="tanh") * h3
     else:
         raise ValueError(a)
-    return _matmul(h, p["w2"], cfg)
+    return shard_as(_matmul(h, p["w2"], cfg), "batch", "res_seq", "embed")

@@ -35,7 +35,8 @@ import torch
 import torch.utils.checkpoint
 
 from repro_torch.models import layers, mla as mla_mod, moe as moe_mod
-from repro_torch.models.common import ModelConfig, ParamDef, init_params, tree_map
+from repro_torch.models.common import (ModelConfig, ParamDef, init_params, model_device,
+                                       tree_map)
 
 
 def _stack(defs, L: int):
@@ -97,7 +98,7 @@ class TransformerLM:
                                                   (None, "embed"), init="scaled")}
         return defs
 
-    def init(self, seed: int = 0, device="cpu"):
+    def init(self, seed: int = 0, device=None):
         return init_params(self.param_defs(), seed, self.cfg.pdtype(), device)
 
     # ------------------------------------------------------------------ cache
@@ -109,7 +110,8 @@ class TransformerLM:
             return (f"dense{i}_ckv", f"dense{i}_krope")
         return (f"dense{i}_k", f"dense{i}_v")
 
-    def init_cache(self, batch, max_seq, device="cpu"):
+    def init_cache(self, batch, max_seq, device=None):
+        device = model_device(device)
         cfg = self.cfg
         if cfg.use_mla:
             one = ((batch, max_seq, cfg.kv_lora_rank),

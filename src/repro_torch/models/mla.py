@@ -26,8 +26,8 @@ from __future__ import annotations
 import math
 
 import torch
-import torch.nn.functional as F
 
+from repro_torch.distributed.sharding import gather_unless_divides, shard_as
 from repro_torch.kernels import ops
 from repro_torch.models.common import ModelConfig, ParamDef
 from repro_torch.models.layers import _matmul, apply_rope, rope_freqs, update_cache_at
@@ -99,7 +99,8 @@ def mla_attention(x, p, cfg: ModelConfig, *, positions, cache=None, cache_index=
     r = cfg.kv_lora_rank
     scale = 1.0 / math.sqrt(dn + dr)
 
-    q = (x @ p["wq"].to(x.dtype)).reshape(B, S, H, dn + dr).transpose(1, 2)
+    q = gather_unless_divides(x @ p["wq"].to(x.dtype), -1, H)
+    q = q.reshape(B, S, H, dn + dr).transpose(1, 2)
     q_nope, q_rope = q[..., :dn], q[..., dn:]
     cos, sin = rope_freqs(positions, dr, cfg.rope_theta)
     q_rope = apply_rope(q_rope, cos, sin)
@@ -174,6 +175,7 @@ def mla_attention(x, p, cfg: ModelConfig, *, positions, cache=None, cache_index=
     else:
         kv_latent, k_rope_all = c_kv, k_rope
         kv_len = None
+    kv_latent = shard_as(kv_latent, "batch", "kv_seq", None)
     Skv = kv_latent.shape[1]
 
     if absorbed and S == 1:
@@ -194,8 +196,10 @@ def mla_attention(x, p, cfg: ModelConfig, *, positions, cache=None, cache_index=
         wuv = p["wuv"].float().reshape(r, H, dv)
         out = torch.einsum("bhsr,rhd->bhsd", ctx, wuv).to(x.dtype)
     else:
-        k_nope = (kv_latent @ p["wuk"].to(x.dtype)).reshape(B, Skv, H, dn).transpose(1, 2)
-        vv = (kv_latent @ p["wuv"].to(x.dtype)).reshape(B, Skv, H, dv).transpose(1, 2)
+        k_nope = gather_unless_divides(kv_latent @ p["wuk"].to(x.dtype), -1, H)
+        k_nope = k_nope.reshape(B, Skv, H, dn).transpose(1, 2)
+        vv = gather_unless_divides(kv_latent @ p["wuv"].to(x.dtype), -1, H)
+        vv = vv.reshape(B, Skv, H, dv).transpose(1, 2)
         k_full = torch.cat([k_nope, k_rope_all[:, None].expand(B, H, Skv, dr)], dim=-1)
         q_full = torch.cat([q_nope, q_rope], dim=-1)
         v_full = _pad_v(vv, dn + dr)
@@ -208,7 +212,8 @@ def mla_attention(x, p, cfg: ModelConfig, *, positions, cache=None, cache_index=
             out = ops.flash_attention(q_full, k_full, v_full, causal=True, scale=scale)
         out = out[..., :dv]
 
-    return _matmul(out.transpose(1, 2).reshape(B, S, H * dv), p["wo"], cfg)
+    y = _matmul(out.transpose(1, 2).reshape(B, S, H * dv), p["wo"], cfg)
+    return shard_as(y, "batch", "seq", "embed")
 
 
 def _pad_v(v, d_target):
@@ -217,4 +222,6 @@ def _pad_v(v, d_target):
     pad = d_target - v.shape[-1]
     if pad <= 0:
         return v.contiguous()
-    return F.pad(v, (0, pad))
+    # a concatenation, not F.pad: DTensor's padding strategy in torch 2.11
+    # drops a mesh dim from the placements
+    return torch.cat([v, v.new_zeros(*v.shape[:-1], pad)], dim=-1)

@@ -25,9 +25,10 @@ import math
 import torch
 import torch.nn.functional as F
 
+from repro_torch.distributed.sharding import shard_as
 from repro_torch.kernels import ops
 from repro_torch.models import layers
-from repro_torch.models.common import ModelConfig, ParamDef, init_params
+from repro_torch.models.common import ModelConfig, ParamDef, init_params, model_device
 from repro_torch.models.lm import _layer, _lm_loss, _remat, _stack
 
 # ---------------------------------------------------------------------------
@@ -109,6 +110,7 @@ def mamba2_block(x, p, cfg: ModelConfig, *, conv_state=None, ssm_state=None,
     resid = x
     xn = layers.rmsnorm(x, p["ln"], cfg)
     h = xn @ p["in_proj"].to(x.dtype)                                  # (B, T, 2di+2N+H)
+    h = shard_as(h, "batch", "seq", "ffn")
     z, xbc, dt = _split_inproj(h, cfg)
     A = -torch.exp(p["A_log"].float())
     dt = F.softplus(dt.float() + p["dt_bias"].float())
@@ -137,7 +139,7 @@ def mamba2_block(x, p, cfg: ModelConfig, *, conv_state=None, ssm_state=None,
     yf = y.float()
     y = (yf * torch.rsqrt((yf * yf).mean(dim=-1, keepdim=True) + cfg.norm_eps)
          * p["out_norm"].float()).to(x.dtype)
-    out = resid + y @ p["out_proj"].to(x.dtype)
+    out = shard_as(resid + y @ p["out_proj"].to(x.dtype), "batch", "seq", "embed")
     return out, new_conv, new_ssm
 
 
@@ -180,11 +182,12 @@ class HybridLM:
                                       ("vocab", "embed"), init="embed")},
         }
 
-    def init(self, seed: int = 0, device="cpu"):
+    def init(self, seed: int = 0, device=None):
         return init_params(self.param_defs(), seed, self.cfg.pdtype(), device)
 
     # ------------------------------------------------------------------ cache
-    def init_cache(self, batch, max_seq, device="cpu"):
+    def init_cache(self, batch, max_seq, device=None):
+        device = model_device(device)
         cfg = self.cfg
         L, K = cfg.n_layers, cfg.ssm_conv_kernel
         conv_dim = cfg.d_inner + 2 * cfg.ssm_state

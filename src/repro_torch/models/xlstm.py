@@ -23,8 +23,9 @@ import math
 import torch
 import torch.nn.functional as F
 
+from repro_torch.distributed.sharding import shard_as
 from repro_torch.models import layers
-from repro_torch.models.common import ModelConfig, ParamDef, init_params
+from repro_torch.models.common import ModelConfig, ParamDef, init_params, model_device
 from repro_torch.models.lm import _lm_loss
 from repro_torch.models.ssm import _causal_conv, _conv_step
 
@@ -130,7 +131,7 @@ def mlstm_block(x, p, cfg: ModelConfig, state=None):
 
     resid = x
     xn = layers.rmsnorm(x, p["ln"], cfg)
-    up = xn @ p["up"].to(x.dtype)
+    up = shard_as(xn @ p["up"].to(x.dtype), "batch", "seq", "ffn")
     uu, z = up[..., :u], up[..., u:]
 
     if state is None:
@@ -168,7 +169,7 @@ def mlstm_block(x, p, cfg: ModelConfig, state=None):
     hf = h.float()
     h = (hf * torch.rsqrt((hf * hf).mean(dim=-1, keepdim=True) + cfg.norm_eps)
          * p["out_norm"].float()).to(x.dtype)
-    y = (h * F.silu(z)) @ p["down"].to(x.dtype)
+    y = shard_as((h * F.silu(z)) @ p["down"].to(x.dtype), "batch", "seq", "embed")
     return resid + y, (new_conv, *st)
 
 
@@ -203,7 +204,8 @@ def slstm_block(x, p, cfg: ModelConfig, state=None):
     # post-FFN (GLU)
     xn = layers.rmsnorm(x, p["ln2"], cfg)
     hh = F.silu(xn @ p["up"].to(x.dtype)) * (xn @ p["gate"].to(x.dtype))
-    return x + hh @ p["down"].to(x.dtype), state
+    hh = shard_as(hh, "batch", "seq", "ffn")
+    return x + shard_as(hh @ p["down"].to(x.dtype), "batch", "seq", "embed"), state
 
 
 # ---------------------------------------------------------------------------
@@ -229,7 +231,7 @@ class XLSTMLM:
                                       ("vocab", "embed"), init="embed")},
         }
 
-    def init(self, seed: int = 0, device="cpu"):
+    def init(self, seed: int = 0, device=None):
         return init_params(self.param_defs(), seed, self.cfg.pdtype(), device)
 
     def _run_blocks(self, params, x, states=None):
@@ -252,10 +254,11 @@ class XLSTMLM:
         return _lm_loss(self, params, batch)
 
     # ------------------------------------------------------------------ cache
-    def init_cache(self, batch, max_seq, device="cpu"):
+    def init_cache(self, batch, max_seq, device=None):
         """Per-layer recurrent state (no "kv_seq" axis, so ``max_seq`` is
         unused): mLSTM (conv window (B, 3, u) in the compute dtype, C, n,
         m float32), sLSTM (c, n, h, m float32); ``pos`` an int."""
+        device = model_device(device)
         cfg = self.cfg
         u = _pf_dim(cfg)
         H = cfg.n_heads

@@ -24,7 +24,9 @@ import time
 import numpy as np
 import torch
 
-from repro_torch.models.common import flatten, tree_unflatten
+from torch.distributed.tensor import distribute_tensor
+
+from repro_torch.models.common import flatten, tree_map, tree_unflatten
 
 MANIFEST = "MANIFEST.json"
 
@@ -127,9 +129,16 @@ class CheckpointManager:
             shutil.rmtree(self._step_dir(s), ignore_errors=True)
 
     # ------------------------------------------------------------- restore
-    def restore(self, step: int | None, like_tree):
+    def restore(self, step: int | None, like_tree, *, shardings=None, mesh=None):
         """Restore into the structure of ``like_tree``: each leaf comes back
-        with the like leaf's dtype, on its device. Returns (tree, aux, step)."""
+        with the like leaf's dtype, on its device. With ``shardings`` (a
+        tree of placements of the like tree's structure, from
+        ``spec_tree_to_shardings``) each leaf is laid out on ``mesh`` as a
+        DTensor with its placements, whatever mesh wrote it: an elastic
+        restart. A like leaf may be a ``meta`` tensor (``shape_tree``):
+        its data then goes to the mesh's device. Returns (tree, aux, step)."""
+        if shardings is not None and mesh is None:
+            raise ValueError("shardings need the mesh they are placements on")
         step = step if step is not None else self.latest_step()
         if step is None:
             raise FileNotFoundError(f"no checkpoint in {self.dir}")
@@ -148,5 +157,15 @@ class CheckpointManager:
                     or tuple(a.shape) != tuple(t.shape)):
                 raise ValueError(f"{'/'.join(path)}: checkpoint {manifest['dtypes'][i]} "
                                  f"{tuple(a.shape)}, tree {t.dtype} {tuple(t.shape)}")
-            leaves.append(_from_host(a, t.dtype).to(t.device))
-        return tree_unflatten(like_tree, leaves), manifest["aux"], step
+            leaf = _from_host(a, t.dtype)
+            if mesh is not None:
+                leaf = leaf.to(mesh.device_type)
+            elif t.device.type == "meta":
+                raise ValueError(f"{'/'.join(path)}: a meta like leaf needs a mesh")
+            else:
+                leaf = leaf.to(t.device)
+            leaves.append(leaf)
+        tree = tree_unflatten(like_tree, leaves)
+        if shardings is not None:
+            tree = tree_map(lambda x, pl: distribute_tensor(x, mesh, pl), tree, shardings)
+        return tree, manifest["aux"], step

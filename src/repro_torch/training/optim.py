@@ -49,8 +49,8 @@ def schedule(step, oc: AdamWConfig):
 def adamw_init(params, *, master_fp32: bool = False):
     """Zero float32 moments, a 0-dim int32 ``step`` on the params' device,
     and with ``master_fp32`` float32 master copies of the params."""
-    def zeros(p):
-        return torch.zeros(p.shape, dtype=torch.float32, device=p.device)
+    def zeros(p):               # a DTensor's moments are DTensors of its placements
+        return torch.zeros_like(p, dtype=torch.float32)
 
     device = flatten(params)[0][1].device
     state = {"mu": tree_map(zeros, params), "nu": tree_map(zeros, params),

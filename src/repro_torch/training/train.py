@@ -15,6 +15,7 @@ from dataclasses import dataclass
 from typing import Any
 
 import torch
+from torch.distributed.tensor import DTensor
 
 from repro_torch.models.common import flatten, torch_dtype, tree_map, tree_unflatten
 from repro_torch.serving.engine import resolve_device
@@ -28,7 +29,7 @@ class TrainState:
 
 
 def make_train_step(model, oc: AdamWConfig, *, accum_steps: int = 1,
-                    cast_params: str | None = None):
+                    cast_params: str | None = None, grad_shardings=None):
     """Returns train_step(params, opt_state, batch) -> (params, opt_state,
     metrics); params and opt_state are updated in place and returned.
 
@@ -40,7 +41,21 @@ def make_train_step(model, oc: AdamWConfig, *, accum_steps: int = 1,
 
     cast_params: cast the float32 masters to this dtype once at the top of
     the loss; gradients still reach the float32 leaves through the cast.
+
+    Params may be DTensors on a mesh (``distributed.fault.elastic_restore``);
+    call the step under ``distributed.sharding.use_mesh(mesh)``, which
+    takes the batch's plain tensors as replicated, as JAX's ``with mesh:``
+    does. The loss and metrics come back as plain tensors. grad_shardings:
+    a tree of placements (the params' own, from ``shardings_for_mesh``)
+    that each gradient, and the accumulator, is laid out on, as the JAX
+    package constrains them.
     """
+
+    def constrain(tree):
+        if grad_shardings is None:
+            return tree
+        return tree_map(lambda g, pl: g.redistribute(g.device_mesh, pl), tree,
+                        grad_shardings)
 
     def grads_of(params, batch):
         with torch.enable_grad():
@@ -55,8 +70,8 @@ def make_train_step(model, oc: AdamWConfig, *, accum_steps: int = 1,
             # batch brings no patches) gets a zero gradient, as under jax.grad
             grads = [torch.zeros_like(t) if g is None else g for t, g in zip(
                 leaves, torch.autograd.grad(loss, leaves, allow_unused=True))]
-        return (loss.detach(), {k: v.detach() for k, v in metrics.items()},
-                tree_unflatten(params, list(grads)))
+        return (_plain(loss.detach()), {k: _plain(v.detach()) for k, v in metrics.items()},
+                constrain(tree_unflatten(params, list(grads))))
 
     def train_step(params, opt_state, batch):
         if accum_steps == 1:
@@ -81,11 +96,16 @@ def make_train_step(model, oc: AdamWConfig, *, accum_steps: int = 1,
             metrics = {k: torch.stack([m[k] for m in ms]).mean() for k in ms[0]}
         params, opt_state, stats = adamw_update(grads, opt_state, params, oc)
         metrics = dict(metrics)
-        metrics.update(stats)
+        metrics.update({k: _plain(v) for k, v in stats.items()})
         metrics["loss"] = loss
         return params, opt_state, metrics
 
     return train_step
+
+
+def _plain(t):
+    """A DTensor metric as the plain tensor it stands for."""
+    return t.full_tensor() if isinstance(t, DTensor) else t
 
 
 def init_train_state(model, seed: int = 0, device=None):

@@ -131,13 +131,19 @@ def test_plan_refuses_a_group_the_kernel_does_not_take():
 
 
 def test_wrapper_refuses_a_device_it_does_not_take():
+    """Meta tensors take the plain version (nothing runs); a device that
+    is neither the CPU, meta nor CUDA raises."""
+    from _torch_elsewhere import elsewhere
     x = torch.zeros(2, 64, device="meta")
     qw = torch.zeros(8, 16, dtype=torch.int32, device="meta")
     s = torch.zeros(1, 16, device="meta")
+    assert awq.awq_matmul(x, qw, s, s, group_size=64).shape == (2, 16)
+    assert rms.rmsnorm(x, torch.zeros(64, device="meta")).device.type == "meta"
     with pytest.raises(ValueError, match="CUDA"):
-        awq.awq_matmul(x, qw, s, s, group_size=64)
+        awq.awq_matmul(elsewhere(2, 64), elsewhere(8, 16, dtype=torch.int32),
+                       elsewhere(1, 16), elsewhere(1, 16), group_size=64)
     with pytest.raises(ValueError, match="CUDA"):
-        rms.rmsnorm(x, torch.zeros(64, device="meta"))
+        rms.rmsnorm(elsewhere(2, 64), elsewhere(64))
     assert awq.launches == rms.launches == 0
 
 

@@ -39,7 +39,7 @@ PROMPTS = ["hello contiguous world", "a prompt that runs past one sixteen-token 
 def _random_cache(model, batch, max_seq, seed):
     """A port cache and the same values as a JAX cache."""
     r = np.random.default_rng(seed)
-    cache = model.init_cache(batch, max_seq)
+    cache = model.init_cache(batch, max_seq, device="cpu")
     arrays = {k: r.standard_normal(tuple(v.shape)).astype(np.float32)
               for k, v in cache.items() if k != "pos"}
     port = {k: torch.from_numpy(a.copy()) for k, a in arrays.items()}
@@ -88,7 +88,7 @@ def test_pool_store_and_load_match_reference(arch):
     for name, buf in zip(jpool._leaf_names, jpool._state):
         if buf is not None:
             assert np.array_equal(pool._state[name].numpy(), np.asarray(buf)), name
-    fresh = pm.init_cache(1, 64)
+    fresh = pm.init_cache(1, 64, device="cpu")
     got = pool.load(fresh, 0, [5, 2], state_pid=2 if pool.stateful else None)
     want = jpool.load(jm.init_cache(1, 64), 0, [5, 2],
                       state_pid=2 if pool.stateful else None)
@@ -260,7 +260,8 @@ def test_per_slot_cache_writes_and_chunk_attention():
         assert np.array_equal(got.numpy(), np.asarray(want))
 
     cfg = get_smoke_config("minitron-8b").replace(**KW)
-    p = {k: v[0] for k, v in build_model(cfg).init(seed=2)["blocks"]["attn"].items()}
+    p = {k: v[0] for k, v in
+         build_model(cfg).init(seed=2, device="cpu")["blocks"]["attn"].items()}
     x = torch.from_numpy(r.standard_normal((2, 3, cfg.d_model)).astype(np.float32))
     shape = (2, cfg.n_kv_heads, 32, cfg.head_dim)
     ck = torch.from_numpy(r.standard_normal(shape).astype(np.float32))

@@ -1156,3 +1156,91 @@ def test_cross_attention_smoke_configs_serve_on_card_as_on_cpu(arch):
     for a, c in zip(*out):
         torch.testing.assert_close(a, c, atol=5e-5, rtol=0)
         assert int(a.argmax()) == int(c.argmax())
+
+
+@pytest.mark.cuda
+def test_mesh_train_step_on_card_equals_plain_step():
+    """make_local_mesh() on the card: a (1, 1) NCCL mesh. The smoke
+    minitron's train step with params restored there (DTensors, the
+    kernels on whole local shards) equals the step on plain tensors, and
+    launches the same kernels as often."""
+    _card()
+    import tempfile
+
+    import torch.distributed as dist
+
+    from repro_torch.configs import get_smoke_config
+    from repro_torch.distributed.fault import elastic_restore, shardings_for_mesh
+    from repro_torch.distributed.sharding import DEFAULT_RULES, axis_rules, use_mesh
+    from repro_torch.launch.mesh import make_local_mesh
+    from repro_torch.models import build_model
+    from repro_torch.models.common import flatten
+    from repro_torch.training import AdamWConfig, CheckpointManager, adamw_init, \
+        make_train_step
+
+    model = build_model(get_smoke_config("minitron-8b").replace(compute_dtype="float32"))
+    oc = AdamWConfig(lr=1e-4, warmup_steps=0)
+    toks = torch.randint(0, 256, (2, 33), generator=torch.Generator().manual_seed(0)).cuda()
+    mesh = make_local_mesh()
+    try:
+        assert tuple(mesh.shape) == (1, 1) and dist.get_backend() == "nccl"
+        params = model.init(0)
+        with tempfile.TemporaryDirectory() as d:
+            ckpt = CheckpointManager(d)
+            ckpt.save(0, {"params": params})
+            dparams, _, _ = elastic_restore(ckpt, model, mesh)
+        counts = {}
+        for key, step, ps, ctx in (
+                ("plain", make_train_step(model, oc), params, None),
+                ("mesh", make_train_step(model, oc,
+                                         grad_shardings=shardings_for_mesh(model, mesh)),
+                 dparams, True)):
+            fa_k.launches = fa_k.launches_bwd = rms_k.launches = 0
+            if ctx:
+                with axis_rules(DEFAULT_RULES), use_mesh(mesh):
+                    ps, _, m = step(ps, adamw_init(ps), {"tokens": toks})
+            else:
+                ps, _, m = step(ps, adamw_init(ps), {"tokens": toks})
+            counts[key] = (float(m["loss"]), ps, (fa_k.launches, fa_k.launches_bwd,
+                                                  rms_k.launches))
+        (l1, p1, n1), (l2, p2, n2) = counts["plain"], counts["mesh"]
+        assert abs(l1 - l2) <= 1e-5
+        assert n1 == n2 and min(n1) > 0
+        for (_, a), (_, b) in zip(flatten(p1), flatten(p2)):
+            torch.testing.assert_close(b.to_local(), a, atol=1e-5, rtol=0)
+    finally:
+        dist.destroy_process_group()
+
+
+@pytest.mark.cuda
+@pytest.mark.parametrize("arch", ["grok-1-314b", "deepseek-v2-lite-16b"])
+def test_shard_map_moe_on_card_equals_plain_dispatch(arch):
+    """The shard_map MoE dispatch on the card's (1, 1) mesh against the
+    plain dispatch on plain tensors: the smoke's float32 logits."""
+    _card()
+    import torch.distributed as dist
+    from torch.distributed.tensor import distribute_tensor
+
+    from repro_torch.configs import get_smoke_config
+    from repro_torch.distributed.fault import shardings_for_mesh
+    from repro_torch.distributed.sharding import DEFAULT_RULES, axis_rules, use_mesh
+    from repro_torch.launch.mesh import make_local_mesh
+    from repro_torch.models import build_model
+    from repro_torch.models.common import tree_map
+
+    cfg = get_smoke_config(arch).replace(compute_dtype="float32", capacity_factor=4.0)
+    model = build_model(cfg)
+    params = model.init(0)
+    toks = torch.randint(0, 256, (4, 16), generator=torch.Generator().manual_seed(2)).cuda()
+    mesh = make_local_mesh()
+    try:
+        sm = build_model(cfg.replace(moe_dispatch="shard_map"))
+        dp = tree_map(lambda t, pl: distribute_tensor(t, mesh, pl), params,
+                      shardings_for_mesh(sm, mesh))
+        with torch.no_grad():
+            want = model.forward(params, toks)
+            with axis_rules(DEFAULT_RULES), use_mesh(mesh):
+                got = sm.forward(dp, toks).to_local()
+        torch.testing.assert_close(got, want, atol=5e-5, rtol=0)
+    finally:
+        dist.destroy_process_group()

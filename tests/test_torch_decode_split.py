@@ -91,7 +91,13 @@ def test_packed_args_match_the_source():
 
 
 def test_wrapper_refuses_a_device_it_does_not_take():
+    """Meta tensors take the plain version (nothing runs); a device that
+    is neither the CPU, meta nor CUDA raises."""
+    from _torch_elsewhere import elsewhere
     q = torch.zeros(1, 4, 1, 16, device="meta")
     kv = torch.zeros(1, 2, 8, 16, device="meta")
+    out = dec.decode_attention(q, kv, kv, kv_len=8)
+    assert out.device.type == "meta" and out.shape == q.shape
     with pytest.raises(ValueError, match="CUDA"):
-        dec.decode_attention(q, kv, kv, kv_len=8)
+        dec.decode_attention(elsewhere(1, 4, 1, 16), elsewhere(1, 2, 8, 16),
+                             elsewhere(1, 2, 8, 16), kv_len=8)

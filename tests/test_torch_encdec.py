@@ -119,7 +119,7 @@ def test_encode_and_forward_match_reference(models):
 def test_cache_leaves_match_reference(models):
     jm, _, pm, _ = models
     assert pm.cache_specs() == jm.cache_specs()
-    ref, port = jm.init_cache(2, 32), pm.init_cache(2, 32)
+    ref, port = jm.init_cache(2, 32), pm.init_cache(2, 32, device="cpu")
     assert set(port) == set(ref)
     for k, v in ref.items():
         if k != "pos":
@@ -139,7 +139,7 @@ def test_prefill_with_frames_then_decode_matches_reference(models):
     jc = jm.init_cache(2, 32)
     jl, jc = jm.prefill(jp, jnp.asarray(toks[:, :T]), jc, {"frames": jnp.asarray(fr)})
     with torch.no_grad():
-        pc = pm.init_cache(2, 32)
+        pc = pm.init_cache(2, 32, device="cpu")
         pl, pc = pm.prefill(pp, torch.from_numpy(toks[:, :T]), pc,
                             {"frames": torch.from_numpy(fr)})
         close(pl, jl)
@@ -162,7 +162,7 @@ def test_prefill_chunk_with_and_without_frames_matches_reference(models):
     jm, jp, pm, pp = models
     fr, toks = _frames(pm.cfg, 2, seed=3), _tokens((2, 14), seed=3)
     for frames in (True, False):
-        jc, pc = jm.init_cache(2, 32), pm.init_cache(2, 32)
+        jc, pc = jm.init_cache(2, 32), pm.init_cache(2, 32, device="cpu")
         with torch.no_grad():
             for i, (a, b) in enumerate(((0, 8), (8, 12), (12, 13))):
                 jx = {"frames": jnp.asarray(fr)} if frames and i == 0 else None
@@ -187,7 +187,7 @@ def test_decode_step_per_slot_positions_matches_reference(models):
     fr, toks = _frames(pm.cfg, 2, seed=4), _tokens((2, 12), seed=4)
     jc = jm.init_cache(2, 32)
     _, jc = jm.prefill(jp, jnp.asarray(toks[:, :10]), jc, {"frames": jnp.asarray(fr)})
-    pc = pm.init_cache(2, 32)
+    pc = pm.init_cache(2, 32, device="cpu")
     with torch.no_grad():
         _, pc = pm.prefill(pp, torch.from_numpy(toks[:, :10]), pc,
                            {"frames": torch.from_numpy(fr)})

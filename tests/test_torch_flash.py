@@ -94,11 +94,15 @@ def test_plain_matches_reference_at_ragged_lengths(Sq, Skv, causal, cap):
 
 
 def test_kernel_wrapper_refuses_a_device_it_does_not_take():
-    """A tensor that is on neither the CPU nor a CUDA card raises (the
+    """A tensor on the meta device takes the plain version (nothing runs);
+    one that is on neither the CPU, meta nor a CUDA card raises (the
     kernel's own refusals are card tests)."""
+    from _torch_elsewhere import elsewhere
     q, k, v = (torch.zeros(1, 4, 8, 16, device="meta") for _ in range(3))
+    out = fa.flash_attention(q, k, v)
+    assert out.device.type == "meta" and out.shape == q.shape
     with pytest.raises(ValueError, match="CUDA"):
-        fa.flash_attention(q, k, v)
+        fa.flash_attention(*(elsewhere(1, 4, 8, 16) for _ in range(3)))
 
 
 # ---------------------------------------------------------------- model
@@ -176,8 +180,8 @@ def test_prefill_matches_reference_and_chunked_prefill(models):
     toks = _tokens(11, 2, 19, pm.cfg.vocab_size)
     jl, jc = jm.prefill(jp, jnp.asarray(toks), jm.init_cache(2, 32))
     with torch.no_grad():
-        pl, pc = pm.prefill(pp, torch.from_numpy(toks), pm.init_cache(2, 32))
-        cl, cc = pm.prefill_chunk(pp, torch.from_numpy(toks), pm.init_cache(2, 32))
+        pl, pc = pm.prefill(pp, torch.from_numpy(toks), pm.init_cache(2, 32, device="cpu"))
+        cl, cc = pm.prefill_chunk(pp, torch.from_numpy(toks), pm.init_cache(2, 32, device="cpu"))
     _close(pl, jl, ATOL)
     for name in ("k", "v"):
         _close(pc[name], jc[name], ATOL)

@@ -136,7 +136,7 @@ def test_prefill_then_decode_matches_reference(models):
     jm, jp, pm = models
     pp = _port(jp)
     toks = _tokens(2, 22, 4)
-    jc, pc = jm.init_cache(2, 48), pm.init_cache(2, 48)
+    jc, pc = jm.init_cache(2, 48), pm.init_cache(2, 48, device="cpu")
     jl, jc = jm.prefill(jp, jnp.asarray(toks), jc)
     with torch.inference_mode():
         pl, pc = pm.prefill(pp, torch.from_numpy(toks), pc)

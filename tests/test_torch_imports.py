@@ -55,7 +55,9 @@ def test_importing_the_port_loads_no_jax():
             "repro_torch.configs.llama_3_2_vision_11b, "
             "repro_torch.serving.prng, repro_torch.launch.serve, "
             "repro_torch.training, repro_torch.kernels.flash_attention, "
-            "repro_torch.launch.train; "
+            "repro_torch.launch.train, repro_torch.distributed, "
+            "repro_torch.distributed.sharding, repro_torch.distributed.fault, "
+            "repro_torch.launch.mesh, repro_torch.launch.analysis; "
             "bad = sorted(m for m in sys.modules if m.split('.')[0] in "
             "('jax', 'jaxlib', 'repro', 'msgpack')); print(bad); assert not bad")
     env = dict(os.environ, PYTHONPATH=str(ROOT / "src"))
@@ -95,3 +97,27 @@ def test_entry_points_need_a_card_unless_asked_for_cpu(monkeypatch):
     with pytest.raises(RuntimeError, match="no CUDA device"):
         EngineFleet.build(cfg, replicas=2)
     assert ServingEngine(cfg, device="cpu", max_seq=32).device.type == "cpu"
+
+
+@pytest.mark.parametrize("arch", ["minitron-8b", "zamba2-7b", "xlstm-125m", "whisper-medium"])
+def test_model_api_needs_a_card_unless_asked_for_cpu(monkeypatch, arch):
+    """model.init, model.init_cache and init_params default to the card,
+    as the reference's init lands on the accelerator, and raise without
+    one; make_local_mesh() does too."""
+    from repro_torch.configs import get_smoke_config
+    from repro_torch.launch.mesh import make_local_mesh
+    from repro_torch.models import build_model, init_params
+
+    monkeypatch.setattr(torch.cuda, "is_available", lambda: False)
+    model = build_model(get_smoke_config(arch))
+    with pytest.raises(RuntimeError, match="no CUDA device"):
+        model.init(0)
+    with pytest.raises(RuntimeError, match="no CUDA device"):
+        model.init_cache(1, 8)
+    with pytest.raises(RuntimeError, match="no CUDA device"):
+        init_params(model.param_defs(), 0)
+    with pytest.raises(RuntimeError, match="no CUDA device"):
+        make_local_mesh()
+    assert model.init_cache(1, 8, device="cpu")["pos"] == 0
+    from repro_torch.models.common import flatten
+    assert all(t.device.type == "cpu" for _, t in flatten(model.init(0, device="cpu")))

@@ -195,8 +195,9 @@ def test_chunk_attention_matches_reference_mha():
 # ------------------------------------------------------------------ dispatch
 def test_kernel_wrappers_dispatch_by_device():
     """A wrapper takes its plain version for a CPU tensor, bit for bit and
-    without counting a launch; a tensor on any other non-CUDA device is
-    refused. ``ops`` hands the models these same wrappers."""
+    without counting a launch, and for a meta tensor (nothing runs); a
+    tensor on any other non-CUDA device is refused. ``ops`` hands the
+    models these same wrappers."""
     rng = np.random.default_rng(5)
     x = torch.from_numpy(rng.normal(size=(2, 64)).astype(np.float32))
     w = torch.from_numpy(rng.normal(size=(64,)).astype(np.float32))
@@ -211,12 +212,18 @@ def test_kernel_wrappers_dispatch_by_device():
                        dec_k.plain(q, k, k, kv_len=9))
     assert (ops.rmsnorm, ops.paged_attention, ops.decode_attention) == (
         rms_k.rmsnorm, pa_k.paged_attention, dec_k.decode_attention)
+    from _torch_elsewhere import Elsewhere
     meta = {"device": "meta"}
+    assert rms_k.rmsnorm(x.to(**meta), w.to(**meta)).device.type == "meta"
+    assert pa_k.paged_attention(q.to(**meta), kp.to(**meta), kp.to(**meta),
+                                block_tables=bt.to(**meta), kv_len=20).shape == q.shape
+    assert dec_k.decode_attention(q.to(**meta), k.to(**meta), k.to(**meta),
+                                  kv_len=9).device.type == "meta"
     with pytest.raises(ValueError, match="CUDA"):
-        rms_k.rmsnorm(x.to(**meta), w.to(**meta))
+        rms_k.rmsnorm(Elsewhere(x), Elsewhere(w))
     with pytest.raises(ValueError, match="CUDA"):
-        pa_k.paged_attention(q.to(**meta), kp.to(**meta), kp.to(**meta),
-                             block_tables=bt.to(**meta), kv_len=20)
+        pa_k.paged_attention(Elsewhere(q), Elsewhere(kp), Elsewhere(kp),
+                             block_tables=Elsewhere(bt), kv_len=20)
     with pytest.raises(ValueError, match="CUDA"):
-        dec_k.decode_attention(q.to(**meta), k.to(**meta), k.to(**meta), kv_len=9)
+        dec_k.decode_attention(Elsewhere(q), Elsewhere(k), Elsewhere(k), kv_len=9)
     assert rms_k.launches == pa_k.launches == dec_k.launches == 0

@@ -60,10 +60,10 @@ def test_param_tree_layout_matches_reference(models):
     ref = {path: tuple(a.shape) for path, a in flatten(jax.tree.map(np.asarray, jp))}
     port = {path: d.shape for path, d in flatten(pm.param_defs())}
     assert port == ref
-    p = build_model(pm.cfg.replace(param_dtype="bfloat16")).init(seed=3)
+    p = build_model(pm.cfg.replace(param_dtype="bfloat16")).init(seed=3, device="cpu")
     leaves = [t for _, t in flatten(p)]
     assert all(t.dtype == torch.bfloat16 for t in leaves)
-    again = build_model(pm.cfg.replace(param_dtype="bfloat16")).init(seed=3)
+    again = build_model(pm.cfg.replace(param_dtype="bfloat16")).init(seed=3, device="cpu")
     assert all(torch.equal(a, b) for (_, a), (_, b) in zip(flatten(p), flatten(again)))
 
 
@@ -92,7 +92,7 @@ def test_contiguous_prefill_and_decode_match_reference(models):
     ids = _prompt(0, 21)                           # chunks 16 + 4 + 1
     jl, jc = _ref_prefill(jm, jp, ids, jm.init_cache(1, MAX_SEQ))
     with torch.inference_mode():
-        pl, pc = _port_prefill(pm, pp, ids, pm.init_cache(1, MAX_SEQ))
+        pl, pc = _port_prefill(pm, pp, ids, pm.init_cache(1, MAX_SEQ, device="cpu"))
     close(pl, jl)
     tok = int(np.argmax(np.asarray(jl)[0]))
     for _ in range(4):
@@ -135,7 +135,7 @@ def test_paged_prefill_and_decode_match_reference_and_contiguous(models):
     contig = []
     for ids in prompts:
         with torch.inference_mode():
-            contig.append(_port_prefill(pm, pp, ids, pm.init_cache(1, MAX_SEQ))[1])
+            contig.append(_port_prefill(pm, pp, ids, pm.init_cache(1, MAX_SEQ, device="cpu"))[1])
 
     pos = np.asarray([len(p) for p in prompts], np.int32)
     jc = {"k": jk, "v": jv, "pos": jnp.asarray(pos),

@@ -75,7 +75,7 @@ def test_cross_attention_still_refused():
     assert lm.n_cross == 1 and "gate" in lm.param_defs()["cross"]["attn"]
     cfg = get_smoke_config("whisper-medium")
     enc = EncDecLM(cfg)
-    params = enc.init(seed=0)
+    params = enc.init(seed=0, device="cpu")
     toks = torch.zeros((1, 5), dtype=torch.int64)
     frames = 0.1 * torch.randn((1, cfg.encoder_seq_len, cfg.d_model),
                                generator=torch.Generator().manual_seed(0))
@@ -115,7 +115,7 @@ def test_cache_leaves_match_reference(models):
     jm, _, pm, _ = models
     assert pm.cache_specs() == jm.cache_specs()
     ref = jm.init_cache(2, 32)
-    port = pm.init_cache(2, 32)
+    port = pm.init_cache(2, 32, device="cpu")
     assert set(port) == set(ref)
     for k, v in ref.items():
         if k != "pos":
@@ -139,7 +139,7 @@ def test_prefill_decode_matches_forward(arch):
     T = 12
     with torch.no_grad():
         full = pm.forward(pp, torch.from_numpy(toks))
-        cache = pm.init_cache(2, 32)
+        cache = pm.init_cache(2, 32, device="cpu")
         last, cache = pm.prefill(pp, torch.from_numpy(toks[:, :T]), cache)
     jc = jm.init_cache(2, 32)
     jlast, jc = jm.prefill(jp, jnp.asarray(toks[:, :T]), jc)
@@ -163,7 +163,7 @@ def test_chunked_prefill_is_a_continuation(arch):
     toks = _tokens((2, 14), seed=2)
     with torch.no_grad():
         full = pm.forward(pp, torch.from_numpy(toks))
-        cache = pm.init_cache(2, 32)
+        cache = pm.init_cache(2, 32, device="cpu")
         _, cache = pm.prefill_chunk(pp, torch.from_numpy(toks[:, :8]), cache)
         last, cache = pm.prefill_chunk(pp, torch.from_numpy(toks[:, 8:12]), cache)
         np.testing.assert_allclose(last.numpy(), full[:, 11].numpy(), rtol=1e-4, atol=1e-4)
@@ -183,7 +183,7 @@ def test_verify_chunk_bit_equal_to_prefill_chunk(models):
     _, _, pm, pp = models
     toks = torch.from_numpy(_tokens((2, 13), seed=3))
     with torch.no_grad():
-        base = pm.init_cache(2, 32)
+        base = pm.init_cache(2, 32, device="cpu")
         _, base = pm.prefill_chunk(pp, toks[:, :8], base)
         c1 = {k: (v.clone() if torch.is_tensor(v) else v) for k, v in base.items()}
         c2 = {k: (v.clone() if torch.is_tensor(v) else v) for k, v in base.items()}
@@ -204,7 +204,7 @@ def test_propose_k_matches_reference(models):
     jm, jp, pm, pp = models
     toks = _tokens((2, 9), seed=4)
     with torch.no_grad():
-        cache = pm.init_cache(2, 32)
+        cache = pm.init_cache(2, 32, device="cpu")
         _, cache = pm.prefill_chunk(pp, torch.from_numpy(toks[:, :8]), cache)
         drafts, cache = pm.propose_k(pp, torch.from_numpy(toks[:, 8:9]), cache, 3)
     jc = jm.init_cache(2, 32)

@@ -42,7 +42,7 @@ def test_list_archs_lists_every_reference_arch():
         full = build_model(get_config(arch))
         assert {p: d.shape for p, d in flatten(full.param_defs())} == {
             p: d.shape for p, d in flatten(ref_build(ref_full(arch)).param_defs())}, arch
-        smoke = build_model(get_smoke_config(arch).replace(**KW)).init(seed=0)
+        smoke = build_model(get_smoke_config(arch).replace(**KW)).init(seed=0, device="cpu")
         assert {p: tuple(t.shape) for p, t in flatten(smoke)} == {
             p: d.shape for p, d in flatten(ref_build(ref_smoke(arch).replace(**KW))
                                            .param_defs())}, arch
@@ -132,8 +132,7 @@ def test_serving_exports_cover_the_reference():
 def test_moe_and_mla_modules_carry_the_reference_names(mod):
     """``models.moe`` and ``models.mla`` define the reference's public
     functions (and ``_route``, ``_slots``, ``_norm``, ``_pad_v``), with the
-    same positional parameters; ``moe_mlp_shard_map`` alone waits for the
-    distributed port."""
+    same positional parameters."""
     import importlib
     import inspect
     ref = importlib.import_module(f"repro.models.{mod}")
@@ -143,12 +142,59 @@ def test_moe_and_mla_modules_carry_the_reference_names(mod):
         return {n for n, f in vars(m).items() if inspect.isfunction(f)
                 and f.__module__ == m.__name__ and not n.startswith("_")}
 
-    assert public(port) == public(ref) - {"moe_mlp_shard_map"}
+    assert public(port) == public(ref)
     helpers = {"moe": ("_route", "_slots", "_experts_ffn"), "mla": ("_norm", "_pad_v")}[mod]
     for name in sorted(public(port)) + list(helpers):
         want = [p for p in inspect.signature(getattr(ref, name)).parameters]
         got = [p for p in inspect.signature(getattr(port, name)).parameters]
         assert got[:len(want)] == want, name
+
+
+# the reference's shims for JAX's API drift, with no torch counterpart
+JAX_ONLY = {"distributed.sharding": {"get_abstract_mesh", "shard_map_compat"},
+            "launch.analysis": {"analyze_hlo"}}
+# the port's own: the placements DTensor takes, its active-mesh context,
+# the uneven-heads gather, and analyze_hlo's counterpart
+PORT_ONLY = {"distributed.sharding": {"to_placements", "use_mesh", "gather_unless_divides"},
+             "launch.analysis": {"analyze_step"}}
+
+
+@pytest.mark.parametrize("mod", ["distributed.sharding", "distributed.fault", "launch.mesh",
+                                 "launch.analysis"])
+def test_distribution_modules_carry_the_reference_names(mod):
+    """The distribution modules define the reference's public functions
+    with the same leading parameters, less the documented JAX-only shims
+    and beside the port's own; the packages export the same."""
+    import importlib
+    import inspect
+    ref = importlib.import_module(f"repro.{mod}")
+    port = importlib.import_module(f"repro_torch.{mod}")
+
+    def public(m):
+        return {n for n, f in vars(m).items() if inspect.isfunction(f)
+                and f.__module__ == m.__name__ and not n.startswith("_")}
+
+    assert public(port) == (public(ref) - JAX_ONLY.get(mod, set())) | PORT_ONLY.get(mod, set())
+    for name in sorted(public(port) & public(ref)) + (
+            ["_resolve_one"] if mod == "distributed.sharding" else []):
+        want = [p for p in inspect.signature(getattr(ref, name)).parameters]
+        got = [p for p in inspect.signature(getattr(port, name)).parameters]
+        assert got[:len(want)] == want, name      # make_local_mesh adds device
+    if mod == "distributed.sharding":
+        import repro.distributed as ref_pkg
+        import repro_torch.distributed as port_pkg
+        assert port_pkg.__all__ == ref_pkg.__all__
+        assert port.DEFAULT_RULES == ref.DEFAULT_RULES
+
+
+def test_configs_and_models_export_the_reference_names():
+    import repro.configs as ref_configs
+    import repro.models as ref_models
+    import repro_torch.configs as port_configs
+    import repro_torch.models as port_models
+    assert set(ref_configs.__all__) <= set(port_configs.__all__)
+    assert set(port_configs.__all__) - set(ref_configs.__all__) == {"PORTED"}
+    assert set(port_models.__all__) == set(ref_models.__all__)
 
 
 @pytest.mark.parametrize("arch", ["deepseek-v2-lite-16b", "grok-1-314b"])

@@ -84,8 +84,15 @@ def test_packed_args_match_the_source(src):
 
 
 def test_wrapper_refuses_a_device_it_does_not_take():
+    """Meta tensors take the plain version (nothing runs); a device that
+    is neither the CPU, meta nor CUDA raises."""
+    from _torch_elsewhere import elsewhere
     q = torch.zeros(1, 4, 1, 16, device="meta")
     pages = torch.zeros(3, 2, 16, 16, device="meta")
     bt = torch.zeros(1, 2, dtype=torch.int32, device="meta")
+    out = pa.paged_attention(q, pages, pages, block_tables=bt, kv_len=8)
+    assert out.device.type == "meta" and out.shape == q.shape
     with pytest.raises(ValueError, match="CUDA"):
-        pa.paged_attention(q, pages, pages, block_tables=bt, kv_len=8)
+        pa.paged_attention(elsewhere(1, 4, 1, 16), elsewhere(3, 2, 16, 16),
+                           elsewhere(3, 2, 16, 16),
+                           block_tables=elsewhere(1, 2, dtype=torch.int32), kv_len=8)

@@ -101,7 +101,7 @@ def spec_cb(eng, mode="ngram", slots=2):
 def _port_engine(arch, paged, kv, params=None):
     cfg = get_smoke_config(arch).replace(**KW)
     if params is None:
-        params = build_model(cfg).init(0)
+        params = build_model(cfg).init(0, device="cpu")
         if kv != "fp32":
             params = quantize_mlp_tree(params, group_size=64)
     return ServingEngine(cfg, max_seq=96, paged_kv=paged, kv_dtype=kv, device="cpu",
@@ -233,7 +233,7 @@ def test_model_drafter_seed_derivation():
     fold_in(PRNGKey(seed), 7) (the JAX package draws from fold_in(rng, 7))."""
     big = get_smoke_config("minitron-8b").replace(**KW)
     eng = ServingEngine(big, max_seq=96, drafter_cfg=big, seed=3, device="cpu")
-    want = build_model(big).init(prng.fold_in(prng.PRNGKey(3), 7)[1])
+    want = build_model(big).init(prng.fold_in(prng.PRNGKey(3), 7)[1], device="cpu")
     assert torch.equal(eng.drafter.params["embed"]["w"], want["embed"]["w"])
     assert not torch.equal(eng.drafter.params["embed"]["w"], eng.params["embed"]["w"])
 
@@ -274,7 +274,7 @@ def model(request):
 
 
 def _prefilled(m, p, ids, batch_cache=None):
-    c = m.init_cache(1, 96)
+    c = m.init_cache(1, 96, device="cpu")
     with torch.inference_mode():
         _, c = m.prefill_chunk(p, torch.tensor([ids]), c)
     return c
@@ -329,7 +329,7 @@ def test_verify_chunk_vector_positions(model):
         for s, w in zip(ids, win):
             v, _ = m.verify_chunk(p, torch.tensor([w]), _prefilled(m, p, s))
             solo.append(v[0])
-        cb = m.init_cache(2, 96)
+        cb = m.init_cache(2, 96, device="cpu")
         cb["pos"] = torch.zeros(2, dtype=torch.int32)
         sp = SlotSplicer(cache_layout(m.cache_specs()))
         for i, s in enumerate(ids):
@@ -347,7 +347,7 @@ def test_verify_chunk_matches_reference(model):
     ids = [rng.randint(0, 300, size=n).tolist() for n in (24, 17)]
     win = rng.randint(0, 300, size=(2, 5))
     jc = jm.init_cache(2, 96)
-    pc = m.init_cache(2, 96)
+    pc = m.init_cache(2, 96, device="cpu")
     jc["pos"] = jnp.zeros((2,), jnp.int32)
     pc["pos"] = torch.zeros(2, dtype=torch.int32)
     from repro.models.common import cache_layout as jlayout

@@ -136,9 +136,14 @@ def test_ssd_step_matches_scan_and_reference():
 
 
 def test_ssd_wrapper_refuses_other_devices():
+    """Meta tensors take the plain version (nothing runs); a device that
+    is neither the CPU, meta nor CUDA raises."""
+    from _torch_elsewhere import Elsewhere
     x, dt, A, B, C, D, _ = _torch(*_ssd_inputs(1, 1, 16, 2, 16, 16))
+    y, h = ops.ssd(*(t.to("meta") for t in (x, dt, A, B, C, D)), chunk=16)
+    assert y.device.type == "meta" and y.shape == x.shape
     with pytest.raises(ValueError, match="CUDA"):
-        ops.ssd(x.to("meta"), dt, A, B, C, D, chunk=16)
+        ops.ssd(Elsewhere(x), dt, A, B, C, D, chunk=16)
 
 
 # ---------------------------------------------------------------- model
@@ -172,7 +177,7 @@ def test_param_tree_layout_matches_reference(models):
     assert {path: tuple(t.shape) for path, t in flatten(pp)} == want
     for key in ("A_log", "dt_bias", "D", "out_norm"):
         assert np.array_equal(pp["blocks"][key].numpy(), np.asarray(jp["blocks"][key]))
-    own = pm.init(seed=1)["blocks"]
+    own = pm.init(seed=1, device="cpu")["blocks"]
     a = torch.exp(own["A_log"])
     dt = torch.nn.functional.softplus(own["dt_bias"])
     assert bool(((a >= 1.0) & (a <= 16.0)).all())
@@ -219,7 +224,7 @@ def test_prefill_chunks_and_decode_match_reference(models):
     chunk) and every decode step; the caches stay written in place."""
     jm, jp, pm, pp = models
     ids = _prompt(0, 37)
-    jc, pc = jm.init_cache(1, MAX_SEQ), pm.init_cache(1, MAX_SEQ)
+    jc, pc = jm.init_cache(1, MAX_SEQ), pm.init_cache(1, MAX_SEQ, device="cpu")
     ssm_ptr = pc["ssm"].data_ptr()
     off = 0
     for n in chunk_plan(0, len(ids), PAGE):
@@ -248,7 +253,7 @@ def test_decode_with_per_slot_positions_matches_reference(models):
     prompts = [_prompt(1, 21), _prompt(2, 7)]
     jcs, pcs, toks = [], [], []
     for ids in prompts:
-        jc, pc = jm.init_cache(1, MAX_SEQ), pm.init_cache(1, MAX_SEQ)
+        jc, pc = jm.init_cache(1, MAX_SEQ), pm.init_cache(1, MAX_SEQ, device="cpu")
         off = 0
         for n in chunk_plan(0, len(ids), PAGE):
             jl, jc = jm.prefill_chunk(jp, jnp.asarray([ids[off:off + n]]), jc)

@@ -73,7 +73,7 @@ def test_config_and_param_tree_match_reference(models):
     assert ("cross", "attn", "gate") in ref and ("vis_proj", "w") in ref
     for path, t in flatten(pp):
         np.testing.assert_array_equal(t.numpy(), ref[path])
-    assert (pm.init(seed=0)["cross"]["attn"]["gate"] == 0).all()     # zero-initialised
+    assert (pm.init(seed=0, device="cpu")["cross"]["attn"]["gate"] == 0).all()     # zero-initialised
     full, jfull = build_model(get_config(ARCH)), ref_build(ref_full(ARCH))
     assert full.n_cross == 8
     assert {p: d.shape for p, d in flatten(full.param_defs())} == {
@@ -127,7 +127,7 @@ def test_cache_leaves_and_pool_snapshot(models):
     it bit for bit."""
     jm, _, pm, _ = models
     assert pm.cache_specs() == jm.cache_specs()
-    ref, port = jm.init_cache(2, 32), pm.init_cache(2, 32)
+    ref, port = jm.init_cache(2, 32), pm.init_cache(2, 32, device="cpu")
     assert set(port) == set(ref)
     for k, v in ref.items():
         if k != "pos":
@@ -138,11 +138,11 @@ def test_cache_leaves_and_pool_snapshot(models):
     assert pool.stateful
     assert tuple(pool._state["cross_k"].shape) == (4, pm.n_cross, pm.cfg.n_kv_heads,
                                                    pm.cfg.n_image_tokens, pm.cfg.head_dim)
-    cache = pm.init_cache(2, 32)
+    cache = pm.init_cache(2, 32, device="cpu")
     cache["cross_k"].normal_()
     cache["cross_v"].normal_()
     pool.store_state(cache, 1, 2)
-    one = pm.init_cache(1, 32)
+    one = pm.init_cache(1, 32, device="cpu")
     pool.load(one, 0, [], state_pid=2)
     assert torch.equal(one["cross_k"][:, 0], cache["cross_k"][:, 1])
     assert torch.equal(one["cross_v"][:, 0], cache["cross_v"][:, 1])
@@ -158,7 +158,7 @@ def test_prefill_with_vision_then_decode_matches_reference(models):
     jc = jm.init_cache(2, 32)
     jl, jc = jm.prefill(jp, jnp.asarray(toks[:, :T]), jc, {"vision": jnp.asarray(vis)})
     with torch.no_grad():
-        pc = pm.init_cache(2, 32)
+        pc = pm.init_cache(2, 32, device="cpu")
         pl, pc = pm.prefill(pp, torch.from_numpy(toks[:, :T]), pc,
                             {"vision": torch.from_numpy(vis)})
         close(pl, jl)
@@ -179,7 +179,7 @@ def test_prefill_chunk_matches_reference(models, with_vision):
     leaves, as the serving engine runs them."""
     jm, jp, pm, pp = models
     toks, vis = _tokens((2, 14), seed=3), _vision(pm.cfg, 2, seed=3)
-    jc, pc = jm.init_cache(2, 32), pm.init_cache(2, 32)
+    jc, pc = jm.init_cache(2, 32), pm.init_cache(2, 32, device="cpu")
     with torch.no_grad():
         for i, (a, b) in enumerate(((0, 8), (8, 12), (12, 13))):
             jx = {"vision": jnp.asarray(vis)} if with_vision and i == 0 else None
@@ -203,7 +203,7 @@ def test_per_slot_decode_and_verify_chunk_match_reference(models):
     jc = jm.init_cache(2, 32)
     _, jc = jm.prefill(jp, jnp.asarray(toks[:, :10]), jc, {"vision": jnp.asarray(vis)})
     with torch.no_grad():
-        pc = pm.init_cache(2, 32)
+        pc = pm.init_cache(2, 32, device="cpu")
         _, pc = pm.prefill(pp, torch.from_numpy(toks[:, :10]), pc,
                            {"vision": torch.from_numpy(vis)})
         jc = dict(jc, pos=jnp.asarray([10, 7], jnp.int32))

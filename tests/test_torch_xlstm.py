@@ -82,7 +82,7 @@ def test_param_tree_layout_matches_reference(models):
     want = {path: tuple(a.shape) for path, a in flatten(jax.tree.map(np.asarray, jp))}
     assert {path: d.shape for path, d in flatten(pm.param_defs())} == want
     assert {path: tuple(t.shape) for path, t in flatten(pp)} == want
-    own = pm.init(seed=1)
+    own = pm.init(seed=1, device="cpu")
     assert bool((own["blocks"]["l0"]["fb"] == 1).all())
     assert not bool(own["blocks"]["l3"]["wx"].eq(0).all())
 
@@ -123,7 +123,7 @@ def test_prefill_chunks_and_decode_match_reference(models):
     decode steps: logits at each and every state leaf at the end."""
     jm, jp, pm, pp = models
     ids = _prompt(0, 37)
-    jc, pc = jm.init_cache(1, MAX_SEQ), pm.init_cache(1, MAX_SEQ)
+    jc, pc = jm.init_cache(1, MAX_SEQ), pm.init_cache(1, MAX_SEQ, device="cpu")
     off = 0
     for i, n in enumerate(chunk_plan(0, len(ids), PAGE)):
         fj = jm.prefill if i == 0 else jm.prefill_chunk
@@ -151,11 +151,11 @@ def test_decode_with_per_slot_positions_matches_reference(models):
     jm, jp, pm, pp = models
     prompts = [_prompt(1, 21), _prompt(2, 7)]
     jcs, toks = [], []
-    pc = pm.init_cache(2, MAX_SEQ)
+    pc = pm.init_cache(2, MAX_SEQ, device="cpu")
     pc["pos"] = torch.zeros(2, dtype=torch.int32)
     sp = SlotSplicer(cache_layout(pm.cache_specs()))
     for slot, ids in enumerate(prompts):
-        jc, one = jm.init_cache(1, MAX_SEQ), pm.init_cache(1, MAX_SEQ)
+        jc, one = jm.init_cache(1, MAX_SEQ), pm.init_cache(1, MAX_SEQ, device="cpu")
         jl, jc = jm.prefill(jp, jnp.asarray([ids]), jc)
         with torch.inference_mode():
             _, one = pm.prefill(pp, torch.tensor([ids]), one)
@@ -188,13 +188,13 @@ def test_nested_cache_layout_and_stateful_pool(models):
     assert layout[("states", "l0", 1)].batch_axis == 0
     pool = PagePool(pm, page=PAGE, capacity=3)
     assert pool.stateful and not pool._paged
-    per_slot = sum(cache_leaf(pm.init_cache(1, 1), k).numel() * 4 for k in states)
+    per_slot = sum(cache_leaf(pm.init_cache(1, 1, device="cpu"), k).numel() * 4 for k in states)
     assert pool.pool_bytes == 4 * per_slot
-    c = pm.init_cache(2, MAX_SEQ)
+    c = pm.init_cache(2, MAX_SEQ, device="cpu")
     for k in states:
         cache_leaf(c, k).normal_()
     pool.store_state(c, 1, 2)
-    d = pm.init_cache(1, MAX_SEQ)
+    d = pm.init_cache(1, MAX_SEQ, device="cpu")
     pool.load(d, 0, [], state_pid=2)
     for k in states:
         assert torch.equal(cache_leaf(d, k)[0], cache_leaf(c, k)[1])
