@@ -2671,8 +2671,9 @@ def shard_map_moe_check(torch, mesh):
     """deepseek-v2-lite-16b at full width cut to 2 layers (the dense first
     block and one MoE block, bf16): the moe_dispatch="shard_map" forward
     on ``mesh`` against the gspmd forward on plain tensors; routing
-    indices equal, logits within the bf16 tolerance. Returns the kernel
-    launches of the two forwards."""
+    indices equal, logits within the bf16 tolerance, and flash_attention
+    and rmsnorm launched as many times in each (the counts set to 0 just
+    before each forward). Returns the mesh forward's kernel launches."""
     from torch.distributed.tensor import distribute_tensor
 
     from repro_torch.configs import get_config
@@ -2688,11 +2689,12 @@ def shard_map_moe_check(torch, mesh):
     mparams = mmodel.init(0)
     toks = torch.from_numpy(SyntheticLMData(mcfg.vocab_size, TRAIN_BATCH, TRAIN_SEQ)
                             .next()["tokens"]).cuda()[:, :-1]
+    plain_route, sm_route = [], []
     for mod, attr in counters().values():
         setattr(mod, attr, 0)
-    plain_route, sm_route = [], []
     with torch.no_grad(), moe_routing(plain_route):
         want = mmodel.forward(mparams, toks)
+    plain_launch = {name: getattr(mod, attr) for name, (mod, attr) in counters().items()}
     sm_model = build_model(mcfg.replace(moe_dispatch="shard_map"))
     dmp = tree_map(lambda t, pl: distribute_tensor(t, mesh, pl), mparams,
                    shardings_for_mesh(sm_model, mesh, dtype=mcfg.pdtype()))
@@ -2704,6 +2706,8 @@ def shard_map_moe_check(torch, mesh):
         return y
 
     moe_mod.moe_mlp_shard_map = counted_sm
+    for mod, attr in counters().values():
+        setattr(mod, attr, 0)
     try:
         with torch.no_grad(), moe_routing(sm_route), axis_rules(DEFAULT_RULES), \
                 use_mesh(mesh):
@@ -2718,9 +2722,14 @@ def shard_map_moe_check(torch, mesh):
     log(f"distributed phase: deepseek-v2-lite-16b at full width, 2 layers (bf16), "
         f"{tuple(toks.shape)} tokens: shard_map dispatch ran {sum(sm_calls)} of "
         f"{len(sm_calls)} MoE blocks, routing indices equal {same}, logits max |diff| "
-        f"{err:.3e}; launches {json.dumps(moe_launch)}")
+        f"{err:.3e}; launches gspmd {json.dumps(plain_launch)}, shard_map on the mesh "
+        f"{json.dumps(moe_launch)}")
     if not (sm_calls and all(sm_calls)) or not same:
         raise AssertionError("the shard_map MoE forward did not run, or routed otherwise")
+    for name in ("flash_attention", "rmsnorm"):
+        if moe_launch[name] <= 0 or moe_launch[name] != plain_launch[name]:
+            raise AssertionError(f"deepseek-v2-lite: {name} launched {moe_launch[name]} "
+                                 f"times on the mesh, {plain_launch[name]} in gspmd")
     del mparams, dmp, want, got
     gc.collect()
     torch.cuda.empty_cache()

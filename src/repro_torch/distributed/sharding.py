@@ -29,7 +29,6 @@ from dataclasses import dataclass
 from typing import Any, Mapping, Sequence
 
 from torch.distributed.tensor import DTensor, Partial, Replicate, Shard
-from torch.distributed.tensor.experimental import implicit_replication
 
 # Logical axis name -> mesh axis name(s). Values may be a string, a tuple of
 # strings (sharded over the product of those axes), or None (replicated).
@@ -118,17 +117,18 @@ def use_mesh(mesh):
     active mesh of the enclosed code, as JAX's ``with mesh:``. Inside it a
     plain tensor that meets a DTensor is taken as replicated (the
     positions, masks and batches the models make), as jit takes an
-    unsharded array."""
-    prev = _STATE.mesh
+    unsharded array. The mesh is this thread's; the replication is
+    torch's one flag for the process, set on entry and put back as it was
+    on exit (a caller's own ``implicit_replication`` outlives this one)."""
+    dispatcher = DTensor._op_dispatcher
+    prev, prev_rep = _STATE.mesh, dispatcher._allow_implicit_replication
     _STATE.mesh = mesh
+    dispatcher._allow_implicit_replication = True
     try:
-        if prev is None:
-            with implicit_replication():
-                yield mesh
-        else:
-            yield mesh
+        yield mesh
     finally:
         _STATE.mesh = prev
+        dispatcher._allow_implicit_replication = prev_rep
 
 
 def _active_mesh():

@@ -23,8 +23,6 @@ from pathlib import Path
 
 import torch
 from torch._subclasses.fake_tensor import is_fake
-from torch.distributed.tensor import DTensor, Partial, Placement, Replicate, Shard
-from torch.distributed.tensor.experimental import local_map
 
 CSRC = Path(__file__).resolve().parent / "csrc"
 BUILD_DIR = Path(__file__).resolve().parents[3] / "build" / "kernels"
@@ -157,71 +155,11 @@ def build_log(name: str) -> str:
     return log.read_text() if log.exists() else ""
 
 
-# ---------------------------------------------------------------------------
-# the wrappers under a mesh
-# ---------------------------------------------------------------------------
-
-
 def runs_plain(t) -> bool:
     """True for a tensor the plain version takes: on the CPU or the meta
-    device, or a FakeTensor (nothing is computed on the last two)."""
-    return t.device.type in ("cpu", "meta") or is_fake(t)
-
-
-def any_dtensor(*tensors) -> bool:
-    return any(isinstance(t, DTensor) for t in tensors)
-
-
-def refuse_dtensor(name: str, *tensors):
-    """Raise for a kernel that has no caller under a mesh."""
-    if any_dtensor(*tensors):
-        raise NotImplementedError(f"{name} takes no DTensor: it has no caller under a "
-                                  "mesh (serving runs on plain tensors)")
-
-
-def placement(t, i: int):
-    """Mesh dim ``i``'s placement of ``t``; a plain tensor is replicated."""
-    return t.placements[i] if isinstance(t, DTensor) else Replicate()
-
-
-def common_shard(tensors, i: int, dims) -> Shard | None:
-    """``Shard(d)`` where every tensor is sharded alike on mesh dim ``i``
-    along a dim ``d`` in ``dims``, else None."""
-    got = {placement(t, i) for t in tensors}
-    p = got.pop() if len(got) == 1 else None
-    return p if isinstance(p, Shard) and p.dim in dims else None
-
-
-def grad_partial(places) -> tuple:
-    """A replicated operand's gradient placements where the others are
-    ``places``: partial sums over each mesh dim that splits the work."""
-    return tuple(Partial() if isinstance(p, Shard) else Replicate() for p in places)
-
-
-def on_local_shards(body, args, places, out_places, grad_places=None):
-    """``body`` on the local shards of ``args`` through ``local_map``:
-    each argument (a DTensor, a plain tensor taken as replicated, or None)
-    is first laid out on its placements in ``places`` (a Partial sum
-    reduced, a dim the body cannot split gathered), the way GSPMD lays
-    out the operands of an opaque custom call; the outputs are DTensors
-    on ``out_places``. ``grad_places`` are the placements of the
-    arguments' gradients (default: their own). ``out_places`` is one
-    output's placements, or a tuple of them for several. The body sees plain
-    tensors, so it takes the plain version on the CPU and launches the
-    kernel on the card."""
-    mesh = next(a.device_mesh for a in args if isinstance(a, DTensor))
-    ins = []
-    for a, pl in zip(args, places):
-        if a is not None and not isinstance(a, DTensor):
-            a = DTensor.from_local(a, mesh, (Replicate(),) * mesh.ndim, run_check=False)
-        if a is not None and tuple(a.placements) != tuple(pl):
-            a = a.redistribute(mesh, pl)
-        ins.append(a)
-    in_places = tuple(None if a is None else tuple(pl) for a, pl in zip(ins, places))
-    grads = in_places if grad_places is None else tuple(
-        None if a is None else tuple(g) for a, g in zip(ins, grad_places))
-    # local_map takes one output's placements as a list, several as a tuple of lists
-    outs = (list(out_places) if all(isinstance(p, Placement) for p in out_places)
-            else tuple(list(o) for o in out_places))
-    return local_map(body, out_placements=outs, in_placements=in_places,
-                     in_grad_placements=grads, device_mesh=mesh)(*ins)
+    device, or a FakeTensor (nothing is computed on the last two). A
+    plain tensor on the card skips torch's fake check, a chain of Python
+    tests that every launch would pay."""
+    if t.device.type in ("cpu", "meta"):
+        return True
+    return type(t) is not torch.Tensor and is_fake(t)

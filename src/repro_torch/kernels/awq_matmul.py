@@ -24,6 +24,7 @@ from typing import NamedTuple
 
 import torch
 
+from repro_torch.distributed import local_shards
 from repro_torch.kernels import _build
 from repro_torch.kernels.ref import awq_matmul as plain
 from repro_torch.kernels.ref import awq_unpack
@@ -114,7 +115,7 @@ def awq_matmul(x, qw, scales, zeros, *, bits: int = 4, group_size: int = 128):
     """x (M, K) float32/bfloat16; qw (K/8, N) int32; scales, zeros
     (K/group_size, N) float32 -> (M, N) in x's dtype."""
     global launches, _launch
-    _build.refuse_dtensor("awq_matmul", x, qw, scales, zeros)
+    local_shards.refuse_dtensor("awq_matmul", x, qw, scales, zeros)
     _build.refuse_grad("awq_matmul", x, scales, zeros)
     if _build.runs_plain(x):
         return plain(x, qw, scales, zeros, bits=bits, group_size=group_size)

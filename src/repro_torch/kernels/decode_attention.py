@@ -22,6 +22,7 @@ import struct
 
 import torch
 
+from repro_torch.distributed import local_shards
 from repro_torch.kernels import _build
 from repro_torch.kernels.paged_attention import as_lengths
 from repro_torch.kernels.ref import decode_attention as plain
@@ -77,7 +78,7 @@ def decode_attention(q, k, v, *, kv_len, scale=None, logit_soft_cap: float = 0.0
     """q (B, Hq, 1, D); k, v (B, Hkv, S, D) of q's dtype; kv_len int or
     (B,) -> (B, Hq, 1, D)."""
     global launches
-    _build.refuse_dtensor("decode_attention", q, k, v)
+    local_shards.refuse_dtensor("decode_attention", q, k, v)
     _build.refuse_grad("decode_attention", q, k, v)
     dev = q.device
     if _build.runs_plain(q):

@@ -35,7 +35,9 @@ import math
 import struct
 
 import torch
+from torch.distributed.tensor import Replicate
 
+from repro_torch.distributed import local_shards
 from repro_torch.kernels import _build
 from repro_torch.kernels.ref import mha, mha_chunked
 
@@ -223,7 +225,7 @@ def flash_attention(q, k, v, *, causal=True, scale=None, logit_soft_cap=0.0):
     split alike along the batch, and along the heads over one mesh dim
     that divides both Hq and Hkv (so local query heads keep their kv
     groups); any other layout is gathered first."""
-    if _build.any_dtensor(q, k, v):
+    if local_shards.any_dtensor(q, k, v):
         return _on_mesh(q, k, v, causal, scale, logit_soft_cap)
     dev = q.device
     if _build.runs_plain(q):
@@ -252,19 +254,19 @@ def flash_attention(q, k, v, *, causal=True, scale=None, logit_soft_cap=0.0):
 
 
 def _on_mesh(q, k, v, causal, scale, cap):
-    mesh = next(t for t in (q, k, v) if isinstance(t, _build.DTensor)).device_mesh
+    mesh = local_shards.mesh_of(q, k, v)
     Hq, Hkv = q.shape[1], k.shape[1]
     places, heads_split = [], False
     for i in range(mesh.ndim):
-        p = _build.common_shard((q, k, v), i, (0, 1))
+        p = local_shards.common_shard((q, k, v), i, (0, 1))
         if p is not None and p.dim == 1:
             n = mesh.size(i)
             if heads_split or Hq % n or Hkv % n:
                 p = None
             heads_split = heads_split or p is not None
-        places.append(p or _build.Replicate())
+        places.append(p or Replicate())
     places = tuple(places)
-    return _build.on_local_shards(
+    return local_shards.on_local_shards(
         lambda ql, kl, vl: flash_attention(ql.contiguous(), kl.contiguous(), vl.contiguous(),
                                            causal=causal, scale=scale, logit_soft_cap=cap),
         (q, k, v), (places,) * 3, places)

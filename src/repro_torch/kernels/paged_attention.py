@@ -28,6 +28,7 @@ import struct
 
 import torch
 
+from repro_torch.distributed import local_shards
 from repro_torch.kernels import _build
 from repro_torch.kernels.ref import paged_attention as plain
 
@@ -96,7 +97,7 @@ def paged_attention(q, k_pages, v_pages, *, block_tables, kv_len, scale=None,
     (P, Hkv, page) float32; block_tables (B, n_pages) int32; kv_len,
     pos_offset int or (B,) -> (B, Hq, 1, D)."""
     global launches, launches_quant
-    _build.refuse_dtensor("paged_attention", q, k_pages, v_pages, k_scales, v_scales)
+    local_shards.refuse_dtensor("paged_attention", q, k_pages, v_pages, k_scales, v_scales)
     _build.refuse_grad("paged_attention", q, k_pages, v_pages, k_scales, v_scales)
     dev = q.device
     if _build.runs_plain(q):

@@ -21,7 +21,9 @@ import ctypes
 import struct
 
 import torch
+from torch.distributed.tensor import Replicate
 
+from repro_torch.distributed import local_shards
 from repro_torch.kernels import _build
 from repro_torch.kernels.ref import rmsnorm as plain
 
@@ -71,15 +73,14 @@ def rmsnorm(x, w, *, eps: float = 1e-5, gemma_style: bool = False):
     rows are normalised where they lie: x may stay split along every dim
     but the last, w is replicated (its gradient a partial sum over the
     split dims)."""
-    if _build.any_dtensor(x, w):
-        mesh = (x if isinstance(x, _build.DTensor) else w).device_mesh
-        keep = tuple(_build.common_shard((x,), i, range(x.ndim - 1)) or _build.Replicate()
-                     for i in range(mesh.ndim))
-        rep = (_build.Replicate(),) * mesh.ndim
-        return _build.on_local_shards(
+    if local_shards.any_dtensor(x, w):
+        mesh = local_shards.mesh_of(x, w)
+        keep = local_shards.kept_shards((x,), mesh, range(x.ndim - 1))
+        rep = (Replicate(),) * mesh.ndim
+        return local_shards.on_local_shards(
             lambda xl, wl: rmsnorm(xl.contiguous(), wl.contiguous(), eps=eps,
                                    gemma_style=gemma_style),
-            (x, w), (keep, rep), keep, (keep, _build.grad_partial(keep)))
+            (x, w), (keep, rep), keep, (keep, local_shards.grad_partial(keep)))
     if _build.runs_plain(x):
         return plain(x, w, eps=eps, gemma_style=gemma_style)
     if not x.is_cuda:

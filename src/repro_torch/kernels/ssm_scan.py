@@ -25,7 +25,9 @@ from __future__ import annotations
 import ctypes
 
 import torch
+from torch.distributed.tensor import Replicate
 
+from repro_torch.distributed import local_shards
 from repro_torch.kernels import _build
 from repro_torch.kernels.ref import ssd as plain
 
@@ -68,13 +70,12 @@ def ssd(x, dt, A, B, C, D, *, chunk: int = 64, h0=None):
     On DTensors each device scans its own sequences: x, dt, B, C (and h0)
     may stay split alike along the batch; A and D are replicated (their
     gradients partial sums); any other layout is gathered first."""
-    if _build.any_dtensor(x, dt, A, B, C, D, h0):
+    if local_shards.any_dtensor(x, dt, A, B, C, D, h0):
         batched = tuple(t for t in (x, dt, B, C, h0) if t is not None)
-        mesh = next(t for t in batched + (A, D) if isinstance(t, _build.DTensor)).device_mesh
-        keep = tuple(_build.common_shard(batched, i, (0,)) or _build.Replicate()
-                     for i in range(mesh.ndim))
-        rep, part = (_build.Replicate(),) * mesh.ndim, _build.grad_partial(keep)
-        return _build.on_local_shards(
+        mesh = local_shards.mesh_of(*batched, A, D)
+        keep = local_shards.kept_shards(batched, mesh, (0,))
+        rep, part = (Replicate(),) * mesh.ndim, local_shards.grad_partial(keep)
+        return local_shards.on_local_shards(
             lambda x, dt, A, B, C, D, h0: ssd(
                 x.contiguous(), dt.contiguous(), A, B.contiguous(), C.contiguous(), D,
                 chunk=chunk, h0=None if h0 is None else h0.contiguous()),

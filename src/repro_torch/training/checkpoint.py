@@ -135,10 +135,11 @@ class CheckpointManager:
         tree of placements of the like tree's structure, from
         ``spec_tree_to_shardings``) each leaf is laid out on ``mesh`` as a
         DTensor with its placements, whatever mesh wrote it: an elastic
-        restart. A like leaf may be a ``meta`` tensor (``shape_tree``):
-        its data then goes to the mesh's device. Returns (tree, aux, step)."""
-        if shardings is not None and mesh is None:
-            raise ValueError("shardings need the mesh they are placements on")
+        restart; ``mesh`` comes only with them. A like leaf may then be a
+        ``meta`` tensor (``shape_tree``): its data goes to the mesh's
+        device. Returns (tree, aux, step)."""
+        if (shardings is None) != (mesh is None):
+            raise ValueError("shardings and the mesh they are placements on come together")
         step = step if step is not None else self.latest_step()
         if step is None:
             raise FileNotFoundError(f"no checkpoint in {self.dir}")
@@ -157,14 +158,10 @@ class CheckpointManager:
                     or tuple(a.shape) != tuple(t.shape)):
                 raise ValueError(f"{'/'.join(path)}: checkpoint {manifest['dtypes'][i]} "
                                  f"{tuple(a.shape)}, tree {t.dtype} {tuple(t.shape)}")
-            leaf = _from_host(a, t.dtype)
-            if mesh is not None:
-                leaf = leaf.to(mesh.device_type)
-            elif t.device.type == "meta":
-                raise ValueError(f"{'/'.join(path)}: a meta like leaf needs a mesh")
-            else:
-                leaf = leaf.to(t.device)
-            leaves.append(leaf)
+            if mesh is None and t.device.type == "meta":
+                raise ValueError(f"{'/'.join(path)}: a meta like leaf needs shardings")
+            leaves.append(_from_host(a, t.dtype).to(
+                t.device if mesh is None else mesh.device_type))
         tree = tree_unflatten(like_tree, leaves)
         if shardings is not None:
             tree = tree_map(lambda x, pl: distribute_tensor(x, mesh, pl), tree, shardings)

@@ -133,3 +133,21 @@ def test_collectives_of_a_known_program_on_two_ranks(tmp_path):
                                              "collective-permute": 0}
         assert a["collective_bytes_total"] == 768
         assert a["flops"] == 2 * 3 * 4 * 8
+
+
+def test_fake_and_meta_tensors_take_the_plain_versions():
+    """A FakeTensor on the card's device and a meta tensor go to the plain
+    versions, as a CPU tensor does: nothing is launched for them."""
+    from torch._subclasses.fake_tensor import FakeTensorMode
+
+    from repro_torch.kernels import _build
+    from repro_torch.kernels.flash_attention import flash_attention
+    from repro_torch.kernels.rmsnorm import rmsnorm
+
+    with FakeTensorMode():
+        x, w = torch.empty(4, 8, device="cuda"), torch.empty(8, device="cuda")
+        assert _build.runs_plain(x)
+        assert rmsnorm(x, w).shape == (4, 8)
+    q, kv = torch.empty(1, 4, 16, 8, device="meta"), torch.empty(1, 2, 16, 8, device="meta")
+    assert _build.runs_plain(q) and _build.runs_plain(torch.ones(2))
+    assert flash_attention(q, kv, kv).shape == (1, 4, 16, 8)

@@ -57,6 +57,7 @@ def test_importing_the_port_loads_no_jax():
             "repro_torch.training, repro_torch.kernels.flash_attention, "
             "repro_torch.launch.train, repro_torch.distributed, "
             "repro_torch.distributed.sharding, repro_torch.distributed.fault, "
+            "repro_torch.distributed.local_shards, "
             "repro_torch.launch.mesh, repro_torch.launch.analysis; "
             "bad = sorted(m for m in sys.modules if m.split('.')[0] in "
             "('jax', 'jaxlib', 'repro', 'msgpack')); print(bad); assert not bad")

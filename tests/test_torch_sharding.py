@@ -114,6 +114,24 @@ def test_no_mesh_and_no_rules_resolve_to_replication():
     assert sharding.current_rules() is None and sharding._active_mesh() is None
 
 
+def test_use_mesh_puts_torch_implicit_replication_back():
+    from torch.distributed.tensor import DTensor
+    from torch.distributed.tensor.experimental import implicit_replication
+    flag = lambda: DTensor._op_dispatcher._allow_implicit_replication  # noqa: E731
+    assert not flag()
+    with use_mesh(MESH_1POD):
+        assert flag()
+        with use_mesh(MESH_2POD):
+            assert flag() and sharding._active_mesh() is MESH_2POD
+        assert flag() and sharding._active_mesh() is MESH_1POD
+    assert not flag()
+    with implicit_replication():
+        with use_mesh(MESH_1POD):
+            pass
+        assert flag()                   # the caller's own context outlives use_mesh
+    assert not flag()
+
+
 def test_to_placements_in_mesh_order():
     spec = logical_to_pspec(("batch", None, "ffn"), (256, 8, 4096), MESH_2POD)
     assert tuple(spec) == (("pod", "data"), None, "model")

@@ -236,6 +236,17 @@ def test_checkpoint_round_trip_keeps_dtypes_and_last_n(tmp_path):
         cm.restore(3, {**like, "a": {"w": like["a"]["w"], "b": like["a"]["b"].float()}})
 
 
+def test_restore_takes_a_mesh_only_with_shardings(tmp_path):
+    cm = CheckpointManager(str(tmp_path))
+    cm.save(1, {"w": torch.ones(4, 4)})
+    with pytest.raises(ValueError, match="come together"):
+        cm.restore(1, {"w": torch.empty(4, 4)}, mesh=object())
+    with pytest.raises(ValueError, match="come together"):
+        cm.restore(1, {"w": torch.empty(4, 4)}, shardings={"w": ()})
+    with pytest.raises(ValueError, match="meta like leaf needs shardings"):
+        cm.restore(1, {"w": torch.empty(4, 4, device="meta")})
+
+
 def test_async_save_copies_before_in_place_updates(tmp_path):
     w = torch.zeros(64, 64)
     cm = CheckpointManager(str(tmp_path))
