@@ -352,6 +352,24 @@ GRANITE_PREFILL = (1, 48, 1, 250, 250, 128, True, 0.0)
 TRAIN_LAYERS, TRAIN_BATCH, TRAIN_SEQ, TRAIN_STEPS = 4, 2, 1024, 6
 # the distributed phase's steps, on the (1, 1) mesh and on plain tensors
 DIST_STEPS = 2
+# the dry-run phase: one cell a family on the fake 16 x 16 world (the first
+# on the 2 x 16 x 16 world too), each `python -m repro_torch.launch.dryrun`
+# a process of its own, and `launch.perf`'s three cells beside them, all
+# started together on the host's cores and ended by DRYRUN_WALL_S
+DRYRUN_CELLS = (("minitron-8b", "train_4k", "both"),
+                ("deepseek-v2-lite-16b", "decode_32k", "single"),
+                ("grok-1-314b", "prefill_32k", "single"),
+                ("zamba2-7b", "long_500k", "single"),
+                ("whisper-medium", "decode_32k", "single"),
+                ("llama-3.2-vision-11b", "prefill_32k", "single"),
+                ("xlstm-125m", "train_4k", "single"))
+DRYRUN_WALL_S = 300
+# the anchor's temp memory: the card's measured peak less the arguments,
+# over the dry-run's MemTracker peak of the same step walked on meta
+# tensors, must lie in this band (the plain attention the meta walk takes
+# holds its S x S scores, which the flash kernels never do, so the walk's
+# peak is the larger)
+ANCHOR_TEMP_BAND = (0.25, 1.0)
 TRAIN_OC = dict(lr=2e-5, warmup_steps=5, decay_steps=10)
 # card-vs-CPU training of the small float32 model: losses within
 # TRAIN_LOSS_ATOL; each param within TRAIN_PARAM_ATOL + steps * lr *
@@ -2530,6 +2548,7 @@ def distributed_phase(torch, card):
     from repro_torch.configs import ShapeCell, get_config
     from repro_torch.distributed.fault import elastic_restore, shardings_for_mesh
     from repro_torch.distributed.sharding import DEFAULT_RULES, axis_rules, use_mesh
+    from repro_torch.launch import dryrun
     from repro_torch.launch.analysis import PEAK_FLOPS as H100_BF16, analytic_costs, \
         analyze_step
     from repro_torch.launch.mesh import make_local_mesh
@@ -2606,6 +2625,7 @@ def distributed_phase(torch, card):
     dparams, dopt, mesh_losses, mesh_walls, mesh_dev, mesh_launch = run(
         make_train_step(model, oc, grad_shardings=shardings), dparams, adamw_init(dparams),
         "(1, 1) mesh, DTensor params", on_mesh)
+    card_arg_bytes = dryrun.local_bytes((dparams, dopt, batches[-1]))
     loss_err = max(abs(a - b) for a, b in zip(plain_losses, mesh_losses))
     param_err = max(float((t.to_local() - plain_final[path].to(t.device)).abs().max())
                     for path, t in flatten(dparams))
@@ -2661,10 +2681,147 @@ def distributed_phase(torch, card):
     if counted["flops"] <= 0:
         raise AssertionError("analyze_step counted no FLOPs")
 
+    dryrun_anchor(torch, card, mesh, counted["flops"], card_arg_bytes, mesh_dev, peak)
     moe_launch = shard_map_moe_check(torch, mesh)
     dist.destroy_process_group()
     log(f"distributed phase done in {time.perf_counter() - t_start:.1f} s")
     return {k: mesh_launch[k] + moe_launch[k] for k in mesh_launch}
+
+
+def dryrun_anchor(torch, card, mesh, counted_flops, card_arg_bytes, mesh_dev_ms, peak):
+    """The dry-run's anchor on the card: its own step builder
+    (``dryrun.cell_record``) on the card's (1, 1) NCCL mesh over meta
+    tensors makes the record of the distributed phase's cell (minitron-8b
+    at full width cut to TRAIN_LAYERS, batch TRAIN_BATCH x TRAIN_SEQ,
+    accumulation 1). Its argument bytes must equal what the card held for
+    params, AdamW state and batch, to the byte, and its FLOPs the phase's
+    own analyze_step count; its roofline bound is printed beside the
+    measured device time of the mesh step, as a ratio with no gate; the
+    card's peak less the arguments over its mem_temp_bytes lies in
+    ANCHOR_TEMP_BAND. Then
+    the analyzer must count the autograd all-to-all that the shard_map MoE
+    dispatch issues as one all-to-all on the card's NCCL group, whatever
+    this torch names its op."""
+    import torch.distributed._functional_collectives as funcol
+    from torch.utils._python_dispatch import TorchDispatchMode
+
+    from repro_torch.configs import ShapeCell
+    from repro_torch.launch import dryrun
+    from repro_torch.launch.analysis import analyze_step
+
+    cell = ShapeCell("distributed phase", TRAIN_SEQ - 1, TRAIN_BATCH, "train")
+    cfg = dryrun.cell_config("minitron-8b", "train", {"n_layers": TRAIN_LAYERS})
+    t0 = time.perf_counter()
+    rec = dryrun.cell_record("minitron-8b", cfg, cell, mesh, "1x1",
+                             dryrun.rules_for(cfg, cell, mesh), accum_steps=1)
+    walk_s = time.perf_counter() - t0
+    bound_ms = rec["roofline"]["step_time_bound_s"] * 1e3
+    log(f"dry-run anchor: {card}: the dry-run's record of the distributed phase's cell "
+        f"on the (1, 1) NCCL mesh over meta tensors ({walk_s:.1f} s): mem_argument_bytes "
+        f"{rec['mem_argument_bytes']} (the card held {card_arg_bytes} for params, AdamW "
+        f"state and batch); hlo_flops_per_device {rec['hlo_flops_per_device']:.1f} "
+        f"(analyze_step of the phase: {counted_flops:.1f}); mem_output_bytes "
+        f"{rec['mem_output_bytes']}, mem_temp_bytes {rec['mem_temp_bytes']}; roofline on the "
+        f"H100 data sheet: {rec['roofline']['bottleneck']}, step_time_bound_s "
+        f"{rec['roofline']['step_time_bound_s']:.6f} beside the mesh step's measured "
+        f"{mesh_dev_ms:.1f} ms of device time: bound / measured "
+        f"{bound_ms / mesh_dev_ms:.4f}; collectives {rec['collective_bytes_by_kind']}")
+    if rec["mem_argument_bytes"] != card_arg_bytes:
+        raise AssertionError("the dry-run's argument bytes differ from the card's")
+    if rec["hlo_flops_per_device"] != counted_flops:
+        raise AssertionError("the dry-run's FLOPs differ from the phase's count")
+    temp = rec["mem_temp_bytes"]
+    if temp is not None:
+        ratio = (peak - card_arg_bytes) / temp
+        log(f"dry-run anchor: {card}: the card's peak {peak} less the arguments "
+            f"{card_arg_bytes} is {peak - card_arg_bytes} bytes; the walk's MemTracker "
+            f"peak (mem_temp_bytes) {temp}: measured / walked {ratio:.4f} (band "
+            f"{ANCHOR_TEMP_BAND})")
+        if not ANCHOR_TEMP_BAND[0] <= ratio <= ANCHOR_TEMP_BAND[1]:
+            raise AssertionError("the card's temp memory is outside the anchor's band")
+
+    seen = []
+
+    class Names(TorchDispatchMode):
+        def __torch_dispatch__(self, func, types, args=(), kwargs=None):
+            seen.append(str(func))
+            return func(*args, **(kwargs or {}))
+
+    def a2a():
+        y = funcol.all_to_all_single_autograd(torch.ones(4, 8, device="cuda"), None, None,
+                                              (mesh, 1))
+        return y.wait() if isinstance(y, funcol.AsyncCollectiveTensor) else y
+
+    with Names():
+        a2a()
+    got = analyze_step(a2a)
+    log(f"dry-run anchor: torch {torch.__version__}: funcol.all_to_all_single_autograd "
+        f"dispatches {sorted(set(seen))}; analyze_step counts {got['collective_op_counts']}, "
+        f"bytes {got['collective_bytes']}")
+    if got["collective_op_counts"]["all-to-all"] != 1 or \
+            got["collective_bytes"]["all-to-all"] != 4 * 8 * 4:
+        raise AssertionError("analyze_step does not count the autograd all-to-all once")
+    return rec
+
+
+def dryrun_phase(card):
+    """The dry-run's entry points on the fake worlds, no card needed: each
+    cell of DRYRUN_CELLS is a ``python -m repro_torch.launch.dryrun``
+    process and ``python -m repro_torch.launch.perf`` one more (in a
+    temporary working directory), all started together and killed at
+    DRYRUN_WALL_S. A non-zero exit or a record with ``"ok": false`` fails
+    the phase; each record's bound and collectives are printed."""
+    import shutil
+    import tempfile
+
+    t_start = time.perf_counter()
+    tmp = Path(tempfile.mkdtemp(prefix="dryrun_"))
+    env = dict(os.environ, PYTHONPATH=str(ROOT / "src"), OMP_NUM_THREADS="1")
+    runs = []
+    for arch, shape, mesh in DRYRUN_CELLS:
+        out = tmp / f"{arch}_{shape}.jsonl"
+        runs.append(([sys.executable, "-m", "repro_torch.launch.dryrun", "--arch", arch,
+                      "--shape", shape, "--mesh", mesh, "--out", str(out)], ROOT, out))
+    (tmp / "perf").mkdir()
+    runs.append(([sys.executable, "-m", "repro_torch.launch.perf"], tmp / "perf",
+                 tmp / "perf" / "results" / "optimized.jsonl"))
+    procs = [subprocess.Popen(cmd, cwd=cwd, env=env, stdout=subprocess.PIPE,
+                              stderr=subprocess.STDOUT, text=True) for cmd, cwd, _ in runs]
+    logs, failed = [], []
+    try:
+        for p in procs:
+            left = max(1.0, DRYRUN_WALL_S - (time.perf_counter() - t_start))
+            logs.append(p.communicate(timeout=left)[0])
+    except subprocess.TimeoutExpired:
+        failed.append(f"not done within {DRYRUN_WALL_S} s")
+    finally:
+        for p in procs:
+            if p.poll() is None:
+                p.kill()
+                p.communicate()
+    recs = []
+    for (cmd, _, out), p, text in zip(runs, procs, logs + [""] * (len(runs) - len(logs))):
+        got = [json.loads(line) for line in out.read_text().splitlines()] \
+            if out.exists() else []
+        if p.returncode != 0 or not got or not all(r.get("ok") for r in got):
+            failed.append(f"{' '.join(cmd[2:])}: exit {p.returncode}, "
+                          f"{len(got)} records\n{text[-3000:]}")
+        recs += got
+    for r in recs:
+        if not r.get("ok"):
+            continue
+        rf = r["roofline"]
+        log(f"dry-run: {r.get('tag', r['arch'] + '/' + r['shape'])} on {r['mesh']}: "
+            f"bound {rf['bottleneck']}, step_time_bound_s {rf['step_time_bound_s']:.6g}, "
+            f"mfu_bound {rf['mfu_bound']:.4f}, hlo_flops_per_device "
+            f"{r['hlo_flops_per_device']:.6g}, collective bytes {r['collective_bytes_by_kind']}"
+            f", lower_s {r['lower_s']}, scaled {json.dumps(r['scaled'])} (analysis on the "
+            f"H100 data sheet, not a measurement)")
+    shutil.rmtree(tmp, ignore_errors=True)
+    log(f"dry-run phase ({card}'s host): {len(recs)} records from {len(runs)} processes in "
+        f"{time.perf_counter() - t_start:.1f} s")
+    if failed:
+        raise AssertionError("dry-run phase failed:\n" + "\n".join(failed))
 
 
 def shard_map_moe_check(torch, mesh):
@@ -3758,6 +3915,8 @@ def main() -> int:
         since(t0, f"training path {arch}")
     dist_launch = distributed_phase(torch, card)
     since(t0, "distributed phase")
+    dryrun_phase(card)
+    since(t0, "dry-run phase")
     driver_phase(torch)
     since(t0, "training driver")
 

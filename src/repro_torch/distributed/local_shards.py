@@ -10,6 +10,7 @@ as GSPMD lays out the operands of a custom call.
 
 from __future__ import annotations
 
+import torch
 from torch.distributed.tensor import DTensor, Partial, Placement, Replicate, Shard
 from torch.distributed.tensor.experimental import local_map
 
@@ -19,10 +20,16 @@ def any_dtensor(*tensors) -> bool:
 
 
 def refuse_dtensor(name: str, *tensors):
-    """Raise for a kernel that has no caller under a mesh."""
-    if any_dtensor(*tensors):
-        raise NotImplementedError(f"{name} takes no DTensor: it has no caller under a "
-                                  "mesh (serving runs on plain tensors)")
+    """Raise for a DTensor on the card, where the kernel has no caller
+    under a mesh (serving runs on plain tensors). A DTensor that runs
+    plain (meta or CPU shards, a FakeTensor: ``_build.runs_plain``) is let
+    through: the wrapper's plain version then runs as DTensor ops, as the
+    JAX package's plain path runs under GSPMD (the dry-run's decode cells)."""
+    from repro_torch.kernels._build import runs_plain
+
+    if any(isinstance(t, DTensor) and not runs_plain(t) for t in tensors):
+        raise NotImplementedError(f"{name} takes no DTensor on the card: it has no "
+                                  "caller under a mesh (serving runs on plain tensors)")
 
 
 def mesh_of(*tensors):
@@ -82,3 +89,46 @@ def on_local_shards(body, args, places, out_places, grad_places=None):
             else tuple(list(o) for o in out_places))
     return local_map(body, out_placements=outs, in_placements=in_places,
                      in_grad_placements=grads, device_mesh=mesh)(*ins)
+
+
+def einsum(eq: str, a, b):
+    """``torch.einsum(eq, a, b)`` of two operands; on DTensors each device
+    multiplies its own shards (``on_local_shards``). Per mesh dim: both
+    split along one letter stay split (a batch letter splits the output,
+    a contracted one leaves a partial sum; a replicated operand is split
+    alike); else one split along a letter of its own stays split, the
+    other operand gathered there; else both are gathered. DTensor's own
+    rule folds the batch letters into one dim, which torch 2.11 cannot
+    do where two of them are split."""
+    if not any_dtensor(a, b):
+        return torch.einsum(eq, a, b)
+    ins, out = eq.replace(" ", "").split("->")
+    la, lb = ins.split(",")
+    mesh = mesh_of(a, b)
+    pa, pb, po = [], [], []
+    for i in range(mesh.ndim):
+        sa, sb = placement(a, i), placement(b, i)
+        ca = la[sa.dim] if isinstance(sa, Shard) else None
+        cb = lb[sb.dim] if isinstance(sb, Shard) else None
+        rep = Replicate()
+        if ca is not None and cb is None and ca in lb and isinstance(sb, Replicate):
+            cb, sb = ca, Shard(lb.index(ca))          # split b alike: no collective
+        elif cb is not None and ca is None and cb in la and isinstance(sa, Replicate):
+            ca, sa = cb, Shard(la.index(cb))
+        if ca is not None and ca == cb:
+            pa.append(sa), pb.append(sb)
+            po.append(Shard(out.index(ca)) if ca in out else Partial())
+        elif ca is not None and ca not in lb:
+            pa.append(sa), pb.append(rep), po.append(Shard(out.index(ca)))
+        elif cb is not None and cb not in la:
+            pa.append(rep), pb.append(sb), po.append(Shard(out.index(cb)))
+        else:
+            pa.append(rep), pb.append(rep), po.append(rep)
+    # a replicated operand's gradient is a partial sum over each mesh dim
+    # that splits the other operand's letters it does not have
+    ga = tuple(Partial() if isinstance(x, Replicate) and isinstance(y, Shard) else x
+               for x, y in zip(pa, pb))
+    gb = tuple(Partial() if isinstance(y, Replicate) and isinstance(x, Shard) else y
+               for x, y in zip(pa, pb))
+    return on_local_shards(lambda x, y: torch.einsum(eq, x, y), (a, b),
+                           (tuple(pa), tuple(pb)), tuple(po), (ga, gb))

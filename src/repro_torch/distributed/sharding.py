@@ -28,6 +28,7 @@ import threading
 from dataclasses import dataclass
 from typing import Any, Mapping, Sequence
 
+import torch
 from torch.distributed.tensor import DTensor, Partial, Replicate, Shard
 
 # Logical axis name -> mesh axis name(s). Values may be a string, a tuple of
@@ -223,6 +224,12 @@ def shard_as(x, *logical: str | None):
     spec = logical_to_pspec(logical, shape=x.shape, mesh=mesh)
     if all(s is None for s in spec):
         return x
+    # contiguous first: a redistribution's gradient is a DTensor of x's
+    # strides over a contiguous gathered shard, and a transposed x (heads
+    # split off a projection) would disagree with it (a view then fails).
+    # The layout is constrained even where x has it already: the backward
+    # lays the gradient out alike, as GSPMD's constraint does
+    x = x.contiguous()
     if any(p.is_partial() and type(p) is not Partial for p in x.placements):
         # a masked partial sum (an embedding over a vocab-sharded table)
         # is reduced on its own first: DTensor cannot also split its dims
@@ -245,8 +252,53 @@ def gather_unless_divides(x, dim: int, n: int):
         prod *= x.device_mesh.size(i)
     if n % prod == 0:
         return x
-    return x.redistribute(x.device_mesh, tuple(Replicate() if i in split else p
-                                               for i, p in enumerate(x.placements)))
+    keep = tuple(Replicate() if i in split else p for i, p in enumerate(x.placements))
+    return x.contiguous().redistribute(x.device_mesh, keep)
+
+
+class _GatherGradUnlessDivides(torch.autograd.Function):
+    @staticmethod
+    def forward(ctx, x, dim, n):
+        ctx.dim, ctx.n = dim, n
+        return x.view_as(x)
+
+    @staticmethod
+    def backward(ctx, g):
+        return gather_unless_divides(g, ctx.dim, ctx.n), None, None
+
+
+def gather_grad_unless_divides(x, dim: int, n: int):
+    """``x`` unchanged, its gradient gathered as :func:`gather_unless_divides`
+    gathers: for heads merged into one dim (``(B, T, H, dh) -> (B, T, H *
+    dh)``), whose gradient is split back into the H heads. A no-op off
+    DTensors."""
+    if not isinstance(x, DTensor):
+        return x
+    return _GatherGradUnlessDivides.apply(x, dim, n)
+
+
+class _GradLike(torch.autograd.Function):
+    @staticmethod
+    def forward(ctx, x):
+        # a partial sum's gradient is replicated
+        ctx.mesh = x.device_mesh
+        ctx.places = tuple(Replicate() if q.is_partial() else q for q in x.placements)
+        return x.view_as(x)
+
+    @staticmethod
+    def backward(ctx, g):
+        return g.redistribute(ctx.mesh, ctx.places)
+
+
+def grad_like(x):
+    """``x`` unchanged, its gradient laid out as ``x`` is. Where a tensor
+    has several uses (a tied embedding, a norm's input), torch 2.11's
+    DTensor may fail to add their gradients (a split dim against a
+    partial sum): each use taken through ``grad_like`` hands back one
+    layout. A no-op off DTensors."""
+    if not isinstance(x, DTensor):
+        return x
+    return _GradLike.apply(x)
 
 
 def _is_spec(s) -> bool:
@@ -256,13 +308,17 @@ def _is_spec(s) -> bool:
 def spec_tree_to_shardings(spec_tree, shape_tree, mesh, rules: AxisRules | None = None):
     """Map a tree of logical-axis tuples (and the matching tree of shaped
     leaves, e.g. meta tensors from ``shape_tree``) to a tree of placement
-    tuples on ``mesh``."""
+    tuples on ``mesh``. Dicts, tuples and lists of specs are walked (the
+    xLSTM's cache nests tuples of them); a leaf with no shape (a cache's
+    "pos" int) is resolved with no divisibility guard."""
     rules = rules or DEFAULT_RULES
 
     def walk(spec, like):
         if _is_spec(spec):
-            return to_placements(logical_to_pspec(spec, shape=like.shape, mesh=mesh,
-                                                  rules=rules), mesh)
-        return {k: walk(v, like[k]) for k, v in spec.items()}
+            return to_placements(logical_to_pspec(spec, shape=getattr(like, "shape", None),
+                                                  mesh=mesh, rules=rules), mesh)
+        if isinstance(spec, dict):
+            return {k: walk(v, like[k]) for k, v in spec.items()}
+        return type(spec)(walk(v, w) for v, w in zip(spec, like))
 
     return walk(spec_tree, shape_tree)

@@ -23,6 +23,7 @@ import struct
 import torch
 
 from repro_torch.distributed import local_shards
+from repro_torch.distributed.sharding import gather_unless_divides
 from repro_torch.kernels import _build
 from repro_torch.kernels.paged_attention import as_lengths
 from repro_torch.kernels.ref import decode_attention as plain
@@ -82,6 +83,9 @@ def decode_attention(q, k, v, *, kv_len, scale=None, logit_soft_cap: float = 0.0
     _build.refuse_grad("decode_attention", q, k, v)
     dev = q.device
     if _build.runs_plain(q):
+        # on DTensors (the dry-run) the plain version runs as DTensor ops:
+        # q's heads are gathered where their split cannot group them by kv head
+        q = gather_unless_divides(q, 1, k.shape[1])
         return plain(q, k, v, kv_len=kv_len, scale=scale, logit_soft_cap=logit_soft_cap)
     B, Hq, Sq, D = q.shape
     Bk, Hkv, S, Dk = k.shape

@@ -29,6 +29,7 @@ import struct
 import torch
 
 from repro_torch.distributed import local_shards
+from repro_torch.distributed.sharding import gather_unless_divides
 from repro_torch.kernels import _build
 from repro_torch.kernels.ref import paged_attention as plain
 
@@ -101,6 +102,9 @@ def paged_attention(q, k_pages, v_pages, *, block_tables, kv_len, scale=None,
     _build.refuse_grad("paged_attention", q, k_pages, v_pages, k_scales, v_scales)
     dev = q.device
     if _build.runs_plain(q):
+        # on DTensors (the dry-run) the plain version runs as DTensor ops:
+        # q's heads are gathered where their split cannot group them by kv head
+        q = gather_unless_divides(q, 1, k_pages.shape[1])
         return plain(q, k_pages, v_pages, block_tables=block_tables, kv_len=kv_len,
                      scale=scale, logit_soft_cap=logit_soft_cap, pos_offset=pos_offset,
                      k_scales=k_scales, v_scales=v_scales)

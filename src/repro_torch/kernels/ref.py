@@ -12,6 +12,8 @@ import math
 
 import torch
 
+from repro_torch.distributed.local_shards import einsum
+
 NEG_INF = -1e30
 
 
@@ -41,7 +43,7 @@ def mha(q, k, v, *, causal: bool = True, kv_len=None, q_offset=None,
     scale = scale if scale is not None else 1.0 / math.sqrt(D)
 
     qf = q.float().reshape(B, Hkv, G, Sq, D)
-    logits = torch.einsum("bhgqd,bhkd->bhgqk", qf, k.float()) * scale
+    logits = einsum("bhgqd,bhkd->bhgqk", qf, k.float()) * scale
     if logit_soft_cap > 0.0:
         logits = logit_soft_cap * torch.tanh(logits / logit_soft_cap)
 
@@ -62,7 +64,7 @@ def mha(q, k, v, *, causal: bool = True, kv_len=None, q_offset=None,
 
     logits = torch.where(mask, logits, NEG_INF)
     p = torch.softmax(logits, dim=-1)
-    out = torch.einsum("bhgqk,bhkd->bhgqd", p, v.float())
+    out = einsum("bhgqk,bhkd->bhgqd", p, v.float())
     return out.reshape(B, Hq, Sq, D).to(q.dtype)
 
 

@@ -10,9 +10,10 @@ counts what it does, loops included:
     ``dot``: 2 * output elements * contraction), as the JAX package
     counts dots only -- a recomputed forward (``torch.utils.checkpoint``)
     and the backward are counted where the step runs them;
-  * collectives by kind, from the ``_c10d_functional`` ops that DTensor's
-    redistribution and the MoE dispatch issue: output bytes per device,
-    an all-reduce counted twice (reduce-scatter + all-gather).
+  * collectives by kind, from the ``_c10d_functional`` and ``_dtensor``
+    ops that DTensor's redistribution and the MoE dispatch issue: output
+    bytes per device, an all-reduce counted twice (reduce-scatter +
+    all-gather).
 
 On DTensors the mode lets DTensor run first and counts the local ops and
 collectives it issues in an op's place, so the totals are per device, as
@@ -39,10 +40,17 @@ from torch.utils._pytree import tree_leaves
 COLL_KINDS = ("all-gather", "all-reduce", "reduce-scatter", "all-to-all",
               "collective-permute")
 
-# _c10d_functional op -> collective kind
-_COLLECTIVES = {"all_gather_into_tensor": "all-gather", "all_reduce": "all-reduce",
-                "all_reduce_": "all-reduce", "reduce_scatter_tensor": "reduce-scatter",
-                "all_to_all_single": "all-to-all"}
+# (namespace, op) -> collective kind: the functional collectives, the
+# autograd all-to-all (``funcol.all_to_all_single_autograd``; its own
+# namespace in older torch releases), and DTensor's Shard-to-Shard
+# redistribution on a "cuda" mesh, one all-to-all
+_COLLECTIVES = {("_c10d_functional", "all_gather_into_tensor"): "all-gather",
+                ("_c10d_functional", "all_reduce"): "all-reduce",
+                ("_c10d_functional", "all_reduce_"): "all-reduce",
+                ("_c10d_functional", "reduce_scatter_tensor"): "reduce-scatter",
+                ("_c10d_functional", "all_to_all_single"): "all-to-all",
+                ("_c10d_functional_autograd", "all_to_all_single"): "all-to-all",
+                ("_dtensor", "shard_dim_alltoall"): "all-to-all"}
 
 
 def _contraction(name, args) -> int:
@@ -73,8 +81,8 @@ class _StepCounter(TorchDispatchMode):
             k = _contraction(name, args)
             if k:
                 self.flops += 2 * out.numel() * k
-        elif ns == "_c10d_functional" and name in _COLLECTIVES:
-            kind = _COLLECTIVES[name]
+        elif (ns, name) in _COLLECTIVES:
+            kind = _COLLECTIVES[ns, name]
             self.coll_bytes[kind] += out.numel() * out.element_size() * (
                 2 if kind == "all-reduce" else 1)
             self.coll_counts[kind] += 1

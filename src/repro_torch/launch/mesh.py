@@ -19,7 +19,12 @@ from repro_torch.serving.engine import resolve_device
 
 
 def _mesh_device_type() -> str:
-    return "cuda" if dist.get_backend() == "nccl" else "cpu"
+    """The mesh's device type: "cuda" over NCCL and over the fake process
+    group, which stands for H100s on NCCL, so that DTensor takes NCCL's
+    routes (a Shard-to-Shard redistribution is one all-to-all; on a "cpu"
+    mesh it is an all-gather and a chunk). The fake world's tensors are
+    meta tensors."""
+    return "cuda" if dist.get_backend() in ("nccl", "fake") else "cpu"
 
 
 def make_production_mesh(*, multi_pod: bool = False):

@@ -15,7 +15,9 @@ import math
 import torch
 import torch.nn.functional as F
 
-from repro_torch.distributed.sharding import gather_unless_divides, shard_as
+from repro_torch.distributed.sharding import (gather_grad_unless_divides,
+                                              gather_unless_divides, grad_like,
+                                              shard_as)
 from repro_torch.kernels import ops
 from repro_torch.models.common import ModelConfig, ParamDef
 
@@ -69,8 +71,14 @@ def rmsnorm(x, p, cfg: ModelConfig):
                        gemma_style=cfg.gemma_style)
 
 
+def _table(p, cfg: ModelConfig):
+    """The embedding table; tied, each use's gradient comes back in the
+    table's own layout (``grad_like``), so that the two can be added."""
+    return grad_like(p["w"]) if cfg.tie_embeddings else p["w"]
+
+
 def embed(tokens, p, cfg: ModelConfig):
-    x = F.embedding(tokens, p["w"]).to(cfg.cdtype())
+    x = F.embedding(tokens, _table(p, cfg)).to(cfg.cdtype())
     if cfg.gemma_style:
         x = x * math.sqrt(cfg.d_model)
     # "res_seq" is the residual stream's sequence axis: bound to "model"
@@ -79,7 +87,7 @@ def embed(tokens, p, cfg: ModelConfig):
 
 
 def unembed(x, p, cfg: ModelConfig):
-    return shard_as(x @ p["w"].to(x.dtype).t(), "batch", "seq", "vocab")
+    return shard_as(x @ _table(p, cfg).to(x.dtype).t(), "batch", "seq", "vocab")
 
 
 def rope_freqs(positions, head_dim: int, theta: float):
@@ -125,7 +133,7 @@ def _split_heads(x, n_heads, head_dim):
 
 def _merge_heads(x):
     B, H, S, D = x.shape
-    return x.transpose(1, 2).reshape(B, S, H * D)
+    return gather_grad_unless_divides(x.transpose(1, 2).reshape(B, S, H * D), -1, H)
 
 
 def paged_decode_step(block_tables, pos, pos_offset, page: int):

@@ -26,8 +26,11 @@ from __future__ import annotations
 import math
 
 import torch
+from torch.distributed.tensor import DTensor
 
-from repro_torch.distributed.sharding import gather_unless_divides, shard_as
+from repro_torch.distributed.local_shards import einsum
+from repro_torch.distributed.sharding import (gather_grad_unless_divides,
+                                              gather_unless_divides, shard_as)
 from repro_torch.kernels import ops
 from repro_torch.models.common import ModelConfig, ParamDef
 from repro_torch.models.layers import _matmul, apply_rope, rope_freqs, update_cache_at
@@ -180,11 +183,11 @@ def mla_attention(x, p, cfg: ModelConfig, *, positions, cache=None, cache_index=
 
     if absorbed and S == 1:
         wuk = p["wuk"].to(x.dtype).reshape(r, H, dn)
-        q_lat = torch.einsum("bhsd,rhd->bhsr", q_nope, wuk)                   # (B, H, 1, r)
+        q_lat = einsum("bhsd,rhd->bhsr", q_nope, wuk)                   # (B, H, 1, r)
         lat_k = kv_latent[:, None].float()                                     # (B, 1, Skv, r)
         rope_k = k_rope_all[:, None].float()
-        logits = (torch.einsum("bhsr,bokr->bhsk", q_lat.float(), lat_k)
-                  + torch.einsum("bhsd,bokd->bhsk", q_rope.float(), rope_k)) * scale
+        logits = (einsum("bhsr,bokr->bhsk", q_lat.float(), lat_k)
+                  + einsum("bhsd,bokd->bhsk", q_rope.float(), rope_k)) * scale
         if kv_len is not None:
             kl = torch.as_tensor(kv_len, device=x.device)
             if kl.dim():
@@ -192,13 +195,13 @@ def mla_attention(x, p, cfg: ModelConfig, *, positions, cache=None, cache_index=
             mask = torch.arange(Skv, device=x.device)[None, None, None, :] < kl
             logits = torch.where(mask, logits, -1e30)
         pr = torch.softmax(logits, dim=-1)
-        ctx = torch.einsum("bhsk,bokr->bhsr", pr, lat_k)                         # (B, H, 1, r)
+        ctx = einsum("bhsk,bokr->bhsr", pr, lat_k)                         # (B, H, 1, r)
         wuv = p["wuv"].float().reshape(r, H, dv)
-        out = torch.einsum("bhsr,rhd->bhsd", ctx, wuv).to(x.dtype)
+        out = einsum("bhsr,rhd->bhsd", ctx, wuv).to(x.dtype)
     else:
-        k_nope = gather_unless_divides(kv_latent @ p["wuk"].to(x.dtype), -1, H)
+        k_nope = gather_unless_divides(_latent_up(kv_latent, p["wuk"].to(x.dtype)), -1, H)
         k_nope = k_nope.reshape(B, Skv, H, dn).transpose(1, 2)
-        vv = gather_unless_divides(kv_latent @ p["wuv"].to(x.dtype), -1, H)
+        vv = gather_unless_divides(_latent_up(kv_latent, p["wuv"].to(x.dtype)), -1, H)
         vv = vv.reshape(B, Skv, H, dv).transpose(1, 2)
         k_full = torch.cat([k_nope, k_rope_all[:, None].expand(B, H, Skv, dr)], dim=-1)
         q_full = torch.cat([q_nope, q_rope], dim=-1)
@@ -212,8 +215,18 @@ def mla_attention(x, p, cfg: ModelConfig, *, positions, cache=None, cache_index=
             out = ops.flash_attention(q_full, k_full, v_full, causal=True, scale=scale)
         out = out[..., :dv]
 
-    y = _matmul(out.transpose(1, 2).reshape(B, S, H * dv), p["wo"], cfg)
+    out = gather_grad_unless_divides(out.transpose(1, 2).reshape(B, S, H * dv), -1, H)
+    y = _matmul(out, p["wo"], cfg)
     return shard_as(y, "batch", "seq", "embed")
+
+
+def _latent_up(kv_latent, w):
+    """kv_latent (B, S, r) @ w (r, n); on DTensors each device multiplies
+    its own batch and sequence shards (``local_shards.einsum``: torch
+    2.11 cannot fold two split dims into one matmul row dim)."""
+    if isinstance(kv_latent, DTensor):
+        return einsum("bsr,rn->bsn", kv_latent, w)
+    return kv_latent @ w
 
 
 def _pad_v(v, d_target):

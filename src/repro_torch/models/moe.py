@@ -81,6 +81,22 @@ def _slots(idx, E: int, C: int, K: int):
     return torch.where(keep, flat_e * C + pos, E * C), keep
 
 
+def _inverse_slots(slot, T: int, K: int, n: int):
+    """(n,) int64: the token whose unit took each slot, -1 for an empty
+    one (``slot`` (T * K,); the trash row ``n`` is cut off). Under a mesh
+    the slot map is gathered and inverted on each device's copy, the
+    result replicated: the scatter has no sharding rule in every torch
+    release."""
+    if isinstance(slot, DTensor):
+        mesh = slot.device_mesh
+        rep = (Replicate(),) * mesh.ndim
+        inv = _inverse_slots(slot.redistribute(mesh, rep).to_local(), T, K, n)
+        return DTensor.from_local(inv, mesh, rep, run_check=False)
+    inv = torch.full((n + 1,), -1, dtype=torch.int64, device=slot.device)
+    inv[slot] = torch.arange(T * K, device=slot.device) // K
+    return inv[:n]
+
+
 def _capacity(T: int, K: int, E: int, cf: float) -> int:
     """Rows of each expert's buffer: ceil(T K cf / E), at least 1, rounded
     up to a multiple of 8. T counts every token of the call, the idle
@@ -95,7 +111,9 @@ class _SumOverModel(torch.autograd.Function):
 
     @staticmethod
     def forward(ctx, y, group):
-        return funcol.all_reduce(y, "sum", group).wait()
+        y = funcol.all_reduce(y, "sum", group)
+        # a meta tensor (the dry-run) comes back as it is, with nothing to wait for
+        return y.wait() if isinstance(y, funcol.AsyncCollectiveTensor) else y
 
     @staticmethod
     def backward(ctx, g):
@@ -230,15 +248,20 @@ def moe_mlp(x, p, cfg: ModelConfig, *, capacity_factor: float | None = None):
 
     # dispatch: scatter the unit -> token index into the slots (the trash
     # row past E * C takes the overflow and is cut off), gather the rows
-    token_of_unit = torch.arange(T * K, device=x.device) // K
-    inv = torch.full((E * C + 1,), -1, dtype=torch.int64, device=x.device)
-    inv[slot] = token_of_unit
-    inv = inv[:E * C]
+    inv = _inverse_slots(slot, T, K, E * C)
     filled = inv >= 0
-    xe = shard_as(torch.where(filled[:, None], xt[inv.clamp_min(0)], 0), "moe_cap", "embed")
+    xe = torch.where(filled[:, None], xt[inv.clamp_min(0)], 0)
+    # the JAX package lays the (E * C) rows out over "moe_cap" first and
+    # GSPMD regroups them as (E, C) in place; DTensor cannot unflatten a
+    # split dim into an E that the split does not divide, so the buffer
+    # is laid out once regrouped
     xe = shard_as(xe.reshape(E, C, D), "experts", "moe_cap", "embed")
 
-    ye = _experts_ffn(xe, p, cfg).reshape(E * C, D)
+    ye = _experts_ffn(xe, p, cfg)
+    if isinstance(ye, DTensor):     # torch 2.11 flattens (E, C) only where C is whole
+        ye = ye.redistribute(ye.device_mesh, tuple(
+            Replicate() if isinstance(q, Shard) and q.dim == 1 else q for q in ye.placements))
+    ye = ye.reshape(E * C, D)
 
     # combine: each unit's slot row (zeros for a dropped unit), weighted
     y_units = torch.cat([ye, ye.new_zeros(1, D)])[slot]

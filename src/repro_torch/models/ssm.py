@@ -24,6 +24,7 @@ import math
 
 import torch
 import torch.nn.functional as F
+from torch.distributed.tensor import DTensor
 
 from repro_torch.distributed.sharding import shard_as
 from repro_torch.kernels import ops
@@ -56,10 +57,21 @@ def mamba2_def(cfg: ModelConfig):
     }
 
 
+def _pad_time(x, front: int, back: int = 0):
+    """x (B, T, C) with zero rows before and after along T: ``F.pad``; on
+    a DTensor a concatenation, as torch 2.11's padding rule drops a mesh
+    dim from the placements (``mla._pad_v``)."""
+    if not isinstance(x, DTensor):
+        return F.pad(x, (0, 0, front, back))
+    B, _, C = x.shape
+    parts = [x.new_zeros(B, front, C)] if front else []
+    return torch.cat(parts + [x] + ([x.new_zeros(B, back, C)] if back else []), dim=1)
+
+
 def _causal_conv(x, w, b):
     """Depthwise causal conv. x (B, T, C), w (K, C) -> (B, T, C)."""
     K, T = w.shape[0], x.shape[1]
-    xp = F.pad(x, (0, 0, K - 1, 0))
+    xp = _pad_time(x, K - 1)
     out = torch.zeros_like(x)
     for i in range(K):  # K is 4: unrolled adds, no conv primitive needed
         out = out + xp[:, i:i + T, :] * w[i].to(x.dtype)
@@ -86,7 +98,7 @@ def _scan(xs, Bm, Cm, dt, A, D, cfg: ModelConfig, h0=None):
     H, P = cfg.n_ssm_heads, cfg.ssm_head_dim
     pad = (-T) % cfg.ssm_chunk
     if pad:
-        xs, Bm, Cm, dt = (F.pad(t, (0, 0, 0, pad)) for t in (xs, Bm, Cm, dt))
+        xs, Bm, Cm, dt = (_pad_time(t, 0, pad) for t in (xs, Bm, Cm, dt))
     y, h_last = ops.ssd(xs.reshape(B, T + pad, H, P).contiguous(),
                         dt.reshape(B, T + pad, H).contiguous(), A, Bm.contiguous(),
                         Cm.contiguous(), D, chunk=cfg.ssm_chunk, h0=h0)
@@ -148,7 +160,7 @@ def _prefill_conv_state(xbc, cfg: ModelConfig):
     K, T = cfg.ssm_conv_kernel, xbc.shape[1]
     if T >= K - 1:
         return xbc[:, T - (K - 1):, :]
-    return F.pad(xbc, (0, 0, K - 1 - T, 0))
+    return _pad_time(xbc, K - 1 - T)
 
 
 # ---------------------------------------------------------------------------

@@ -22,12 +22,14 @@ import math
 
 import torch
 import torch.nn.functional as F
+from torch.distributed.tensor import DTensor
 
-from repro_torch.distributed.sharding import shard_as
+from repro_torch.distributed.sharding import (gather_grad_unless_divides,
+                                              gather_unless_divides, grad_like, shard_as)
 from repro_torch.models import layers
 from repro_torch.models.common import ModelConfig, ParamDef, init_params, model_device
 from repro_torch.models.lm import _lm_loss
-from repro_torch.models.ssm import _causal_conv, _conv_step
+from repro_torch.models.ssm import _causal_conv, _conv_step, _pad_time
 
 
 def _pf_dim(cfg: ModelConfig) -> int:
@@ -78,11 +80,30 @@ def slstm_def(cfg: ModelConfig):
 # ---------------------------------------------------------------------------
 
 
+class _LogSigmoidOfDTensor(torch.autograd.Function):
+    """log sigmoid(x) with the gradient g * sigmoid(-x): DTensor has no
+    sharding rule for ``log_sigmoid_backward``."""
+
+    @staticmethod
+    def forward(ctx, x):
+        ctx.save_for_backward(x)
+        return F.logsigmoid(x)
+
+    @staticmethod
+    def backward(ctx, g):
+        x, = ctx.saved_tensors
+        return g * torch.sigmoid(-x)
+
+
+def _logsigmoid(x):
+    return _LogSigmoidOfDTensor.apply(x) if isinstance(x, DTensor) else F.logsigmoid(x)
+
+
 def mlstm_cell_step(q, k, v, i_pre, f_pre, state):
     """q, k, v (B, H, dh); i_pre, f_pre (B, H); state = (C, n, m)."""
     C, n, m = state
     dh = q.shape[-1]
-    log_f = F.logsigmoid(f_pre.float())
+    log_f = _logsigmoid(f_pre.float())
     i_pre = i_pre.float()
     m_new = torch.maximum(log_f + m, i_pre)
     i_g = torch.exp(i_pre - m_new)
@@ -105,7 +126,7 @@ def slstm_cell_step(preact, state):
     f_pre = preact[..., 1].float()
     z = torch.tanh(preact[..., 2].float())
     o = torch.sigmoid(preact[..., 3].float())
-    log_f = F.logsigmoid(f_pre)
+    log_f = _logsigmoid(f_pre)
     m_new = torch.maximum(log_f + m, i_pre)
     i_g = torch.exp(i_pre - m_new)
     f_g = torch.exp(log_f + m - m_new)
@@ -152,7 +173,7 @@ def mlstm_block(x, p, cfg: ModelConfig, state=None):
         new_conv = window[:, -(K - 1):, :]
     else:
         c_out = F.silu(_causal_conv(uu, p["conv_w"], p["conv_b"]))
-        new_conv = F.pad(uu, (0, 0, K - 1, 0))[:, -(K - 1):, :]
+        new_conv = _pad_time(uu, K - 1)[:, -(K - 1):, :]
 
     q = (c_out @ p["wq"].to(x.dtype)).reshape(B, T, H, dh)
     k = (c_out @ p["wk"].to(x.dtype)).reshape(B, T, H, dh)
@@ -164,10 +185,11 @@ def mlstm_block(x, p, cfg: ModelConfig, state=None):
     for t in range(T):
         h_t, st = mlstm_cell_step(q[:, t], k[:, t], v[:, t], i_pre[:, t], f_pre[:, t], st)
         hs.append(h_t)
-    h = torch.stack(hs, dim=1).reshape(B, T, u)
+    h = gather_grad_unless_divides(torch.stack(hs, dim=1).reshape(B, T, u), -1, H)
 
     hf = h.float()
-    h = (hf * torch.rsqrt((hf * hf).mean(dim=-1, keepdim=True) + cfg.norm_eps)
+    ha, hb = grad_like(hf), grad_like(hf)          # one gradient layout a use
+    h = (ha * torch.rsqrt((hb * hb).mean(dim=-1, keepdim=True) + cfg.norm_eps)
          * p["out_norm"].float()).to(x.dtype)
     y = shard_as((h * F.silu(z)) @ p["down"].to(x.dtype), "batch", "seq", "embed")
     return resid + y, (new_conv, *st)
@@ -181,7 +203,8 @@ def slstm_block(x, p, cfg: ModelConfig, state=None):
 
     resid = x
     xn = layers.rmsnorm(x, p["ln"], cfg)
-    wx = (xn @ p["wx"].to(x.dtype)).reshape(B, T, H, dh, 4)
+    # a projection split unevenly into its H heads is gathered first (DTensor)
+    wx = gather_unless_divides(xn @ p["wx"].to(x.dtype), -1, H).reshape(B, T, H, dh, 4)
 
     if state is None:
         zeros = torch.zeros((B, H, dh), dtype=torch.float32, device=x.device)
@@ -198,7 +221,7 @@ def slstm_block(x, p, cfg: ModelConfig, state=None):
         pre = wx[:, t].float() + pre_r + fb4
         h_t, state = slstm_cell_step(pre, state)
         hs.append(h_t)
-    h = torch.stack(hs, dim=1).reshape(B, T, D).to(x.dtype)
+    h = gather_grad_unless_divides(torch.stack(hs, dim=1).reshape(B, T, D), -1, H).to(x.dtype)
     x = resid + h
 
     # post-FFN (GLU)

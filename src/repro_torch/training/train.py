@@ -15,7 +15,7 @@ from dataclasses import dataclass
 from typing import Any
 
 import torch
-from torch.distributed.tensor import DTensor
+from torch.distributed.tensor import DTensor, Shard
 
 from repro_torch.models.common import flatten, torch_dtype, tree_map, tree_unflatten
 from repro_torch.serving.engine import resolve_device
@@ -73,15 +73,17 @@ def make_train_step(model, oc: AdamWConfig, *, accum_steps: int = 1,
         return (_plain(loss.detach()), {k: _plain(v.detach()) for k, v in metrics.items()},
                 constrain(tree_unflatten(params, list(grads))))
 
-    def train_step(params, opt_state, batch):
+    def apply(params, opt_state, parts):
+        """The rest of the step after the gradients: ``parts`` yields
+        ``grads_of``'s result for each microbatch (a generator, so that one
+        microbatch's gradients are freed before the next is made); they
+        are averaged in float32 where there are several, and AdamW
+        applies them."""
         if accum_steps == 1:
-            loss, metrics, grads = grads_of(params, batch)
+            (loss, metrics, grads), = parts
         else:
-            n = batch["tokens"].shape[0] // accum_steps
             grads, losses, ms = None, [], []
-            for i in range(accum_steps):
-                mb = tree_map(lambda x: x[i * n:(i + 1) * n], batch)
-                loss_i, m_i, g = grads_of(params, mb)
+            for loss_i, m_i, g in parts:
                 losses.append(loss_i)
                 ms.append(m_i)
                 if grads is None:
@@ -100,7 +102,38 @@ def make_train_step(model, oc: AdamWConfig, *, accum_steps: int = 1,
         metrics["loss"] = loss
         return params, opt_state, metrics
 
+    def train_step(params, opt_state, batch):
+        return apply(params, opt_state, (
+            grads_of(params, microbatch(batch, i, accum_steps) if accum_steps > 1 else batch)
+            for i in range(accum_steps)))
+
+    # the step's two parts, for a caller that walks one microbatch and
+    # counts it accum_steps times (launch/dryrun.py)
+    train_step.grads_of, train_step.apply = grads_of, apply
     return train_step
+
+
+def microbatch(batch, i: int, n: int):
+    """Microbatch ``i`` of ``n``: rows [i * b, (i + 1) * b) of each tensor,
+    b = rows / n. A DTensor split along its rows gives the i-th b / shards
+    rows of each device's own shard instead, with no collective (a slice
+    of a split dim would gather it whole): the n microbatches are then
+    another partition of the same rows, so their averaged gradient is the
+    same, as a data-parallel trainer accumulates each rank's own rows."""
+    def one(x):
+        b = x.shape[0] // n
+        if isinstance(x, DTensor) and any(isinstance(p, Shard) and p.dim == 0
+                                          for p in x.placements):
+            local = x.to_local()
+            lb = local.shape[0] // n
+            if lb * n == local.shape[0]:
+                return DTensor.from_local(local[i * lb:(i + 1) * lb], x.device_mesh,
+                                          x.placements, run_check=False,
+                                          shape=(b,) + tuple(x.shape[1:]),
+                                          stride=local[:lb].stride())
+        return x[i * b:(i + 1) * b]
+
+    return tree_map(one, batch)
 
 
 def _plain(t):

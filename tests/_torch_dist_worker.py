@@ -211,7 +211,8 @@ def wrappers(mesh, out):
     versions on the whole tensors, forward and gradients: splits the
     wrappers keep (rows, batch, heads that divide Hq and Hkv) and ones
     they gather first (the last dim, q's heads split where kv's are not,
-    a partial sum); the serving kernels refuse DTensors."""
+    a partial sum); the serving kernels take their plain versions on
+    DTensors of CPU shards."""
     from torch.distributed.tensor import Partial, Replicate, Shard, distribute_tensor
 
     from repro_torch.kernels import (awq_matmul, decode_attention, flash_attention,
@@ -269,17 +270,38 @@ def wrappers(mesh, out):
         part.to_local() / 2, mesh, [Shard(0), Partial()], run_check=False)
     out["rmsnorm_partial"] = float((full(rmsnorm.rmsnorm(half, w)) - rmsnorm.plain(x, w))
                                    .abs().max())
-    dq = distribute_tensor(rnd(4, 4, 1, 16), mesh, both)
-    refused = 0
-    for fn in (lambda: decode_attention.decode_attention(dq, dq, dq, kv_len=1),
-               lambda: paged_attention.paged_attention(
-                   dq, dq, dq, block_tables=torch.zeros(4, 1, dtype=torch.int32), kv_len=1),
-               lambda: awq_matmul.awq_matmul(dq, dq, dq, dq)):
-        try:
-            fn()
-        except NotImplementedError:
-            refused += 1
-    out["serving_refused"] = refused
+    # the serving kernels on DTensors of CPU shards take their plain
+    # versions as DTensor ops under the mesh (the card refuses them): q's
+    # heads split over "model" where they group by kv head, the cache's
+    # positions split
+    from repro_torch.distributed.sharding import use_mesh
+    from repro_torch.kernels.ref import awq_pack
+
+    q, k, v = rnd(4, 4, 1, 16), rnd(4, 2, 8, 16), rnd(4, 2, 8, 16)
+    kp, vp = rnd(6, 2, 4, 16), rnd(6, 2, 4, 16)
+    tables = torch.tensor([[0, 1], [2, 3], [4, 5], [1, 0]], dtype=torch.int32)
+    x = rnd(4, 128)
+    qw = awq_pack(torch.randint(0, 16, (128, 32), generator=g))
+    sc, zs = rnd(1, 32).abs() + 0.1, torch.full((1, 32), 8.0)
+    seq = [Shard(0), Shard(2)]
+    errs = []
+    with torch.no_grad(), use_mesh(mesh):   # the plain masks meet DTensors as replicated
+        for fn, plain_fn, args, pls in (
+                (decode_attention.decode_attention, decode_attention.plain, (q, k, v),
+                 (both, seq, seq)),
+                (lambda *a: paged_attention.paged_attention(*a, block_tables=tables,
+                                                            kv_len=7),
+                 lambda *a: paged_attention.plain(*a, block_tables=tables, kv_len=7),
+                 (q, kp, vp), (both, [Replicate(), Shard(1)], [Replicate(), Shard(1)])),
+                (lambda *a: awq_matmul.awq_matmul(*a, group_size=128),
+                 lambda *a: awq_matmul.plain(*a, group_size=128), (x, qw, sc, zs),
+                 ([Shard(0), Replicate()], None, None, None))):
+            kw = {"kv_len": 5} if fn is decode_attention.decode_attention else {}
+            d_args = [distribute_tensor(t, mesh, pl) if pl is not None else t
+                      for t, pl in zip(args, pls)]
+            got, want = fn(*d_args, **kw), plain_fn(*args, **kw)
+            errs.append(float((full(got) - want).abs().max()) / max(1.0, float(want.abs().max())))
+    out["serving_plain"] = max(errs)
 
 
 def analysis(out):

@@ -1244,3 +1244,35 @@ def test_shard_map_moe_on_card_equals_plain_dispatch(arch):
         torch.testing.assert_close(got, want, atol=5e-5, rtol=0)
     finally:
         dist.destroy_process_group()
+
+
+@pytest.mark.cuda
+def test_serving_kernels_refuse_dtensors_on_card():
+    """decode_attention, paged_attention and awq_matmul have no caller
+    under a mesh on the card: a DTensor on the card's (1, 1) mesh raises
+    NotImplementedError, before anything launches (a DTensor of CPU or
+    meta shards takes the plain version instead)."""
+    _card()
+    import torch.distributed as dist
+    from torch.distributed.tensor import distribute_tensor
+
+    from repro_torch.launch.mesh import make_local_mesh
+
+    mesh = make_local_mesh()
+    try:
+        rep = [torch.distributed.tensor.Replicate()] * 2
+        dq = distribute_tensor(torch.randn(2, 4, 1, 16, device="cuda"), mesh, rep)
+        dkv = distribute_tensor(torch.randn(2, 2, 16, 16, device="cuda"), mesh, rep)
+        tables = torch.zeros(2, 1, dtype=torch.int32, device="cuda")
+        dx = distribute_tensor(torch.randn(2, 128, device="cuda"), mesh, rep)
+        qw = ref.awq_pack(torch.randint(0, 16, (128, 32), device="cuda"))
+        s = torch.ones(1, 32, device="cuda")
+        before = (dec_k.launches, pa_k.launches, awq_k.launches)
+        for fn in (lambda: dec_k.decode_attention(dq, dkv, dkv, kv_len=4),
+                   lambda: pa_k.paged_attention(dq, dkv, dkv, block_tables=tables, kv_len=4),
+                   lambda: awq_k.awq_matmul(dx, qw, s, s)):
+            with pytest.raises(NotImplementedError, match="no DTensor on the card"):
+                fn()
+        assert (dec_k.launches, pa_k.launches, awq_k.launches) == before
+    finally:
+        dist.destroy_process_group()

@@ -204,5 +204,10 @@ def test_kernel_wrappers_on_dtensors_match_plain(ranks, case):
 
 
 def test_serving_kernels_refuse_dtensors(ranks):
+    """decode_attention, paged_attention and awq_matmul refuse DTensors on
+    the card only (``tests/test_torch_cuda.py``): on DTensors of CPU
+    shards, as on the dry-run's meta DTensors, they run their plain
+    versions as DTensor ops, equal to the plain versions on the whole
+    tensors within 1e-5 of max(1, |value|)."""
     for out in ranks[0]:
-        assert out["serving_refused"] == 3
+        assert out["serving_plain"] <= 1e-5, out["serving_plain"]

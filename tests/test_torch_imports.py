@@ -55,7 +55,8 @@ def test_importing_the_port_loads_no_jax():
             "repro_torch.configs.llama_3_2_vision_11b, "
             "repro_torch.serving.prng, repro_torch.launch.serve, "
             "repro_torch.training, repro_torch.kernels.flash_attention, "
-            "repro_torch.launch.train, repro_torch.distributed, "
+            "repro_torch.launch.train, repro_torch.launch.dryrun, repro_torch.launch.perf, "
+            "repro_torch.distributed, "
             "repro_torch.distributed.sharding, repro_torch.distributed.fault, "
             "repro_torch.distributed.local_shards, "
             "repro_torch.launch.mesh, repro_torch.launch.analysis; "

@@ -154,9 +154,14 @@ def test_moe_and_mla_modules_carry_the_reference_names(mod):
 JAX_ONLY = {"distributed.sharding": {"get_abstract_mesh", "shard_map_compat"},
             "launch.analysis": {"analyze_hlo"}}
 # the port's own: the placements DTensor takes, its active-mesh context,
-# the uneven-heads gather, and analyze_hlo's counterpart
-PORT_ONLY = {"distributed.sharding": {"to_placements", "use_mesh", "gather_unless_divides"},
-             "launch.analysis": {"analyze_step"}}
+# the uneven-heads gathers of a tensor and of its gradient, the gradient
+# laid out as its tensor, analyze_hlo's counterpart, and the dry-run's
+# walk on meta DTensors over a fake world
+PORT_ONLY = {"distributed.sharding": {"to_placements", "use_mesh", "gather_unless_divides",
+                                      "gather_grad_unless_divides", "grad_like"},
+             "launch.analysis": {"analyze_step"},
+             "launch.dryrun": {"accum_for", "sharded_meta", "lay_out", "local_bytes", "combine",
+                               "cell_step", "fake_world", "cell_config", "cell_record"}}
 
 
 @pytest.mark.parametrize("mod", ["distributed.sharding", "distributed.fault", "launch.mesh",
@@ -185,6 +190,37 @@ def test_distribution_modules_carry_the_reference_names(mod):
         import repro_torch.distributed as port_pkg
         assert port_pkg.__all__ == ref_pkg.__all__
         assert port.DEFAULT_RULES == ref.DEFAULT_RULES
+
+
+@pytest.mark.parametrize("mod", ["launch.dryrun", "launch.perf"])
+def test_dryrun_modules_carry_the_reference_names(mod):
+    """The dry-run and the optimized cells define the reference's public
+    functions with the same leading parameters, beside the port's own
+    walk. Importing the reference's modules appends a host device count
+    to XLA_FLAGS; it is put back, so this process's JAX keeps its own."""
+    import importlib
+    import inspect
+    import os
+
+    flags = os.environ.get("XLA_FLAGS")
+    try:
+        ref = importlib.import_module(f"repro.{mod}")
+    finally:
+        if flags is None:
+            os.environ.pop("XLA_FLAGS", None)
+        else:
+            os.environ["XLA_FLAGS"] = flags
+    port = importlib.import_module(f"repro_torch.{mod}")
+
+    def public(m):
+        return {n for n, f in vars(m).items() if inspect.isfunction(f)
+                and f.__module__ == m.__name__ and not n.startswith("_")}
+
+    assert public(port) == public(ref) | PORT_ONLY.get(mod, set())
+    for name in sorted(public(ref)) + (["_extra_from_specs"] if mod == "launch.dryrun" else []):
+        want = [p for p in inspect.signature(getattr(ref, name)).parameters]
+        got = [p for p in inspect.signature(getattr(port, name)).parameters]
+        assert got[:len(want)] == want, name
 
 
 def test_configs_and_models_export_the_reference_names():
